@@ -1,0 +1,139 @@
+"""Device-resident padded grid arrays + stencil classes.
+
+Counterpart of ninpol_tpu/_methods/device_grid.py.  The reference walks
+ragged CSR adjacency per node (e.g. gls.pyx:161-219); here the grid's CSR
+structures become padded 2D tensors on the target device once, and target
+nodes are sorted into (E, F) stencil-size classes so a batch of nodes
+shares one padded shape.  The GLS solve kernel takes E and F at run time,
+so the classes only bound the padding (and with it memory and work).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .._grid.topology import csr_to_padded
+
+
+def default_device():
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def _round_up(x, m):
+    return int(-(-int(x) // m) * m)
+
+
+# Stencil-size ladder: a class's E and F snap UP to a ladder value, so
+# classes (and the padding inside them) match the reference's.
+_SIZE_LADDER = (4, 8, 12, 16, 20, 24, 28, 32, 36, 40, 48, 56, 64, 80, 96,
+                112, 128, 160, 192, 224, 256)
+
+
+def _ladder_up(x):
+    x = int(x)
+    for v in _SIZE_LADDER:
+        if v >= x:
+            return v
+    return _round_up(x, 64)
+
+
+class DeviceGrid:
+    """Padded mirrors of the Grid structures the GLS method reads, on
+    ``device`` (default: CUDA when available)."""
+
+    def __init__(self, grid, device=None):
+        self.grid = grid
+        self.device = torch.device(device) if device is not None \
+            else default_device()
+        self.dim = grid.dim
+        self.n_points = grid.n_points
+        self.n_elems = grid.n_elems
+        self.n_faces = grid.n_faces
+
+        # Host padded adjacency (int32: indices < 2^31).  Widths round up
+        # to the ladder so a class's E/F never exceeds the array width.
+        self.esup2d_h = csr_to_padded(
+            grid.esup_ptr, grid.esup,
+            _ladder_up(max(grid.MX_ELEMENTS_PER_POINT, 1))
+        ).astype(np.int32)
+        self.esup_cnt_h = np.diff(grid.esup_ptr).astype(np.int32)
+        self.fsup2d_h = csr_to_padded(
+            grid.fsup_ptr, grid.fsup,
+            _ladder_up(max(grid.MX_FACES_PER_POINT, 1))
+        ).astype(np.int32)
+        self.fsup_cnt_h = np.diff(grid.fsup_ptr).astype(np.int32)
+        esuf_w = max(grid.MX_ELEMENTS_PER_FACE, 2)
+        self.esuf2d_h = csr_to_padded(
+            grid.esuf_ptr, grid.esuf, esuf_w).astype(np.int32)
+
+        put = self.put
+        self.esup2d = put(self.esup2d_h)
+        self.esup_cnt = put(self.esup_cnt_h)
+        self.fsup2d = put(self.fsup2d_h)
+        self.fsup_cnt = put(self.fsup_cnt_h)
+        # the esuf cell pair of every face (second < 0: boundary face)
+        self.esuf_pair = put(np.ascontiguousarray(self.esuf2d_h[:, :2]))
+        self.point_coords = put(np.asarray(grid.point_coords, np.float64))
+        self.centroids = put(np.asarray(grid.centroids, np.float64))
+        # [normal | center] per face, float64
+        self.face_geo = put(np.concatenate(
+            [np.asarray(grid.normal_faces, np.float64),
+             np.asarray(grid.faces_centers, np.float64)], axis=1))
+
+    def put(self, a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
+
+    def assembling(self, target_points):
+        """Host mask of target nodes whose GLS system has a face that is
+        not on the boundary (n_bface < n_face, gls.pyx:266); the others
+        get zero weights without a solve."""
+        g = self.grid
+        counts = np.diff(g.fsup_ptr)
+        owner = np.repeat(np.arange(g.n_points), counts)
+        n_bface = np.bincount(
+            owner, weights=np.asarray(g.boundary_faces)[g.fsup] != 0,
+            minlength=g.n_points)
+        tp = np.asarray(target_points)
+        return n_bface[tp] < self.fsup_cnt_h[tp]
+
+    def buckets(self, target_points, active_mask, max_buckets=3,
+                min_bucket=2048):
+        """Sort the *active* positions of ``target_points`` into stencil
+        classes.
+
+        Returns a list of dicts with
+          pos    positions into target_points (np.int64)
+          nodes  global node ids (np.int64)
+          E, F   the class's padded cell and face counts
+
+        Classes are quantile cuts on n_elem snapped up to the ladder (the
+        reference's cuts); a class smaller than ``min_bucket`` joins the
+        next larger one.  Chunking a class is the caller's business."""
+        target_points = np.asarray(target_points)
+        pos_all = np.nonzero(active_mask)[0]
+        if len(pos_all) == 0:
+            return []
+        nodes_all = target_points[pos_all].astype(np.int64)
+        ne = self.esup_cnt_h[nodes_all].astype(np.int64)
+        nf = self.fsup_cnt_h[nodes_all].astype(np.int64)
+
+        qs = [0.5, 0.85, 1.0][-max_buckets:]
+        cuts = sorted({_ladder_up(np.quantile(ne, q)) for q in qs})
+        assigned = np.full(len(pos_all), -1)
+        for ci, cut in enumerate(cuts):
+            assigned[(assigned < 0) & (ne <= cut)] = ci
+
+        out = []
+        carry = np.zeros(len(pos_all), dtype=bool)
+        for ci in range(len(cuts)):
+            sel = (assigned == ci) | carry
+            if ci + 1 < len(cuts) and sel.sum() < min_bucket:
+                carry = sel
+                continue
+            carry = np.zeros(len(pos_all), dtype=bool)
+            if not sel.any():
+                continue
+            out.append({"pos": pos_all[sel], "nodes": nodes_all[sel],
+                        "E": _ladder_up(ne[sel].max()),
+                        "F": _ladder_up(nf[sel].max())})
+        return out

@@ -1,0 +1,454 @@
+/*
+ * GLS per-node solve for NVIDIA Hopper (sm_90a).
+ *
+ * Replaces ninpol_tpu/ops/pallas_chol.py::gls_solve_fused (its Pallas body
+ * _solve_kernel).  It computes what that kernel computes, not its block
+ * structure; ninpol_tpu_torch/ops/gls_solve.py holds the contract, the
+ * wrapper and the plain PyTorch version (gls_solve_reference).
+ *
+ * Per node (one thread block per node):
+ *   1. load the node's float64 pieces; find each face's local cell slots
+ *      (the one-hot face->cell incidences of the TPU kernel);
+ *   2. assemble the dense float32 system A (m x n), m = E + 3F (+F Neumann
+ *      rows), n = 3E + 1, columns 3e+c per cell gradient, 3E the constant;
+ *   3. shifted CholeskyQR2 in float32: column equilibration D, G1 = A^T A +
+ *      diag(dead + shift), clamped Cholesky, L1^-1, Q = A L1^-T (in place
+ *      over A), G2 = Q^T Q + diag(dead), clamped Cholesky L2, and the
+ *      combined factor Lc = L2^-1 L1^-1, so M = D Lc^T Lc D;
+ *   4. float64 refinement: y = M e_{n-1}, then `sweeps` times
+ *      y += M (e_{n-1} - A^T A y), with A applied structurally from the
+ *      unscaled float64 pieces;
+ *   5. w = cell rows of A y, wn = sum_f nm_f (Neumann row f . y), rnorm =
+ *      ||dy|| / ||y|| (1 when a pivot was clamped: dmax > 3e4).
+ *
+ * What bounds it on an H100: arithmetic on the CUDA cores, not memory.  A
+ * tetrahedral Neumann node (E = 24, F = 36: m = 168, n = 73) reads about
+ * 6 KB of inputs but does ~1.6 M float32 FMAs (three m n^2 / 2 products:
+ * Gram1, Q, Gram2; plus the two factorizations and inverses), and the
+ * Cholesky steps are sequential, one block-wide barrier per pivot.  The
+ * design keeps every intermediate (A, G, the factors, the float64
+ * vectors) in shared memory, so device memory sees only the inputs and
+ * the outputs; a class too large for shared memory puts A, G and L in a
+ * per-node workspace the wrapper allocates.  Tensor cores (wgmma) and
+ * warp-per-node layouts are left for later work.
+ */
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr float kSickDinv = 3e4f;
+constexpr size_t kStaticSmemMargin = 64;
+
+struct Params {
+  const double *dk, *l1, *l2, *t1m, *tt, *lb, *nm;
+  const int *pair, *ks;
+  const unsigned char *cv, *fv, *isneu, *valid;
+  double *w, *wn, *rnorm;
+  float *ws;             // per-node workspace in device memory, or null
+  long long ws_stride;   // floats per node in ws
+  int E, F, with_neumann, sweeps;
+  float tiny, shift;
+};
+
+struct Layout {
+  int n, m;
+  size_t small_bytes;     // float64 pieces + vectors, float32 vectors, ints
+  long long big_floats;   // A (m x n), G (n x n), L (n x n)
+};
+
+__host__ __device__ inline Layout make_layout(int E, int F, int wneu) {
+  Layout lay;
+  lay.n = 3 * E + 1;
+  lay.m = E + (wneu ? 4 : 3) * F;
+  const size_t n = lay.n;
+  // dk; l1, l2, t1m, tt; lb, nm; y, r, dy; tcell; r1, r2, r3, tn
+  const size_t nd = 3 * E + 12 * F + (wneu ? 4 * F : 0) + 3 * n + E + 4 * F;
+  // D, dead, dinv1, dinv2, v, u; one Q row per warp
+  const size_t nf = 6 * n + kWarps * n;
+  const size_t ni = 3 * F;   // I1, I2, Ib
+  lay.small_bytes = (nd * 8 + nf * 4 + ni * 4 + 15) / 16 * 16;
+  lay.big_floats = ((long long)lay.m * lay.n + 2LL * lay.n * lay.n + 3) / 4 * 4;
+  return lay;
+}
+
+// G (lower triangle) = A^T A + diag(dead + diag_add)
+__device__ void gram(const float* A, float* G, const float* dead,
+                     float diag_add, int m, int n) {
+  for (int idx = threadIdx.x; idx < n * n; idx += kThreads) {
+    const int i = idx / n, j = idx - i * n;
+    if (j > i) continue;
+    float s = 0.f;
+    for (int r = 0; r < m; ++r)
+      s = fmaf(A[(size_t)r * n + i], A[(size_t)r * n + j], s);
+    if (i == j) s += dead[i] + diag_add;
+    G[idx] = s;
+  }
+  __syncthreads();
+}
+
+// Right-looking Cholesky of the lower triangle of G, in place, pivots
+// clamped at tiny: on exit G[i][k] (i > k) = L[i][k] and
+// dinv[k] = rsqrt(max(pivot_k, tiny)), which every later solve uses as
+// the inverse diagonal.
+__device__ void chol_clamped(float* G, float* dinv, int n, float tiny) {
+  for (int k = 0; k < n; ++k) {
+    const float d = rsqrtf(fmaxf(G[k * n + k], tiny));
+    for (int i = k + 1 + threadIdx.x; i < n; i += kThreads) G[i * n + k] *= d;
+    if (threadIdx.x == 0) dinv[k] = d;
+    __syncthreads();
+    const int t = n - k - 1;
+    for (int idx = threadIdx.x; idx < t * t; idx += kThreads) {
+      const int ii = idx / t, jj = idx - ii * t;
+      if (jj > ii) continue;
+      const int i = k + 1 + ii, j = k + 1 + jj;
+      G[i * n + j] = fmaf(-G[i * n + k], G[j * n + k], G[i * n + j]);
+    }
+    __syncthreads();
+  }
+}
+
+// X <- L^-1 X for lower-triangular X (identity when `identity`), L the
+// strictly-lower part of a chol_clamped factor with inverse diagonal dinv.
+// One thread per column: forward substitution, no barriers inside.
+__device__ void lower_solve_cols(const float* L, const float* dinv, float* X,
+                                 int n, bool identity) {
+  for (int j = threadIdx.x; j < n; j += kThreads) {
+    if (identity)
+      for (int i = 0; i < j; ++i) X[i * n + j] = 0.f;
+    for (int i = j; i < n; ++i) {
+      float s = identity ? (i == j ? 1.f : 0.f) : X[i * n + j];
+      for (int q = j; q < i; ++q) s = fmaf(-L[i * n + q], X[q * n + j], s);
+      X[i * n + j] = s * dinv[i];
+    }
+  }
+  __syncthreads();
+}
+
+// out = D Lc^T Lc D rin: float32 preconditioner, float64 in and out
+__device__ void apply_M(const double* rin, double* out, const float* Lc,
+                        const float* D, float* v, float* u, int n) {
+  for (int j = threadIdx.x; j < n; j += kThreads)
+    v[j] = (float)rin[j] * D[j];
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    float s = 0.f;
+    for (int k = 0; k <= i; ++k) s = fmaf(Lc[i * n + k], v[k], s);
+    u[i] = s;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < n; k += kThreads) {
+    float s = 0.f;
+    for (int i = k; i < n; ++i) s = fmaf(Lc[i * n + k], u[i], s);
+    out[k] = (double)(s * D[k]);
+  }
+  __syncthreads();
+}
+
+struct Node {
+  int E, F, n;
+  const double *dk, *l1, *l2, *t1m, *tt, *lb;
+  const unsigned char* cv;
+  const int *I1, *I2, *Ib;
+  double *tcell, *r1, *r2, *r3, *tn;
+};
+
+// Row images of A y in float64: tcell (cell rows), r1/r2/r3 (the three
+// rows of each face), tn (Neumann rows).
+__device__ void apply_A(const Node& nd, const double* y) {
+  const int E = nd.E, F = nd.F;
+  for (int i = threadIdx.x; i < E + F; i += kThreads) {
+    if (i < E) {
+      const double* d = nd.dk + 3 * i;
+      nd.tcell[i] = nd.cv[i]
+          ? d[0] * y[3 * i] + d[1] * y[3 * i + 1] + d[2] * y[3 * i + 2] + y[3 * E]
+          : 0.0;
+      continue;
+    }
+    const int f = i - E;
+    double g1[3] = {0.0, 0.0, 0.0}, g2[3] = {0.0, 0.0, 0.0};
+    if (nd.I1[f] >= 0)
+      for (int c = 0; c < 3; ++c) g1[c] = y[3 * nd.I1[f] + c];
+    if (nd.I2[f] >= 0)
+      for (int c = 0; c < 3; ++c) g2[c] = y[3 * nd.I2[f] + c];
+    double a = 0.0, b = 0.0, q = 0.0, t = 0.0;
+    for (int c = 0; c < 3; ++c) {
+      const int o = 3 * f + c;
+      const double dd = g2[c] - g1[c];
+      a += nd.l2[o] * g2[c] - nd.l1[o] * g1[c];
+      b += nd.t1m[o] * dd;
+      q += nd.tt[o] * dd;
+    }
+    if (nd.Ib[f] >= 0)
+      for (int c = 0; c < 3; ++c) t -= nd.lb[3 * f + c] * y[3 * nd.Ib[f] + c];
+    nd.r1[f] = a;
+    nd.r2[f] = b;
+    nd.r3[f] = q;
+    nd.tn[f] = t;
+  }
+  __syncthreads();
+}
+
+// r = e_{n-1} - A^T (A y), structurally in float64 (overwrites the row images)
+__device__ void residual(const Node& nd, const double* y, double* r) {
+  apply_A(nd, y);
+  const int E = nd.E, F = nd.F, n = nd.n;
+  for (int j = threadIdx.x; j < n; j += kThreads) {
+    double s = 0.0;
+    if (j < 3 * E) {
+      const int e = j / 3, c = j - 3 * e;
+      s = nd.dk[j] * nd.tcell[e];
+      for (int f = 0; f < F; ++f) {
+        const int o = 3 * f + c;
+        if (nd.I1[f] == e)
+          s -= nd.l1[o] * nd.r1[f] + nd.t1m[o] * nd.r2[f] + nd.tt[o] * nd.r3[f];
+        if (nd.I2[f] == e)
+          s += nd.l2[o] * nd.r1[f] + nd.t1m[o] * nd.r2[f] + nd.tt[o] * nd.r3[f];
+        if (nd.Ib[f] == e) s -= nd.lb[o] * nd.tn[f];
+      }
+    } else {
+      for (int e = 0; e < E; ++e) s += nd.tcell[e];
+    }
+    r[j] = (j == n - 1 ? 1.0 : 0.0) - s;
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads) gls_solve_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_flag[2];   // active, sick
+  const int E = p.E, F = p.F;
+  const bool wneu = p.with_neumann != 0;
+  const Layout lay = make_layout(E, F, p.with_neumann);
+  const int n = lay.n, m = lay.m;
+  const int tid = threadIdx.x;
+  const long long b = blockIdx.x;
+
+  double* dk = reinterpret_cast<double*>(smem);
+  double* l1 = dk + 3 * E;
+  double* l2 = l1 + 3 * F;
+  double* t1m = l2 + 3 * F;
+  double* tt = t1m + 3 * F;
+  double* lb = tt + 3 * F;
+  double* nm = lb + (wneu ? 3 * F : 0);
+  double* y = nm + (wneu ? F : 0);
+  double* r = y + n;
+  double* dy = r + n;
+  double* tcell = dy + n;
+  double* r1 = tcell + E;
+  double* r2 = r1 + F;
+  double* r3 = r2 + F;
+  double* tn = r3 + F;
+  float* D = reinterpret_cast<float*>(tn + F);
+  float* dead = D + n;
+  float* dinv1 = dead + n;
+  float* dinv2 = dinv1 + n;
+  float* v = dinv2 + n;
+  float* u = v + n;
+  float* qtmp = u + n;
+  int* I1 = reinterpret_cast<int*>(qtmp + kWarps * n);
+  int* I2 = I1 + F;
+  int* Ib = I2 + F;
+  float* A = p.ws ? p.ws + b * p.ws_stride
+                  : reinterpret_cast<float*>(smem + lay.small_bytes);
+  float* G = A + (size_t)m * n;
+  float* L = G + (size_t)n * n;
+
+  // ---- 1. inputs and local incidence
+  const unsigned char* cvb = p.cv + b * E;
+  const int* ksb = p.ks + b * E;
+  const int* pairb = p.pair + b * 2 * F;
+  const unsigned char* fvb = p.fv + b * F;
+  const bool neu = p.isneu[b] != 0;
+  for (int i = tid; i < 3 * E; i += kThreads) dk[i] = p.dk[b * 3 * E + i];
+  for (int i = tid; i < 3 * F; i += kThreads) {
+    const long long o = b * 3 * F + i;
+    l1[i] = p.l1[o];
+    l2[i] = p.l2[o];
+    t1m[i] = p.t1m[o];
+    tt[i] = p.tt[o];
+    if (wneu) lb[i] = p.lb[o];
+  }
+  if (wneu)
+    for (int f = tid; f < F; f += kThreads) nm[f] = p.nm[b * F + f];
+  for (int f = tid; f < F; f += kThreads) {
+    const int k1 = pairb[2 * f], k2 = pairb[2 * f + 1];
+    const bool interior = fvb[f] && k2 >= 0;
+    const bool bneu = wneu && neu && fvb[f] && k2 < 0;
+    int i1 = -1, i2 = -1, ib = -1;
+    for (int e = 0; e < E; ++e) {
+      if (!cvb[e]) continue;
+      if (interior && ksb[e] == k1) i1 = e;
+      if (interior && ksb[e] == k2) i2 = e;
+      if (bneu && ksb[e] == k1) ib = e;
+    }
+    I1[f] = i1;
+    I2[f] = i2;
+    Ib[f] = ib;
+  }
+  if (tid == 0) {
+    int n_face = 0, n_bface = 0;
+    for (int f = 0; f < F; ++f)
+      if (fvb[f]) {
+        ++n_face;
+        if (pairb[2 * f + 1] < 0) ++n_bface;
+      }
+    s_flag[0] = p.valid[b] != 0 && !(n_bface >= n_face);
+  }
+  __syncthreads();
+  if (!s_flag[0]) {
+    for (int e = tid; e < E; e += kThreads) p.w[b * E + e] = 0.0;
+    if (tid == 0) {
+      p.wn[b] = 0.0;
+      p.rnorm[b] = 0.0;
+    }
+    return;
+  }
+
+  // ---- 2. float32 system rows
+  for (long long i = tid; i < (long long)m * n; i += kThreads) A[i] = 0.f;
+  __syncthreads();
+  for (int e = tid; e < E; e += kThreads) {
+    float* row = A + (size_t)e * n;
+    for (int c = 0; c < 3; ++c) row[3 * e + c] = (float)dk[3 * e + c];
+    row[3 * E] = cvb[e] ? 1.f : 0.f;
+  }
+  for (int f = tid; f < F; f += kThreads) {
+    float* ra = A + (size_t)(E + 3 * f) * n;
+    for (int c = 0; c < 3; ++c) {
+      const int o = 3 * f + c;
+      if (I1[f] >= 0) {
+        const int col = 3 * I1[f] + c;
+        ra[col] = -(float)l1[o];
+        ra[n + col] = -(float)t1m[o];
+        ra[2 * n + col] = -(float)tt[o];
+      }
+      if (I2[f] >= 0) {
+        const int col = 3 * I2[f] + c;
+        ra[col] = (float)l2[o];
+        ra[n + col] = (float)t1m[o];
+        ra[2 * n + col] = (float)tt[o];
+      }
+      if (Ib[f] >= 0)
+        A[(size_t)(E + 3 * F + f) * n + 3 * Ib[f] + c] = -(float)lb[o];
+    }
+  }
+  __syncthreads();
+
+  // ---- 3. shifted CholeskyQR2 preconditioner (float32)
+  for (int j = tid; j < n; j += kThreads) {
+    float s = 0.f;
+    for (int i = 0; i < m; ++i) {
+      const float a = A[(size_t)i * n + j];
+      s = fmaf(a, a, s);
+    }
+    dead[j] = s == 0.f ? 1.f : 0.f;
+    D[j] = s == 0.f ? 0.f : rsqrtf(s);
+  }
+  __syncthreads();
+  for (long long i = tid; i < (long long)m * n; i += kThreads) A[i] *= D[i % n];
+  __syncthreads();
+  gram(A, G, dead, p.shift, m, n);
+  chol_clamped(G, dinv1, n, p.tiny);
+  lower_solve_cols(G, dinv1, L, n, true);          // L <- L1^-1
+  {
+    // Q = A L1^-T in place over A, one row per warp
+    const int warp = tid >> 5, lane = tid & 31;
+    float* tmp = qtmp + warp * n;
+    for (int row = warp; row < m; row += kWarps) {
+      float* a = A + (size_t)row * n;
+      for (int j = lane; j < n; j += 32) {
+        float s = 0.f;
+        for (int k = 0; k <= j; ++k) s = fmaf(L[j * n + k], a[k], s);
+        tmp[j] = s;
+      }
+      __syncwarp();
+      for (int j = lane; j < n; j += 32) a[j] = tmp[j];
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  gram(A, G, dead, 0.f, m, n);
+  chol_clamped(G, dinv2, n, p.tiny);
+  lower_solve_cols(G, dinv2, L, n, false);         // L <- L2^-1 L1^-1
+  if (tid == 0) {
+    float dmax = 0.f;
+    for (int k = 0; k < n; ++k)
+      dmax = fmaxf(dmax, fmaxf(dinv1[k], dinv1[k] * dinv2[k]));
+    s_flag[1] = dmax > kSickDinv;
+  }
+
+  // ---- 4. float64 refinement sweeps
+  const Node nd{E, F, n, dk, l1, l2, t1m, tt, lb, cvb, I1, I2, Ib,
+                tcell, r1, r2, r3, tn};
+  for (int j = tid; j < n; j += kThreads) r[j] = j == n - 1 ? 1.0 : 0.0;
+  __syncthreads();
+  apply_M(r, y, L, D, v, u, n);
+  for (int s = 0; s < p.sweeps; ++s) {
+    residual(nd, y, r);
+    apply_M(r, dy, L, D, v, u, n);
+    for (int j = tid; j < n; j += kThreads) y[j] += dy[j];
+    __syncthreads();
+  }
+  const double* dlast = p.sweeps > 0 ? dy : y;
+
+  // ---- 5. outputs
+  apply_A(nd, y);
+  for (int e = tid; e < E; e += kThreads) p.w[b * E + e] = tcell[e];
+  if (tid == 0) {
+    double dy2 = 0.0, y2 = 0.0;
+    for (int j = 0; j < n; ++j) {
+      dy2 += dlast[j] * dlast[j];
+      y2 += y[j] * y[j];
+    }
+    double rn = sqrt(dy2) / sqrt(fmax(y2, 1e-30));
+    if (s_flag[1]) rn = 1.0;
+    double wsum = 0.0;
+    if (wneu)
+      for (int f = 0; f < F; ++f) wsum += nm[f] * tn[f];
+    p.wn[b] = wsum;
+    p.rnorm[b] = rn;
+  }
+}
+
+}  // namespace
+
+// Floats of device workspace per node when a class does not fit in shared
+// memory; 0 when it does (the kernel then needs no workspace).
+extern "C" long long gls_solve_workspace_floats(int E, int F,
+                                                int with_neumann) {
+  const Layout lay = make_layout(E, F, with_neumann);
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const size_t all = lay.small_bytes + (size_t)lay.big_floats * 4;
+  return all + kStaticSmemMargin <= (size_t)optin ? 0 : lay.big_floats;
+}
+
+// Launch on `stream`; returns the cudaError_t of the launch (0 on success).
+extern "C" int gls_solve_launch(
+    const double* dk, const double* l1, const double* l2, const double* t1m,
+    const double* tt, const double* lb, const double* nm, const int* pair,
+    const int* ks, const unsigned char* cv, const unsigned char* fv,
+    const unsigned char* isneu, const unsigned char* valid, double* w,
+    double* wn, double* rnorm, float* ws, long long ws_stride, int B, int E,
+    int F, int with_neumann, int sweeps, double tiny, double shift,
+    void* stream) {
+  const Layout lay = make_layout(E, F, with_neumann);
+  if (B <= 0 || E <= 0 || F <= 0 || sweeps < 0 ||
+      (with_neumann && (lb == nullptr || nm == nullptr)) ||
+      (ws != nullptr && ws_stride < lay.big_floats))
+    return (int)cudaErrorInvalidValue;
+  Params p{dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu, valid,
+           w, wn, rnorm, ws, ws_stride, E, F, with_neumann, sweeps,
+           (float)tiny, (float)shift};
+  const size_t smem =
+      lay.small_bytes + (ws ? 0 : (size_t)lay.big_floats * sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      gls_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  gls_solve_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}

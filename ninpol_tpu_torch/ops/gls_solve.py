@@ -1,0 +1,320 @@
+"""The GLS per-node solve: hand-written CUDA kernel, its wrapper, and its
+plain PyTorch version.
+
+Replaces ``ninpol_tpu/ops/pallas_chol.py::gls_solve_fused`` (the Pallas
+kernel ``_solve_kernel``).  Per node it assembles the least-squares system
+of the GLS stencil, builds a shifted CholeskyQR2 preconditioner in
+float32, runs ``sweeps`` float64 refinement sweeps
+``y += M (b - A^T A y)`` with ``b = e_{n-1}``, and returns
+
+  w      (B, E)  the cell rows of ``A y``: the node's cell weights,
+  wn     (B,)    sum_f nm_f * (Neumann row f . y): the true Neumann weight,
+  rnorm  (B,)    ||dy|| / ||y|| of the last sweep, forced to 1 when a
+                 Cholesky pivot was clamped (the exact-fallback signal).
+
+Nodes that are not active (invalid, or with n_bface >= n_face) get zeros.
+
+Inputs (float64 unless stated, natural layout, B nodes):
+  dk (B,E,3)   centroid - x, masked by the cell-valid flag
+  l1, l2 (B,F,3)  K@N of the face's first/second cell, interior faces
+  t1m, tt (B,F,3) T1 and tau*T2, interior faces
+  lb (B,F,3), nm (B,F)  K@N of the owner and the Neumann mean on boundary
+                 faces; both None for an interior-only (no Neumann) unit
+  pair (B,F,2) int32  the face's cell pair (second < 0: boundary face)
+  ks (B,E) int32      the node's surrounding cells
+  cv (B,E), fv (B,F), isneu (B,), valid (B,)  bool masks
+
+Column basis: x_e at 3e + c (component c of cell e's gradient), the
+constant (the node value) at 3E.  Rows: E cell rows, then three rows per
+face (flux continuity, T1, tau*T2), then one Neumann row per face.
+
+Precision split (kept from the TPU kernel): the preconditioner is float32
+(equilibration, Gram1 + shift, clamped Cholesky and L1^-1, Q = A L1^-T,
+Gram2, L2, and every application of M = Lc^T Lc with Lc = L2^-1 L1^-1);
+the right-hand side, the solution, the structured residual with the
+unscaled A, and all outputs are float64.  Breakdown detection reads both
+rounds: dmax = max_k max(dinv1[k], dinv1[k] * dinv2[k]) > 3e4.
+
+On a CPU tensor ``gls_solve`` runs ``gls_solve_reference``; on a CUDA
+tensor it launches the kernel in ``csrc/gls_solve.cu`` (built with nvcc on
+first use) or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "gls_solve.cu")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+SICK_DINV = 3e4          # clamped-pivot flag threshold on diag(L^-1)
+
+_FLOAT_ARGS = ("dk", "l1", "l2", "t1m", "tt")
+_MASK_ARGS = ("cv", "fv", "isneu", "valid")
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+def node_active(pair, fv, valid):
+    """Valid nodes that assemble a system: a node with n_bface >= n_face
+    skips assembly (gls.pyx:266) and gets zero outputs."""
+    bnd = fv & (pair[..., 1] < 0)
+    return valid & ~(bnd.sum(dim=1) >= fv.sum(dim=1))
+
+
+def incidence(pair, ks, cv, fv, isneu):
+    """One-hot face->cell selectors (B, F, E) as float64: S1/S2 pick the
+    first/second cell of each interior face, Sb the owner (first) cell of
+    each boundary face of a Neumann node."""
+    k1, k2 = pair[..., 0], pair[..., 1]
+    interior = fv & (k2 >= 0)
+    bnd = fv & (k2 < 0)
+    m2 = interior[:, :, None] & cv[:, None, :]
+    S1 = (ks[:, None, :] == torch.where(interior, k1, 0)[:, :, None]) & m2
+    S2 = (ks[:, None, :] == torch.where(interior, k2, 0)[:, :, None]) & m2
+    bmask = bnd & isneu[:, None]
+    Sb = ((ks[:, None, :] == torch.where(bmask, k1, 0)[:, :, None])
+          & bmask[:, :, None] & cv[:, None, :])
+    f64 = torch.float64
+    return S1.to(f64), S2.to(f64), Sb.to(f64)
+
+
+def assemble(dk, l1, l2, t1m, tt, lb, S1, S2, Sb, cv, active):
+    """Dense float64 system rows (B, m, n), m = E + 3F (+ F with Neumann
+    rows), n = 3E + 1, zeroed for inactive nodes."""
+    B, E, _ = dk.shape
+    F = l1.shape[1]
+    f64 = torch.float64
+    eyeE = torch.eye(E, dtype=f64, device=dk.device)
+    cell_grad = torch.einsum("ef,bec->befc", eyeE, dk).reshape(B, E, 3 * E)
+    cell_rows = torch.cat([cell_grad, cv.to(f64)[:, :, None]], dim=2)
+    rows1 = (torch.einsum("bfe,bfc->bfec", -S1, l1)
+             + torch.einsum("bfe,bfc->bfec", S2, l2))
+    dS = S2 - S1
+    rows2 = torch.einsum("bfe,bfc->bfec", dS, t1m)
+    rows3 = torch.einsum("bfe,bfc->bfec", dS, tt)
+    face_rows = torch.stack([rows1, rows2, rows3], dim=2).reshape(
+        B, 3 * F, 3 * E)
+    zcol = torch.zeros((B, 3 * F, 1), dtype=f64, device=dk.device)
+    blocks = [cell_rows, torch.cat([face_rows, zcol], dim=2)]
+    if lb is not None:
+        neu_rows = torch.einsum("bfe,bfc->bfec", -Sb, lb).reshape(
+            B, F, 3 * E)
+        blocks.append(torch.cat([neu_rows, zcol[:, :F]], dim=2))
+    return torch.cat(blocks, dim=1) * active.to(f64)[:, None, None]
+
+
+def _chol_clamped(G, tiny):
+    """Column-by-column Cholesky with pivots clamped at ``tiny``.
+
+    Returns the factor with its diagonal replaced by 1/dinv (the form
+    every later triangular solve uses) and dinv = rsqrt(max(pivot, tiny))
+    = diag(L^-1).  A clamped pivot shows up as dinv ~ 1/sqrt(tiny);
+    torch.linalg.cholesky would raise instead."""
+    B, n, _ = G.shape
+    L = torch.zeros_like(G)
+    dinv = torch.empty((B, n), dtype=G.dtype, device=G.device)
+    for k in range(n):
+        col = G[:, k:, k] - torch.einsum("bip,bp->bi", L[:, k:, :k],
+                                         L[:, k, :k])
+        d = torch.rsqrt(torch.clamp_min(col[:, 0], tiny))
+        L[:, k:, k] = col * d[:, None]
+        dinv[:, k] = d
+    L.diagonal(dim1=1, dim2=2).copy_(1.0 / dinv)
+    return L, dinv
+
+
+def gls_solve_reference(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv,
+                        isneu, valid, *, sweeps=3, tiny=1e-12,
+                        shift=1.5e-5):
+    """Plain PyTorch version of the kernel: the same function, as batched
+    dense torch ops (dense A, explicit factors)."""
+    B, E, _ = dk.shape
+    F = l1.shape[1]
+    n = 3 * E + 1
+    f32, f64 = torch.float32, torch.float64
+    S1, S2, Sb = incidence(pair, ks, cv, fv, isneu)
+    active = node_active(pair, fv, valid)
+    A = assemble(dk, l1, l2, t1m, tt, lb, S1, S2, Sb, cv, active)
+
+    # ---- float32 shifted CholeskyQR2 preconditioner
+    A32 = A.to(f32)
+    d2 = torch.sum(A32 * A32, dim=1)
+    dead = d2 == 0
+    D = torch.where(dead, 0.0, torch.rsqrt(torch.where(dead, 1.0, d2)))
+    As = A32 * D[:, None, :]
+    eye = torch.eye(n, dtype=f32, device=dk.device)
+    deadf = dead.to(f32)
+    G1 = As.transpose(1, 2) @ As + eye * (deadf + shift)[:, :, None]
+    L1, dinv1 = _chol_clamped(G1, tiny)
+    eyeb = eye.expand(B, n, n)
+    Li1 = torch.linalg.solve_triangular(L1, eyeb, upper=False)
+    Q = As @ Li1.transpose(1, 2)
+    G2 = Q.transpose(1, 2) @ Q + eye * deadf[:, :, None]
+    L2, dinv2 = _chol_clamped(G2, tiny)
+    Lc = torch.linalg.solve_triangular(L2, Li1, upper=False)
+    dmax = torch.maximum(dinv1.amax(dim=1), (dinv1 * dinv2).amax(dim=1))
+
+    def M(r):
+        v = r.to(f32) * D
+        u = torch.einsum("bij,bj->bi", Lc, v)
+        return (torch.einsum("bij,bi->bj", Lc, u) * D).to(f64)
+
+    def mul_G(y):
+        return torch.einsum("bmn,bm->bn", A, torch.einsum("bmn,bn->bm", A, y))
+
+    # ---- float64 refinement sweeps
+    b = torch.zeros((B, n), dtype=f64, device=dk.device)
+    b[:, n - 1] = 1.0
+    y = M(b)
+    dy = y
+    for _ in range(sweeps):
+        dy = M(b - mul_G(y))
+        y = y + dy
+    rnorm = torch.sqrt(torch.sum(dy * dy, dim=1)) / torch.sqrt(
+        torch.clamp_min(torch.sum(y * y, dim=1), 1e-30))
+    rnorm = torch.where(dmax > SICK_DINV, 1.0, rnorm)
+
+    t = torch.einsum("bmn,bn->bm", A, y)
+    w = t[:, :E]
+    if lb is not None:
+        wn = torch.sum(nm * t[:, E + 3 * F:], dim=1)
+    else:
+        wn = torch.zeros(B, dtype=f64, device=dk.device)
+    zero = torch.zeros((), dtype=f64, device=dk.device)
+    return (torch.where(active[:, None], w, zero),
+            torch.where(active, wn, zero),
+            torch.where(active, rnorm, zero))
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel: build, bind, launch
+# ---------------------------------------------------------------------------
+class _Library:
+    """The nvcc-built shared library, loaded with ctypes on first use."""
+
+    def __init__(self):
+        self.lib = None
+        self.build_seconds = None
+        self.build_log = ""
+
+    def get(self):
+        if self.lib is None:
+            self._build()
+        return self.lib
+
+    def _build(self):
+        with open(SOURCE, "rb") as f:
+            digest = hashlib.sha1(f.read()).hexdigest()[:16]
+        path = os.path.join(BUILD_DIR, f"gls_solve_{digest}.so")
+        t0 = time.perf_counter()
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+            tmp = f"{path}.{os.getpid()}.tmp"
+            out = subprocess.run(
+                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-o", tmp, SOURCE],
+                capture_output=True, text=True)
+            self.build_log = out.stdout + out.stderr
+            if out.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed building {SOURCE}:\n{self.build_log}")
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(path)
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.gls_solve_workspace_floats.argtypes = [ci, ci, ci]
+        lib.gls_solve_workspace_floats.restype = ctypes.c_longlong
+        lib.gls_solve_launch.argtypes = (
+            [vp] * 13 + [vp] * 3 + [vp, ctypes.c_longlong]
+            + [ci] * 5 + [ctypes.c_double] * 2 + [vp])
+        lib.gls_solve_launch.restype = ci
+        self.build_seconds = time.perf_counter() - t0
+        self.lib = lib
+
+
+library = _Library()
+
+
+def _check_inputs(t):
+    """Raise on anything the kernel does not take."""
+    dk = t["dk"]
+    if dk.dim() != 3 or dk.shape[2] != 3:
+        raise ValueError(f"dk must be (B, E, 3), got {tuple(dk.shape)}")
+    B, E, _ = dk.shape
+    F = t["l1"].shape[1] if t["l1"].dim() == 3 else -1
+    want = {"dk": (B, E, 3), "l1": (B, F, 3), "l2": (B, F, 3),
+            "t1m": (B, F, 3), "tt": (B, F, 3), "pair": (B, F, 2),
+            "ks": (B, E), "cv": (B, E), "fv": (B, F), "isneu": (B,),
+            "valid": (B,)}
+    dtypes = dict.fromkeys(_FLOAT_ARGS, torch.float64)
+    dtypes.update(dict.fromkeys(_MASK_ARGS, torch.bool))
+    dtypes.update(pair=torch.int32, ks=torch.int32)
+    if (t["lb"] is None) != (t["nm"] is None):
+        raise ValueError("lb and nm must both be given or both be None")
+    if t["lb"] is not None:
+        want.update(lb=(B, F, 3), nm=(B, F))
+        dtypes.update(lb=torch.float64, nm=torch.float64)
+    for name, shape in want.items():
+        x = t[name]
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+        if x.dtype != dtypes[name]:
+            raise ValueError(f"{name} must be {dtypes[name]}, got {x.dtype}")
+        if x.device != dk.device:
+            raise ValueError(f"{name} is on {x.device}, dk on {dk.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return B, E, F
+
+
+def gls_solve(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu, valid,
+              *, sweeps=3, tiny=1e-12, shift=1.5e-5):
+    """Solve B GLS node systems; see the module docstring for the
+    contract.  CPU tensors run the plain version, CUDA tensors the
+    kernel; ``gls_solve.launches`` counts kernel launches."""
+    t = dict(dk=dk, l1=l1, l2=l2, t1m=t1m, tt=tt, lb=lb, nm=nm, pair=pair,
+             ks=ks, cv=cv, fv=fv, isneu=isneu, valid=valid)
+    B, E, F = _check_inputs(t)
+    if dk.device.type == "cpu":
+        return gls_solve_reference(**t, sweeps=sweeps, tiny=tiny,
+                                   shift=shift)
+    if dk.device.type != "cuda":
+        raise ValueError(f"gls_solve runs on cpu or cuda, not {dk.device}")
+    f64 = torch.float64
+    w = torch.empty((B, E), dtype=f64, device=dk.device)
+    wn = torch.empty(B, dtype=f64, device=dk.device)
+    rnorm = torch.empty(B, dtype=f64, device=dk.device)
+    if B == 0:
+        return w, wn, rnorm
+    lib = library.get()
+    with_neumann = lb is not None
+    with torch.cuda.device(dk.device):
+        ws_floats = lib.gls_solve_workspace_floats(E, F, int(with_neumann))
+        ws = (torch.empty(B * ws_floats, dtype=torch.float32,
+                          device=dk.device) if ws_floats else None)
+        ptr = lambda x: None if x is None else x.data_ptr()
+        err = lib.gls_solve_launch(
+            ptr(dk), ptr(l1), ptr(l2), ptr(t1m), ptr(tt), ptr(lb), ptr(nm),
+            ptr(pair), ptr(ks), ptr(cv), ptr(fv), ptr(isneu), ptr(valid),
+            ptr(w), ptr(wn), ptr(rnorm), ptr(ws), ws_floats,
+            B, E, F, int(with_neumann), int(sweeps), float(tiny),
+            float(shift), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gls_solve kernel launch failed: CUDA error "
+                           f"{err} (B={B}, E={E}, F={F}, "
+                           f"with_neumann={with_neumann})")
+    gls_solve.launches += 1
+    return w, wn, rnorm
+
+
+gls_solve.launches = 0
