@@ -2,31 +2,50 @@
 
 Drives the port's GLS main path — the path bench.py times for ninpol_tpu:
 GLS weights with Neumann nodes, on the 1,886,592-cell tetrahedral mesh,
-through the public Interpolator API — and checks it:
+through the public Interpolator API — and its shard_geometry=True route
+(ninpol_tpu's unfused CholeskyQR2 composition), and checks both:
 
   1. prints the card (nvidia-smi name, power limit); requires CUDA;
-  2. builds the solve kernel (csrc/gls_solve.cu) with nvcc;
+  2. builds both kernel libraries with nvcc, in parallel:
+     csrc/gls_solve.cu (the fused solve) and csrc/cholqr.cu (gram,
+     chol_linv, round2_gram, prec_apply);
   3. builds bench.py's problem with the port's own meshgen: tetra_mesh(68),
      an ALH-style full-tensor K, u = x^2 + y^2 + z^2, a seeded (rng 0)
-     Dirichlet/Neumann boundary split;
-  4. kernel vs plain PyTorch version on one chunk of every
+     Dirichlet/Neumann boundary split; once for each route;
+  4. the solve kernel vs its plain PyTorch version on one chunk of every
      (E, F, with_neumann) class of the plan: w and wn agree to <= 1e-10
      scaled on the nodes both call converged, and the rnorm > 1e-11 sets
-     agree; prints both times;
-     then one chunk padded to (E, F) = (64, 96), too wide for shared
+     agree; prints both times, and the time of torch.linalg.lstsq on the
+     largest class's dense float64 system;
+     4b. one chunk padded to (E, F) = (64, 96), too wide for shared
      memory, so the kernel runs from its device workspace: same weights;
+     4c. each cholqr kernel vs its plain version on one chunk of every
+     class of the unfused route, on the inputs that route gives it: the
+     products to <= 1e-5 scaled by the per-node max of the same product
+     of the operands' magnitudes (|A|^T |A|, ..., |Lc|^T |Lc| |v|),
+     and to <= 1e-5 of the per-node max of the result itself (prec_apply
+     on a seeded random vector, as its route input cancels); the inverse
+     factors by backward error
+     max|X W X^T - I| (<= 10x the plain version's) with the same flagged
+     pivots; prints kernel, plain and one library call's times (CUDA
+     events);
   5. the main path: a warm-up prepare_interpolator, 3 timed device_out
      runs (torch.cuda.synchronize), interpolate() -> CSR; prints seconds,
-     Mnodes/s, n_bad and the kernel launch count, which must equal one
-     launch per chunk per run (so every class went through the kernel),
-     with no plain-version call; then one more run under torch.profiler
-     (device busy share, top kernels);
-  6. the delivered weights against the scipy dgels oracle on 256 sampled
-     nodes (128 interior, 128 Neumann; cond < 1e7): max scaled error
-     <= 1e-10, and interior rows sum to 1.
+     Mnodes/s, n_bad (which must be 0) and the kernel launch count, which
+     must equal one launch per chunk per run (so every class went through
+     the kernel), with no plain-version call; then one more run under
+     torch.profiler (device busy share, top kernels);
+     5b. the same for the shard_geometry=True route: per chunk per run
+     exactly 1 gram, 2 chol_linv, 1 round2_gram and 4 prec_apply launches,
+     no plain-version call and no solve-kernel launch; device-complete
+     seconds beside the fused route's; a profiled run;
+  6. the delivered weights of both routes against the scipy dgels oracle
+     on 256 sampled nodes (128 interior, 128 Neumann; cond < 1e7): max
+     scaled error <= 1e-10, interior rows sum to 1; and the unfused
+     route's weights against the fused route's, <= 1e-10 scaled.
 
-Any failing phase raises (non-zero exit).  The last two lines are the
-kernels JSON line and {"ok": true, "device": {...}}.
+Any failing phase raises (non-zero exit).  The last three lines are the
+card, the kernels JSON line and {"ok": true, "device": {...}}.
 
 Run: python3 chip_smoke.py            (options: --n N, the mesh size)
 """
@@ -36,6 +55,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -44,6 +64,22 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL_KERNEL = 1e-10     # kernel vs plain version, scaled by max |w|
 TOL_ORACLE = 1e-10     # delivered weights vs dgels, scaled (bench.py)
 RNORM_TOL = 1e-11      # the exact-fallback threshold (fallback_tol)
+# float32 cholqr products vs their plain versions, scaled per node by the
+# max of the operands' magnitude product: ~100 eps32 of room for another
+# summation order
+TOL_F32 = 1e-5
+CHOL_BACKWARD_RATIO = 10.0
+# nodes either route may send to the exact fallback: every node of this
+# problem converges in the fast solve on the H100 (tetra_mesh(68))
+MAX_BAD = 0
+# H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 off the tensor cores,
+# and HBM3 bandwidth; bound_ms takes the larger of the two times
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+SOLVE_KERNELS = ("gram_f32", "chol_linv_f32", "round2_gram_f32",
+                 "prec_apply_f32")
+PER_CHUNK = {"gram_f32": 1, "chol_linv_f32": 2, "round2_gram_f32": 1,
+             "prec_apply_f32": 4}
 
 
 def check(cond, msg):
@@ -59,7 +95,15 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def build_problem(n):
+def bound(flops, nbytes):
+    """The least time (ms) the card could take: the larger of the FP32
+    operations over the FP32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes),
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def build_problem(n, shard_geometry=False):
     """bench.py:33-101 with the port's meshgen and Interpolator: a
     ~6n^3-cell tet mesh, ALH-style varying full-tensor K, u = x^2+y^2+z^2,
     seeded Dirichlet/Neumann split, Neumann flux -(K grad u).n at
@@ -81,7 +125,7 @@ def build_problem(n):
     K[:, 2, 2] = x * x + y * y + 1
     sol = x ** 2 + y ** 2 + z ** 2
 
-    interp = Interpolator()
+    interp = Interpolator(shard_geometry=shard_geometry)
     mesh.cell_data = {"permeability": [K.reshape(-1, 9)], "u": [sol]}
     mesh.point_data = {}
     t0 = time.perf_counter()
@@ -147,8 +191,8 @@ def kernel_vs_plain(interp, tp):
     for c in classes:
         B = min(c["chunk"], len(c["nodes"]))
         nodes = torch.as_tensor(c["nodes"][:B], device=dgrid.device)
-        inp, _ = gls_gather(dgrid, face_table, nflag, nodes, c["E"], c["F"],
-                            c["with_neumann"])
+        inp, n_elem = gls_gather(dgrid, face_table, nflag, nodes, c["E"],
+                                 c["F"], c["with_neumann"])
         wk, wnk, rk = gs.gls_solve(**inp)
         wp, wnp, rp = gs.gls_solve_reference(**inp)
         torch.cuda.synchronize()
@@ -159,12 +203,25 @@ def kernel_vs_plain(interp, tp):
         same_set = bool(torch.equal(rk > RNORM_TOL, rp > RNORM_TOL))
         ms = cuda_ms(lambda: gs.gls_solve(**inp), 3)
         plain_ms = cuda_ms(lambda: gs.gls_solve_reference(**inp), 2)
-        row = {"E": c["E"], "F": c["F"], "with_neumann": c["with_neumann"],
+        # three m n^2/2-FMA products (Gram1, Q, Gram2), two clamped
+        # Cholesky factorizations and two triangular inverses (n^3/3 FLOP
+        # each); the float64 sweeps are O(m n) per node and left out
+        E, F = c["E"], c["F"]
+        m, n = E + (4 if c["with_neumann"] else 3) * F, 3 * E + 1
+        nbytes = (sum(x.nbytes for x in inp.values() if x is not None)
+                  + B * (E + 2) * 8)
+        bound_ms, bound_by = bound(B * (3 * m * n * n + 4 * n ** 3 / 3),
+                                   nbytes)
+        row = {"E": E, "F": F, "with_neumann": c["with_neumann"],
                "nodes_in_class": len(c["nodes"]), "chunk": B,
                "max_abs_err": err, "max_scaled_err": err / scale,
                "n_unconverged_kernel": int((rk > RNORM_TOL).sum()),
                "n_unconverged_plain": int((rp > RNORM_TOL).sum()),
-               "same_fallback_set": same_set, "ms": ms, "plain_ms": plain_ms}
+               "same_fallback_set": same_set, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None}
+        if c is max(classes, key=lambda c: len(c["nodes"])):
+            row["library_ms"] = lstsq_ms(inp, n_elem)
         print("# class " + json.dumps(row), flush=True)
         check(err / scale <= TOL_KERNEL,
               f"kernel vs plain: scaled error {err / scale:.3e} > "
@@ -173,6 +230,18 @@ def kernel_vs_plain(interp, tp):
                         f"in class {row}")
         rows.append(row)
     return classes, rows
+
+
+def lstsq_ms(inp, n_elem):
+    """One torch.linalg.lstsq(driver="gels") on the chunk's dense float64
+    exact system (gls_exact's: identity rows for the padding columns, the
+    cell identity and Neumann means as right-hand sides): the nearest
+    single library call to the solve kernel, not the same function (no
+    preconditioner, no refinement, a QR instead)."""
+    from ninpol_tpu_torch._methods.gls import exact_system
+
+    A, rhs = exact_system(inp, n_elem)
+    return cuda_ms(lambda: torch.linalg.lstsq(A, rhs, driver="gels"), 1)
 
 
 def pad_class(inp, E2, F2):
@@ -226,20 +295,211 @@ def workspace_path(interp, tp, classes):
           "workspace path changes the fallback set")
 
 
-def main_path(interp, tp, classes):
-    """Phase 5: the public entry points, counting kernel launches."""
+def scaled_err(x, ref, scale):
+    """max over nodes of max|x - ref| / max(scale), per node."""
+    d = (x - ref).abs().flatten(1).amax(dim=1)
+    s = scale.abs().flatten(1).amax(dim=1).clamp_min(1e-30)
+    return float((d / s).max())
+
+
+def flagged(X):
+    """Nodes whose inverse factor shows a clamped pivot, or overflowed."""
+    from ninpol_tpu_torch.ops.cholqr import SICK_DINV
+
+    return ~(X.diagonal(dim1=1, dim2=2).abs().amax(dim=1) <= SICK_DINV)
+
+
+def chol_backward_error(X, G, P, ok):
+    """max over the nodes ``ok`` of max|X W X^T - I| in float64, with
+    W = P^-1 G P^-T (W = G without P): how far X = L^-1 P is from an
+    exact inverse factor of G = L L^T."""
+    B, n, _ = G.shape
+    eye = torch.eye(n, dtype=torch.float64, device=G.device)
+    X, W = X.double(), G.double()
+    if P is not None:
+        Pi = torch.linalg.solve_triangular(P.double(), eye.expand(B, n, n),
+                                           upper=False)
+        W = Pi @ W @ Pi.transpose(1, 2)
+    R = (X @ W @ X.transpose(1, 2) - eye).abs().flatten(1).amax(dim=1)
+    return float(R[ok].max())
+
+
+def cholqr_vs_plain(interp, tp):
+    """Phase 4c: each cholqr kernel against its plain version on one chunk
+    of every class of the unfused route, on the inputs that route gives
+    it (the kernels' own stages feed the next kernel, as in a run)."""
+    from ninpol_tpu_torch._methods.gls import gls_gather
+    from ninpol_tpu_torch.ops import cholqr as cq
+    from ninpol_tpu_torch.ops.gls_solve import (assemble, incidence,
+                                                node_active)
+
+    dgrid = interp.device_grid
+    classes, face_table, nflag = interp.gls.plan(
+        dgrid, interp.cells_data, interp.points_data,
+        interp.variable_to_index, "u", tp)
+    rows = {k: [] for k in SOLVE_KERNELS}
+    f64 = torch.float64
+    for c in classes:
+        B = min(c["chunk"], len(c["nodes"]))
+        nodes = torch.as_tensor(c["nodes"][:B], device=dgrid.device)
+        inp, _ = gls_gather(dgrid, face_table, nflag, nodes, c["E"], c["F"],
+                            c["with_neumann"], tau_guard="norm")
+        S1, S2, Sb = incidence(inp["pair"], inp["ks"], inp["cv"], inp["fv"],
+                               inp["isneu"])
+        A = assemble(inp["dk"], inp["l1"], inp["l2"], inp["t1m"], inp["tt"],
+                     inp["lb"], S1, S2, Sb, inp["cv"],
+                     node_active(inp["pair"], inp["fv"], inp["valid"]))
+        pc = cq.cholqr_factors(A, cq.KERNELS)
+        As, G1, Li1, G2, Lc = (pc[k] for k in ("As", "G1", "Li1", "G2", "Lc"))
+        _, m, n = As.shape
+        # prec_apply's input in the first refinement sweep: the scaled
+        # residual of y = M e_n (M e_n itself reads one column of Lc)
+        D = pc["D"].to(f64)
+        b = torch.zeros((B, n), dtype=f64, device=A.device)
+        b[:, n - 1] = 1.0
+        y = cq.prec_apply_f32(Lc, (b * D).float()).to(f64) * D
+        r = b - torch.einsum("bmn,bm->bn", A,
+                             torch.einsum("bmn,bn->bm", A, y))
+        v = (r * D).float()
+        del A, inp, S1, S2, Sb, y, r
+        head = {"E": c["E"], "F": c["F"], "with_neumann": c["with_neumann"],
+                "chunk": B, "m": m, "n": n}
+        out_bytes = B * n * n * 4
+
+        # prec_apply also on a seeded random vector, whose image does not
+        # cancel: held to the per-node max of the result itself
+        v_rand = torch.randn((B, n), device=Lc.device, generator=torch.
+                             Generator(device=Lc.device).manual_seed(0))
+        got = cq.prec_apply_f32(Lc, v_rand)
+        ref = cq.prec_apply_f32_reference(Lc, v_rand)
+        prec_random = {"random_v_err_over_result": scaled_err(got, ref, ref),
+                       "random_v_max_abs_err": float((got - ref).abs().max())}
+        del got, ref, v_rand
+
+        def timed(row, kernel, plain, library, flops, nbytes):
+            row["ms"] = cuda_ms(kernel, 5)
+            row["plain_ms"] = cuda_ms(plain, 2)
+            row["library_ms"] = cuda_ms(library, 5)
+            row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+            return row
+
+        # Each product with, as its error scale, the same product of the
+        # operands' magnitudes (|X|^T |Y|): float32 rounding bounds the gap
+        # between two summation orders by a multiple of eps32 times that,
+        # while the result itself can be far smaller (prec_apply's
+        # residual input cancels: |Lc^T Lc v| << |Lc|^T |Lc| |v|; its
+        # random input above is held to the result).  FLOPs count the
+        # triangles the route's operands have: Li1 and Lc are lower
+        # triangular, a Gram matrix is symmetric.
+        aAs, aLi1, aLc = As.abs(), Li1.abs(), Lc.abs()
+        products = {
+            "gram_f32": (lambda: cq.gram_f32(As),
+                         lambda: cq.gram_f32_reference(As),
+                         lambda: torch.bmm(As.transpose(1, 2), As),
+                         lambda: torch.bmm(aAs.transpose(1, 2), aAs),
+                         B * m * n * (n + 1), As.nbytes + out_bytes),
+            "round2_gram_f32": (
+                lambda: cq.round2_gram_f32(As, Li1),
+                lambda: cq.round2_gram_f32_reference(As, Li1),
+                lambda: (lambda Q: torch.bmm(Q.transpose(1, 2), Q))(
+                    torch.bmm(As, Li1.transpose(1, 2))),
+                lambda: (lambda Q: torch.bmm(Q.transpose(1, 2), Q))(
+                    torch.bmm(aAs, aLi1.transpose(1, 2))),
+                2 * B * m * n * (n + 1),
+                As.nbytes + Li1.nbytes + out_bytes),
+            "prec_apply_f32": (
+                lambda: cq.prec_apply_f32(Lc, v),
+                lambda: cq.prec_apply_f32_reference(Lc, v),
+                lambda: torch.bmm(Lc.transpose(1, 2),
+                                  torch.bmm(Lc, v[:, :, None])),
+                lambda: torch.bmm(aLc.transpose(1, 2),
+                                  torch.bmm(aLc, v.abs()[:, :, None])),
+                2 * B * n * (n + 1), Lc.nbytes + 2 * v.nbytes)}
+        for name, (kernel, plain, library, magnitude, flops,
+                   nbytes) in products.items():
+            got, ref = kernel(), plain()
+            err = scaled_err(got, ref, magnitude().reshape(ref.shape))
+            abs_err = float((got - ref).abs().max())
+            # the error held to the per-node max of a result: the Gram
+            # products' own, prec_apply's on the random vector
+            extra = prec_random if name == "prec_apply_f32" else {}
+            row = timed(dict(head, max_err_over_magnitude=err,
+                             max_err_over_result=scaled_err(got, ref, ref),
+                             max_abs_err=max(abs_err, extra.get(
+                                 "random_v_max_abs_err", 0.0)), **extra),
+                        kernel, plain, library, flops, nbytes)
+            del got, ref
+            print(f"# {name} " + json.dumps(row), flush=True)
+            check(err <= TOL_F32, f"{name} kernel vs plain: error "
+                                  f"{err:.3e} of the magnitude product > "
+                                  f"{TOL_F32} in {row}")
+            result_err = extra.get("random_v_err_over_result",
+                                   row["max_err_over_result"])
+            check(result_err <= TOL_F32,
+                  f"{name} kernel vs plain: error {result_err:.3e} of the "
+                  f"result > {TOL_F32} in {row}")
+            rows[name].append(row)
+        del aAs, aLi1, aLc
+
+        # chol_linv: the route's two calls, G1 and (G2, mul_right=Li1)
+        eye = torch.eye(n, dtype=torch.float32, device=G1.device)
+        for G, P in ((G1, None), (G2, Li1)):
+            Xk = cq.chol_linv_f32(G, mul_right=P)
+            Xp = cq.chol_linv_f32_reference(G, mul_right=P)
+            fk, fp = flagged(Xk), flagged(Xp)
+            ok = ~fk
+            bk = chol_backward_error(Xk, G, P, ok) if ok.any() else 0.0
+            bp = chol_backward_error(Xp, G, P, ok) if ok.any() else 0.0
+            row = dict(head, mul_right=P is not None,
+                       n_flagged=int(fk.sum()),
+                       backward_error=bk, plain_backward_error=bp,
+                       max_abs_err=float((Xk - Xp)[ok].abs().max())
+                       if ok.any() else 0.0)
+            rhs = eye.expand(B, n, n) if P is None else P
+            row = timed(
+                row, lambda: cq.chol_linv_f32(G, mul_right=P),
+                lambda: cq.chol_linv_f32_reference(G, mul_right=P),
+                lambda: torch.linalg.solve_triangular(
+                    torch.linalg.cholesky_ex(G).L, rhs, upper=False),
+                # Cholesky n^3/3, then n^3/3 for the triangular rows of
+                # L^-1 (or of L^-1 Li1, triangular too)
+                B * 2 * n ** 3 / 3,
+                G.nbytes + (0 if P is None else P.nbytes) + out_bytes)
+            print("# chol_linv_f32 " + json.dumps(row), flush=True)
+            check(torch.equal(fk, fp), f"chol_linv kernel and plain version "
+                                       f"flag different pivots: {row}")
+            check(bk <= CHOL_BACKWARD_RATIO * bp,
+                  f"chol_linv backward error {bk:.3e} > "
+                  f"{CHOL_BACKWARD_RATIO} x plain {bp:.3e}: {row}")
+            rows["chol_linv_f32"].append(row)
+        del pc, As, G1, Li1, G2, Lc, v, prec_random
+    return classes, rows
+
+
+def main_path(interp, tp, classes, label):
+    """Phase 5 (5b): the public entry points of one route, counting every
+    kernel's launches and every plain version's calls."""
+    from ninpol_tpu_torch.ops import cholqr as cq
     from ninpol_tpu_torch.ops import gls_solve as gs
 
+    wrappers = {"gls_solve": gs.gls_solve,
+                **{k: getattr(cq, k) for k in SOLVE_KERNELS}}
+    plain = [(gs, "gls_solve_reference")] + [(cq, f"{k}_reference")
+                                             for k in SOLVE_KERNELS]
     plain_calls = []
-    plain = gs.gls_solve_reference
+    saved = [(mod, name, getattr(mod, name)) for mod, name in plain]
 
-    def counting_plain(*a, **k):
-        plain_calls.append(1)
-        return plain(*a, **k)
+    def counting(fn, name):
+        def wrapped(*a, **k):
+            plain_calls.append(name)
+            return fn(*a, **k)
+        return wrapped
 
+    for mod, name, fn in saved:
+        setattr(mod, name, counting(fn, name))
     chunks = sum(-(-len(c["nodes"]) // c["chunk"]) for c in classes)
-    gs.gls_solve_reference = counting_plain
-    gs.gls_solve.launches = 0
+    for w in wrappers.values():
+        w.launches = 0
     try:
         t0 = time.perf_counter()
         W, NW = interp.prepare_interpolator("gls", "u", tp)
@@ -256,33 +516,43 @@ def main_path(interp, tp, classes):
         t0 = time.perf_counter()
         csr, _ = interp.interpolate("u", "gls")
         csr_s = time.perf_counter() - t0
-        launches = gs.gls_solve.launches
+        launches = {k: w.launches for k, w in wrappers.items()}
     finally:
-        gs.gls_solve_reference = plain
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
     runs = 5            # warm-up, 3 timed, interpolate
-    check(launches == runs * chunks,
-          f"kernel launches {launches} != {runs} runs x {chunks} chunks: "
-          "some class did not go through the kernel")
-    check(not plain_calls, f"plain version called {len(plain_calls)} "
-                           "times on the main path")
-    check(torch.isfinite(wdev).all().item(), "non-finite weights")
+    if interp.gls.fused:
+        want = {k: 0 for k in wrappers}
+        want["gls_solve"] = runs * chunks
+    else:
+        want = {k: runs * chunks * PER_CHUNK.get(k, 0) for k in wrappers}
+    check(launches == want,
+          f"{label}: kernel launches {launches} != {want} ({runs} runs x "
+          f"{chunks} chunks): some class did not go through the kernels")
+    check(not plain_calls, f"{label}: plain versions called on the main "
+                           f"path: {sorted(set(plain_calls))}")
+    # a wrong preconditioner only stops nodes converging, and the exact
+    # fallback would then hide it behind right weights
+    check(n_bad <= MAX_BAD, f"{label}: {n_bad} nodes fell back to the "
+                            f"exact solve (limit {MAX_BAD})")
+    check(torch.isfinite(wdev).all().item(), f"{label}: non-finite weights")
     check(tuple(wdev.shape) == (len(tp), W.shape[1] + 1),
-          f"device_out shape {tuple(wdev.shape)}")
+          f"{label}: device_out shape {tuple(wdev.shape)}")
     host = wdev.cpu().numpy()
     gap = max(np.abs(host[:, :-1] - W).max(), np.abs(host[:, -1] - NW).max())
     check(gap <= 1e-12 * max(np.abs(W).max(), 1.0),
-          f"device_out differs from host delivery by {gap:.3e}")
-    check(csr.shape == (len(tp), interp.grid.n_elems), "CSR shape")
+          f"{label}: device_out differs from host delivery by {gap:.3e}")
+    check(csr.shape == (len(tp), interp.grid.n_elems), f"{label}: CSR shape")
     t = min(times)
     stats = {"warmup_s": warm_s, "device_out_s": times, "best_s": t,
              "mnodes_per_s": len(tp) / t / 1e6, "n_bad": n_bad,
              "interpolate_s": csr_s, "csr_nnz": int(csr.nnz),
              "launches": launches, "chunks_per_run": chunks}
-    print("# main path " + json.dumps(stats), flush=True)
+    print(f"# main path {label} " + json.dumps(stats), flush=True)
     return W, NW, stats
 
 
-def profile_main_path(interp, tp):
+def profile_main_path(interp, tp, label):
     """One more device_out run under torch.profiler: device busy share
     and the kernels that take the device time (after the launch count
     was read, so these launches are not counted)."""
@@ -307,12 +577,13 @@ def profile_main_path(interp, tp):
              "idle_share": 1.0 - busy_ms / (wall * 1e3),
              "top": [{"name": k[0][:80], "ms": k[1], "calls": k[2]}
                      for k in kernels[:8]]}
-    print("# profile " + json.dumps(stats), flush=True)
+    print(f"# profile {label} " + json.dumps(stats), flush=True)
     return stats
 
 
-def oracle_check(interp, W, NW):
-    """Phase 6: sampled nodes against the scipy dgels oracle."""
+def oracle_check(interp, routes):
+    """Phase 6: sampled nodes of each route's weights against the scipy
+    dgels oracle (computed once)."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from utils.oracle import gls_oracle
 
@@ -330,20 +601,44 @@ def oracle_check(interp, W, NW):
         grid, sub, interp.cells_data[v2i["cells"]["permeability"]],
         interp.cells_data[v2i["cells"]["diff_mag"]], nflag,
         interp.points_data[v2i["points"]["neumann_u"]], return_cond=True)
+    oracle_s = time.perf_counter() - t0
     ok = cond < 1e7
-    scale = max(np.abs(Wo[ok]).max(), 1.0)
-    ncols = min(W.shape[1], Wo.shape[1])
-    err = max(np.abs(W[sub][ok][:, :ncols] - Wo[ok][:, :ncols]).max(),
-              np.abs(NW[sub][ok] - NWo[ok]).max()) / scale
-    rowsum = np.abs(W[si].sum(axis=1) - 1.0).max()
-    stats = {"sampled": len(sub), "cond_ok": int(ok.sum()),
-             "max_rel_err": float(err), "interior_rowsum_err": float(rowsum),
-             "oracle_s": time.perf_counter() - t0}
-    print("# oracle " + json.dumps(stats), flush=True)
     check(ok.sum() > 0, "no sampled node with cond < 1e7")
-    check(err <= TOL_ORACLE, f"max rel err vs dgels {err:.3e} > {TOL_ORACLE}")
-    check(rowsum <= TOL_ORACLE, f"interior row sums off by {rowsum:.3e}")
-    return stats
+    scale = max(np.abs(Wo[ok]).max(), 1.0)
+    out = {}
+    for label, (W, NW) in routes.items():
+        ncols = min(W.shape[1], Wo.shape[1])
+        err = max(np.abs(W[sub][ok][:, :ncols] - Wo[ok][:, :ncols]).max(),
+                  np.abs(NW[sub][ok] - NWo[ok]).max()) / scale
+        rowsum = np.abs(W[si].sum(axis=1) - 1.0).max()
+        stats = {"sampled": len(sub), "cond_ok": int(ok.sum()),
+                 "max_rel_err": float(err),
+                 "interior_rowsum_err": float(rowsum), "oracle_s": oracle_s}
+        print(f"# oracle {label} " + json.dumps(stats), flush=True)
+        check(err <= TOL_ORACLE,
+              f"{label}: max rel err vs dgels {err:.3e} > {TOL_ORACLE}")
+        check(rowsum <= TOL_ORACLE,
+              f"{label}: interior row sums off by {rowsum:.3e}")
+        out[label] = stats
+    return out
+
+
+def build_kernels():
+    """Phase 2: one nvcc per kernel source, all started together."""
+    from ninpol_tpu_torch.ops import cholqr as cq
+    from ninpol_tpu_torch.ops import gls_solve as gs
+
+    libs = (gs.library, cq.library)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as ex:
+        for f in [ex.submit(lib.get) for lib in libs]:
+            f.result()
+    print(f"# kernel build: {time.perf_counter() - t0:.2f} s", flush=True)
+    for lib in libs:
+        print(f"# {lib.name}.cu: {lib.build_seconds:.2f} s", flush=True)
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"#   {line.strip()}", flush=True)
 
 
 def main():
@@ -359,45 +654,68 @@ def main():
     print(f"# python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # ---- 2. build the kernel
-    from ninpol_tpu_torch.ops import gls_solve as gs
-    gs.library.get()
-    print(f"# kernel build: {gs.library.build_seconds:.2f} s", flush=True)
-    for line in gs.library.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"#   {line.strip()}", flush=True)
+    # ---- 2. build the kernels
+    build_kernels()
 
-    # ---- 3. the problem
+    # ---- 3. the problem, once for each route
     t0 = time.perf_counter()
     interp, build_s = build_problem(args.n)
+    unfused, _ = build_problem(args.n, shard_geometry=True)
     tp = np.arange(interp.grid.n_points)
     print(f"# mesh: {interp.grid.n_elems} cells, {interp.grid.n_points} "
-          f"points; grid build {build_s:.2f} s, problem "
+          f"points; grid build {build_s:.2f} s, both problems "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    # ---- 4. kernel vs plain version
+    # ---- 4. kernels vs plain versions
     classes, rows = kernel_vs_plain(interp, tp)
     workspace_path(interp, tp, classes)
+    classes_u, rows_u = cholqr_vs_plain(unfused, tp)
 
-    # ---- 5. main path
-    W, NW, stats = main_path(interp, tp, classes)
-    profile_main_path(interp, tp)
+    # ---- 5. main path, both routes
+    W, NW, stats = main_path(interp, tp, classes, "fused")
+    profile_main_path(interp, tp, "fused")
+    Wu, NWu, stats_u = main_path(unfused, tp, classes_u, "shard_geometry")
+    profile_main_path(unfused, tp, "shard_geometry")
+    print("# routes " + json.dumps({
+        "fused_best_s": stats["best_s"],
+        "shard_geometry_best_s": stats_u["best_s"],
+        "shard_geometry_over_fused": stats_u["best_s"] / stats["best_s"],
+        "n_bad": {"fused": stats["n_bad"],
+                  "shard_geometry": stats_u["n_bad"]}}), flush=True)
 
-    # ---- 6. oracle
-    oracle_check(interp, W, NW)
+    # ---- 6. oracle, and the routes against each other
+    oracle_check(interp, {"fused": (W, NW), "shard_geometry": (Wu, NWu)})
+    scale = max(np.abs(W).max(), 1.0)
+    gap = max(np.abs(Wu - W).max(), np.abs(NWu - NW).max()) / scale
+    print("# shard_geometry vs fused " + json.dumps(
+        {"max_scaled_diff": float(gap)}), flush=True)
+    check(gap <= TOL_ORACLE, f"shard_geometry weights differ from the "
+                             f"fused route's by {gap:.3e} scaled")
+
+    def entry(name, source, replaces, launches, rows, top):
+        return {"name": name, "route": "cuda",
+                "source": f"ninpol_tpu_torch/csrc/{source}",
+                "replaces": f"ninpol_tpu/ops/pallas_chol.py:{replaces}",
+                "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+                "timed_class": {k: top[k] for k in (
+                    "E", "F", "with_neumann", "chunk")},
+                "classes": rows}
 
     top = max(rows, key=lambda r: r["nodes_in_class"])
+    kernels = [entry("gls_solve", "gls_solve.cu", 849,
+                     stats["launches"]["gls_solve"], rows, top)]
+    for name, line in (("gram_f32", 77), ("chol_linv_f32", 984),
+                       ("round2_gram_f32", 118), ("prec_apply_f32", 900)):
+        # the largest class's chunk; for chol_linv its first call (G1)
+        top_u = max(rows_u[name], key=lambda r: (r["chunk"],
+                                                 not r.get("mul_right")))
+        kernels.append(entry(name, "cholqr.cu", line,
+                             stats_u["launches"][name], rows_u[name], top_u))
     print(card, flush=True)            # nvidia-smi name, power.limit
-    print(json.dumps({"kernels": [{
-        "name": "gls_solve", "route": "cuda",
-        "source": "ninpol_tpu_torch/csrc/gls_solve.cu",
-        "replaces": "ninpol_tpu/ops/pallas_chol.py:849",
-        "launches": stats["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": top["ms"], "plain_ms": top["plain_ms"],
-        "timed_class": {k: top[k] for k in ("E", "F", "with_neumann",
-                                            "chunk")},
-        "classes": rows}]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

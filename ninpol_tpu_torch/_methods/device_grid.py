@@ -15,10 +15,6 @@ import torch
 from .._grid.topology import csr_to_padded
 
 
-def default_device():
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-
-
 def _round_up(x, m):
     return int(-(-int(x) // m) * m)
 
@@ -39,12 +35,18 @@ def _ladder_up(x):
 
 class DeviceGrid:
     """Padded mirrors of the Grid structures the GLS method reads, on
-    ``device`` (default: CUDA when available)."""
+    ``device``: the CUDA card unless the caller names another device
+    (``"cpu"`` for the CPU).  Raises when the device is CUDA and there is
+    no card; it never falls back to the CPU."""
 
     def __init__(self, grid, device=None):
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "ninpol_tpu_torch runs on the CUDA card by default and "
+                "torch finds no CUDA device; pass device='cpu' to run on "
+                "the CPU")
         self.grid = grid
-        self.device = torch.device(device) if device is not None \
-            else default_device()
         self.dim = grid.dim
         self.n_points = grid.n_points
         self.n_elems = grid.n_elems

@@ -17,10 +17,13 @@ With the constant column last, the weights are the cell rows of A y where
 y solves (A^T A) y = e_n: one SPD solve per node.  Nodes are sorted into
 (E, F) stencil classes (DeviceGrid.buckets); for each chunk of a class the
 stencils are gathered and the geometric pieces computed in float64
-(``gls_gather``), the solve kernel runs (ops/gls_solve.py), and the
-epilogue masks the outputs.  Nodes whose convergence estimate rnorm is not
-provably below ``fallback_tol`` are re-solved exactly (float64 Householder,
-``gls_exact``).
+(``gls_gather``), the solve runs, and the epilogue masks the outputs.  The
+solve is the fused kernel (ops/gls_solve.py) or, with
+``GLSInterpolation.fused = False``, ``gls_solve_unfused``: the same
+shifted-CholeskyQR2 algorithm composed from the four kernels of
+ops/cholqr.py and float64 torch ops (ninpol_tpu's unfused route).
+Nodes whose convergence estimate rnorm is not provably below
+``fallback_tol`` are re-solved exactly (float64 Householder, ``gls_exact``).
 
 Reference quirks reproduced (neumann_compat=True, default):
   * the returned Neumann weight is the last *cell* weight (gls.pyx:470-472
@@ -34,7 +37,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.gls_solve import assemble, gls_solve, incidence, node_active
+from ..ops.cholqr import KERNELS
+from ..ops.gls_solve import (assemble, cholqr2_solve, gls_solve, incidence,
+                             node_active)
 from ..ops.solve import householder_lastrow
 
 # Solve-kernel chunks hold at most this many system-matrix elements
@@ -90,15 +95,16 @@ def build_face_table(dgrid, perm, diff_mag, neumann_val):
 
 
 def gls_gather(dgrid, face_table, neumann_flag, nodes, E, F, with_neumann,
-               exact=False):
+               tau_guard="squared"):
     """Stencil gathers + the float64 geometric pieces for a chunk of nodes
     (counterpart of ninpol_tpu's _gls_gather_raw and the math of
     _gls_gather_fused).  Returns the solve kernel's keyword inputs and
     each node's cell count n_elem.
 
-    tau guard: the solve path clamps ||T2||^2 at 1e-30 (as the fused TPU
-    path does); ``exact=True`` clamps ||T2|| at 1e-30 (as the reference's
-    exact path does)."""
+    ``tau_guard`` picks how tau = ||T2||^(-eta) is kept finite:
+    "squared" clamps ||T2||^2 at 1e-30 (the fused TPU kernel's prologue);
+    "norm" clamps ||T2|| at 1e-30 (ninpol_tpu's XLA prologue, which its
+    exact and unfused routes use)."""
     B = nodes.shape[0]
     dev = nodes.device
     f64 = torch.float64
@@ -127,13 +133,16 @@ def gls_gather(dgrid, face_table, neumann_flag, nodes, E, F, with_neumann,
     T1 = xv[:, None, :] - fc
     T2 = torch.linalg.cross(Nf, T1)
     t2n2 = torch.sum(T2 * T2, dim=2)
-    if exact:
+    if tau_guard == "norm":
         base = torch.where(interior, torch.clamp_min(torch.sqrt(t2n2), 1e-30),
                            1.0)
         tau = base ** (-eta)
-    else:
+    elif tau_guard == "squared":
         base = torch.where(interior, torch.clamp_min(t2n2, 1e-30), 1.0)
         tau = base ** (-0.5 * eta)
+    else:
+        raise ValueError(f"tau_guard must be 'squared' or 'norm', got "
+                         f"{tau_guard!r}")
     inp = dict(
         dk=(cen - xv[:, None, :]) * cell_valid.to(f64)[..., None],
         l1=nL1 * im, l2=nL2 * im, t1m=T1 * im,
@@ -144,6 +153,19 @@ def gls_gather(dgrid, face_table, neumann_flag, nodes, E, F, with_neumann,
         fv=face_valid, isneu=neumann_flag[nodes],
         valid=torch.ones(B, dtype=torch.bool, device=dev))
     return inp, n_elem
+
+
+def gls_solve_unfused(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu,
+                      valid, *, sweeps=3, tiny=1e-12, shift=1.5e-5):
+    """The GLS solve as ninpol_tpu's unfused route composes it
+    (gls.py:602-658 and the epilogue's weight extraction, :712-733):
+    ``gls_solve``'s inputs and outputs, from ``cholqr2_solve`` with the
+    preconditioner built by the four kernels of ops/cholqr.py and the
+    sweeps in float64 torch ops on the dense float64 A (where that route
+    uses df32)."""
+    return cholqr2_solve(KERNELS, dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv,
+                         fv, isneu, valid, sweeps=sweeps, tiny=tiny,
+                         shift=shift)
 
 
 def gls_epilogue(w, wn, rnorm, inp, n_elem, neumann_compat):
@@ -160,14 +182,15 @@ def gls_epilogue(w, wn, rnorm, inp, n_elem, neumann_compat):
     return w, wn, torch.where(active, rnorm, zero)
 
 
-def gls_exact(inp, n_elem):
-    """Float64 Householder least squares (the dgels-equivalent path of
-    ninpol_tpu's _gls_bucket_impl(exact=True)): returns the cell weights
-    and the true Neumann-column weight."""
+def exact_system(inp, n_elem):
+    """The dense float64 least-squares problem of ``gls_exact``: A (B, m,
+    n) with identity rows for the padding columns appended, and the
+    right-hand sides (B, m, E + 1), the cell identity and the Neumann
+    means.  The node's last solution row is [cell weights | Neumann
+    weight]."""
     dk, lb, cv = inp["dk"], inp["lb"], inp["cv"]
     B, E, _ = dk.shape
     F = inp["l1"].shape[1]
-    n = 3 * E + 1
     f64 = torch.float64
     dev = dk.device
     S1, S2, Sb = incidence(inp["pair"], inp["ks"], cv, inp["fv"],
@@ -191,7 +214,16 @@ def gls_exact(inp, n_elem):
     if lb is not None:
         rhs[:, E + 3 * F:E + 4 * F, E] = (
             inp["nm"] * inp["isneu"].to(f64)[:, None] * af[:, None])
-    last = householder_lastrow(torch.cat([A, rhs], dim=2), n)
+    return A, rhs
+
+
+def gls_exact(inp, n_elem):
+    """Float64 Householder least squares (the dgels-equivalent path of
+    ninpol_tpu's _gls_bucket_impl(exact=True)): returns the cell weights
+    and the true Neumann-column weight."""
+    E = inp["dk"].shape[1]
+    A, rhs = exact_system(inp, n_elem)
+    last = householder_lastrow(torch.cat([A, rhs], dim=2), 3 * E + 1)
     return last[:, :E], last[:, E]
 
 
@@ -204,6 +236,10 @@ class GLSInterpolation:
         # refinement sweeps = n_refine + 1 (at least 2)
         self.n_refine = 2
         self.exact = False
+        # True: the fused solve kernel (ops/gls_solve.py); False: the
+        # unfused composition gls_solve_unfused (ops/cholqr.py kernels),
+        # which Interpolator(shard_geometry=True) selects
+        self.fused = True
         self.neumann_compat = True
         # Nodes whose estimated relative solve error (last refinement
         # correction / solution norm) is not provably below this are
@@ -289,6 +325,7 @@ class GLSInterpolation:
         def solve(c, sel, chunk, exact):
             """Solve the class members ``sel`` in chunks; scatter the rows
             into wdev; return [(positions, rnorm)] per chunk."""
+            fused = self.fused and not exact
             nodes_all, pos_all = c["nodes"][sel], c["pos"][sel]
             out = []
             for lo in range(0, len(nodes_all), chunk):
@@ -296,12 +333,13 @@ class GLSInterpolation:
                 pos = torch.as_tensor(pos_all[lo:lo + chunk], device=dev)
                 inp, n_elem = gls_gather(
                     dgrid, face_table, nflag_dev, nodes, c["E"], c["F"],
-                    c["with_neumann"], exact=exact)
+                    c["with_neumann"],
+                    tau_guard="squared" if fused else "norm")
                 if exact:
                     w, wn = gls_exact(inp, n_elem)
                     rn = torch.zeros_like(wn)
                 else:
-                    w, wn, rn = gls_solve(
+                    w, wn, rn = (gls_solve if fused else gls_solve_unfused)(
                         **inp, sweeps=max(self.n_refine + 1, 2))
                 w, wn, rn = gls_epilogue(w, wn, rn, inp, n_elem,
                                          self.neumann_compat)

@@ -50,9 +50,19 @@ from .utils.logger import Logger
 class Interpolator:
 
     def __init__(self, name="interpolator", logging=False, build_edges=False,
-                 device=None):
-        """``device``: the torch device the methods run on (default: CUDA
-        when available, else the CPU)."""
+                 device=None, shard_geometry=False):
+        """``device``: the torch device the methods run on.  The default is
+        the CUDA card; without one the first interpolation raises.  Pass
+        ``device="cpu"`` to run on the CPU.
+
+        ``shard_geometry=True`` is the one-device counterpart of
+        ``ninpol_tpu.Interpolator(mesh=N, shard_geometry=True)``: GLS runs
+        ninpol_tpu's unfused shifted-CholeskyQR2 route (the gram,
+        chol_linv, round2_gram and prec_apply kernels of ops/cholqr.py
+        with float64 refinement sweeps) instead of the fused solve kernel.
+        The weights agree to the same 1e-10 bar.  On one device nothing is
+        partitioned: splitting the grid across several cards is not
+        ported yet."""
         self.is_grid_initialized = False
         self.build_edges = build_edges
         self.logging = logging
@@ -60,6 +70,7 @@ class Interpolator:
         self.device = device
 
         self.gls = GLSInterpolation(logging)
+        self.gls.fused = not shard_geometry
         self.supported_methods = {
             "gls": self.gls.prepare,
         }
@@ -401,7 +412,7 @@ class Interpolator:
         tp_key = (method, variable, len(target_points),
                   hash(target_points.tobytes()),
                   self.gls.exact, self.gls.neumann_compat,
-                  self.gls.n_refine, self.gls.fallback_tol)
+                  self.gls.n_refine, self.gls.fallback_tol, self.gls.fused)
         if tp_key in self._prep_cache:
             weights, neumann_ws = self._prep_cache[tp_key]
         else:

@@ -1,0 +1,104 @@
+"""Build, load and call the package's hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, named by the source's content
+hash under ``_build/`` (so an edited source rebuilds and an unchanged one
+is reused), and loaded with ctypes on first use.  Nothing here runs at
+import time: the CPU tests import every module, and this machine may have
+no ``nvcc`` and no card.
+
+The wrappers check their tensors with ``check_tensor`` before any launch
+and raise through ``check_launch`` when a launch returns a CUDA error.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+
+class CudaLibrary:
+    """One ``csrc/<name>.cu`` as a ctypes library, built on first use.
+
+    ``bind(lib)`` declares the argument and result types of the library's
+    C functions."""
+
+    def __init__(self, name, bind):
+        self.name = name
+        self.source = os.path.join(CSRC, f"{name}.cu")
+        self._bind = bind
+        self.lib = None
+        self.build_seconds = None
+        self.build_log = ""
+
+    def get(self):
+        if self.lib is None:
+            self._build()
+        return self.lib
+
+    def _build(self):
+        with open(self.source, "rb") as f:
+            digest = hashlib.sha1(f.read()).hexdigest()[:16]
+        path = os.path.join(BUILD_DIR, f"{self.name}_{digest}.so")
+        t0 = time.perf_counter()
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+            tmp = f"{path}.{os.getpid()}.tmp"
+            out = subprocess.run(
+                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-o", tmp, self.source],
+                capture_output=True, text=True)
+            self.build_log = out.stdout + out.stderr
+            if out.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed building {self.source}:\n{self.build_log}")
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(path)
+        self._bind(lib)
+        self.build_seconds = time.perf_counter() - t0
+        self.lib = lib
+
+
+def check_tensor(name, x, shape, dtype, device):
+    """Raise ValueError unless ``x`` has this shape, dtype and device and
+    is contiguous (what a kernel reading raw pointers needs)."""
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)}, got "
+                         f"{tuple(x.shape)}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def on_card(x, name):
+    """True for a CUDA tensor, False for a CPU tensor; raise otherwise."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+    return True
+
+
+def stream():
+    """PyTorch's current CUDA stream, as the C interfaces take it."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check_launch(err, what):
+    """Raise if a launch function returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")

@@ -37,24 +37,22 @@ rounds: dmax = max_k max(dinv1[k], dinv1[k] * dinv2[k]) > 3e4.
 
 On a CPU tensor ``gls_solve`` runs ``gls_solve_reference``; on a CUDA
 tensor it launches the kernel in ``csrc/gls_solve.cu`` (built with nvcc on
-first use) or raises.
+first use by ``cuda_lib.CudaLibrary``) or raises.  The plain version is
+``cholqr2_solve`` on the plain versions of ``ops/cholqr.py``; the same
+body on those wrappers, whose kernels run the preconditioner as separate
+launches, is ninpol_tpu's unfused route (``_methods/gls.py``).  There
+the flag reads max(|diag L1^-1|, |diag Lc|), the same numbers up to
+rounding, and counts a non-finite value as clamped, as the kernel's
+fmaxf-clamped pivots do.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "gls_solve.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-
-SICK_DINV = 3e4          # clamped-pivot flag threshold on diag(L^-1)
+from .cholqr import PLAIN, cholqr_factors
+from .cuda_lib import CudaLibrary, check_launch, check_tensor, on_card, stream
 
 _FLOAT_ARGS = ("dk", "l1", "l2", "t1m", "tt")
 _MASK_ARGS = ("cv", "fv", "isneu", "valid")
@@ -112,31 +110,19 @@ def assemble(dk, l1, l2, t1m, tt, lb, S1, S2, Sb, cv, active):
     return torch.cat(blocks, dim=1) * active.to(f64)[:, None, None]
 
 
-def _chol_clamped(G, tiny):
-    """Column-by-column Cholesky with pivots clamped at ``tiny``.
+def cholqr2_solve(pieces, dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv,
+                  isneu, valid, *, sweeps=3, tiny=1e-12, shift=1.5e-5):
+    """The solve as batched dense torch ops around the four preconditioner
+    pieces of ops/cholqr.py (``cholqr.KERNELS`` or ``cholqr.PLAIN``): the
+    dense float64 A, the float32 factors of ``cholqr_factors``, then
 
-    Returns the factor with its diagonal replaced by 1/dinv (the form
-    every later triangular solve uses) and dinv = rsqrt(max(pivot, tiny))
-    = diag(L^-1).  A clamped pivot shows up as dinv ~ 1/sqrt(tiny);
-    torch.linalg.cholesky would raise instead."""
-    B, n, _ = G.shape
-    L = torch.zeros_like(G)
-    dinv = torch.empty((B, n), dtype=G.dtype, device=G.device)
-    for k in range(n):
-        col = G[:, k:, k] - torch.einsum("bip,bp->bi", L[:, k:, :k],
-                                         L[:, k, :k])
-        d = torch.rsqrt(torch.clamp_min(col[:, 0], tiny))
-        L[:, k:, k] = col * d[:, None]
-        dinv[:, k] = d
-    L.diagonal(dim1=1, dim2=2).copy_(1.0 / dinv)
-    return L, dinv
+      y = M e_n, then ``sweeps`` times y += M (e_n - A^T A y)
 
-
-def gls_solve_reference(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv,
-                        isneu, valid, *, sweeps=3, tiny=1e-12,
-                        shift=1.5e-5):
-    """Plain PyTorch version of the kernel: the same function, as batched
-    dense torch ops (dense A, explicit factors)."""
+    in float64 with M(r) = D Lc^T Lc (D r), D r rounded to float32 and the
+    float32 image scaled back in float64 (ninpol_tpu gls.py:643-646); the
+    kernel scales in float32, a rounding of the preconditioner that the
+    sweeps absorb.  rnorm = ||dy|| / max(||y||, 1e-300), 1 on a ``sick``
+    node."""
     B, E, _ = dk.shape
     F = l1.shape[1]
     n = 3 * E + 1
@@ -144,29 +130,12 @@ def gls_solve_reference(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv,
     S1, S2, Sb = incidence(pair, ks, cv, fv, isneu)
     active = node_active(pair, fv, valid)
     A = assemble(dk, l1, l2, t1m, tt, lb, S1, S2, Sb, cv, active)
-
-    # ---- float32 shifted CholeskyQR2 preconditioner
-    A32 = A.to(f32)
-    d2 = torch.sum(A32 * A32, dim=1)
-    dead = d2 == 0
-    D = torch.where(dead, 0.0, torch.rsqrt(torch.where(dead, 1.0, d2)))
-    As = A32 * D[:, None, :]
-    eye = torch.eye(n, dtype=f32, device=dk.device)
-    deadf = dead.to(f32)
-    G1 = As.transpose(1, 2) @ As + eye * (deadf + shift)[:, :, None]
-    L1, dinv1 = _chol_clamped(G1, tiny)
-    eyeb = eye.expand(B, n, n)
-    Li1 = torch.linalg.solve_triangular(L1, eyeb, upper=False)
-    Q = As @ Li1.transpose(1, 2)
-    G2 = Q.transpose(1, 2) @ Q + eye * deadf[:, :, None]
-    L2, dinv2 = _chol_clamped(G2, tiny)
-    Lc = torch.linalg.solve_triangular(L2, Li1, upper=False)
-    dmax = torch.maximum(dinv1.amax(dim=1), (dinv1 * dinv2).amax(dim=1))
+    pc = cholqr_factors(A, pieces, tiny, shift)
+    prec_apply = pieces[3]
+    D, Lc = pc["D"].to(f64), pc["Lc"]
 
     def M(r):
-        v = r.to(f32) * D
-        u = torch.einsum("bij,bj->bi", Lc, v)
-        return (torch.einsum("bij,bi->bj", Lc, u) * D).to(f64)
+        return prec_apply(Lc, (r * D).to(f32)).to(f64) * D
 
     def mul_G(y):
         return torch.einsum("bmn,bm->bn", A, torch.einsum("bmn,bn->bm", A, y))
@@ -179,9 +148,9 @@ def gls_solve_reference(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv,
     for _ in range(sweeps):
         dy = M(b - mul_G(y))
         y = y + dy
-    rnorm = torch.sqrt(torch.sum(dy * dy, dim=1)) / torch.sqrt(
-        torch.clamp_min(torch.sum(y * y, dim=1), 1e-30))
-    rnorm = torch.where(dmax > SICK_DINV, 1.0, rnorm)
+    rnorm = torch.linalg.vector_norm(dy, dim=1) / torch.clamp_min(
+        torch.linalg.vector_norm(y, dim=1), 1e-300)
+    rnorm = torch.where(pc["sick"], 1.0, rnorm)
 
     t = torch.einsum("bmn,bn->bm", A, y)
     w = t[:, :E]
@@ -195,54 +164,31 @@ def gls_solve_reference(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv,
             torch.where(active, rnorm, zero))
 
 
+def gls_solve_reference(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv,
+                        isneu, valid, *, sweeps=3, tiny=1e-12,
+                        shift=1.5e-5):
+    """Plain PyTorch version of the kernel: the same function, as batched
+    dense torch ops (dense A, explicit factors from the plain versions of
+    ops/cholqr.py, so it stays plain on a CUDA tensor)."""
+    return cholqr2_solve(PLAIN, dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv,
+                         fv, isneu, valid, sweeps=sweeps, tiny=tiny,
+                         shift=shift)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
-class _Library:
-    """The nvcc-built shared library, loaded with ctypes on first use."""
-
-    def __init__(self):
-        self.lib = None
-        self.build_seconds = None
-        self.build_log = ""
-
-    def get(self):
-        if self.lib is None:
-            self._build()
-        return self.lib
-
-    def _build(self):
-        with open(SOURCE, "rb") as f:
-            digest = hashlib.sha1(f.read()).hexdigest()[:16]
-        path = os.path.join(BUILD_DIR, f"gls_solve_{digest}.so")
-        t0 = time.perf_counter()
-        if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-            tmp = f"{path}.{os.getpid()}.tmp"
-            out = subprocess.run(
-                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                 "-Xptxas", "-v", "-o", tmp, SOURCE],
-                capture_output=True, text=True)
-            self.build_log = out.stdout + out.stderr
-            if out.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed building {SOURCE}:\n{self.build_log}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.gls_solve_workspace_floats.argtypes = [ci, ci, ci]
-        lib.gls_solve_workspace_floats.restype = ctypes.c_longlong
-        lib.gls_solve_launch.argtypes = (
-            [vp] * 13 + [vp] * 3 + [vp, ctypes.c_longlong]
-            + [ci] * 5 + [ctypes.c_double] * 2 + [vp])
-        lib.gls_solve_launch.restype = ci
-        self.build_seconds = time.perf_counter() - t0
-        self.lib = lib
+def _bind(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.gls_solve_workspace_floats.argtypes = [ci, ci, ci]
+    lib.gls_solve_workspace_floats.restype = ctypes.c_longlong
+    lib.gls_solve_launch.argtypes = (
+        [vp] * 13 + [vp] * 3 + [vp, ctypes.c_longlong]
+        + [ci] * 5 + [ctypes.c_double] * 2 + [vp])
+    lib.gls_solve_launch.restype = ci
 
 
-library = _Library()
+library = CudaLibrary("gls_solve", _bind)
 
 
 def _check_inputs(t):
@@ -265,15 +211,7 @@ def _check_inputs(t):
         want.update(lb=(B, F, 3), nm=(B, F))
         dtypes.update(lb=torch.float64, nm=torch.float64)
     for name, shape in want.items():
-        x = t[name]
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
-        if x.dtype != dtypes[name]:
-            raise ValueError(f"{name} must be {dtypes[name]}, got {x.dtype}")
-        if x.device != dk.device:
-            raise ValueError(f"{name} is on {x.device}, dk on {dk.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        check_tensor(name, t[name], shape, dtypes[name], dk.device)
     return B, E, F
 
 
@@ -285,11 +223,9 @@ def gls_solve(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu, valid,
     t = dict(dk=dk, l1=l1, l2=l2, t1m=t1m, tt=tt, lb=lb, nm=nm, pair=pair,
              ks=ks, cv=cv, fv=fv, isneu=isneu, valid=valid)
     B, E, F = _check_inputs(t)
-    if dk.device.type == "cpu":
+    if not on_card(dk, "gls_solve"):
         return gls_solve_reference(**t, sweeps=sweeps, tiny=tiny,
                                    shift=shift)
-    if dk.device.type != "cuda":
-        raise ValueError(f"gls_solve runs on cpu or cuda, not {dk.device}")
     f64 = torch.float64
     w = torch.empty((B, E), dtype=f64, device=dk.device)
     wn = torch.empty(B, dtype=f64, device=dk.device)
@@ -308,11 +244,9 @@ def gls_solve(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu, valid,
             ptr(pair), ptr(ks), ptr(cv), ptr(fv), ptr(isneu), ptr(valid),
             ptr(w), ptr(wn), ptr(rnorm), ptr(ws), ws_floats,
             B, E, F, int(with_neumann), int(sweeps), float(tiny),
-            float(shift), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"gls_solve kernel launch failed: CUDA error "
-                           f"{err} (B={B}, E={E}, F={F}, "
-                           f"with_neumann={with_neumann})")
+            float(shift), stream())
+    check_launch(err, f"gls_solve (B={B}, E={E}, F={F}, "
+                      f"with_neumann={with_neumann})")
     gls_solve.launches += 1
     return w, wn, rnorm
 
