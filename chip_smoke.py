@@ -2,16 +2,20 @@
 
 Drives the port's GLS main path — the path bench.py times for ninpol_tpu:
 GLS weights with Neumann nodes, on the 1,886,592-cell tetrahedral mesh,
-through the public Interpolator API — and its shard_geometry=True route
-(ninpol_tpu's unfused CholeskyQR2 composition), and checks both:
+through the public Interpolator API — its shard_geometry=True route
+(ninpol_tpu's unfused CholeskyQR2 composition) and its solver="pallas"
+route (Householder R and corrected semi-normal equations), and checks
+all three:
 
   1. prints the card (nvidia-smi name, power limit); requires CUDA;
-  2. builds both kernel libraries with nvcc, in parallel:
-     csrc/gls_solve.cu (the fused solve) and csrc/cholqr.cu (gram,
-     chol_linv, round2_gram, prec_apply);
+  2. builds the three kernel libraries with nvcc, in parallel:
+     csrc/gls_solve.cu (the fused solve), csrc/cholqr.cu (gram,
+     chol_linv, round2_gram, prec_apply) and csrc/qr.cu (qr_r,
+     sne_solve);
   3. builds bench.py's problem with the port's own meshgen: tetra_mesh(68),
      an ALH-style full-tensor K, u = x^2 + y^2 + z^2, a seeded (rng 0)
-     Dirichlet/Neumann boundary split; once for each route;
+     Dirichlet/Neumann boundary split; once for the CholeskyQR2 routes
+     (the solver="pallas" route runs on the fused route's problem);
   4. the solve kernel vs its plain PyTorch version on one chunk of every
      (E, F, with_neumann) class of the plan: w and wn agree to <= 1e-10
      scaled on the nodes both call converged, and the rnorm > 1e-11 sets
@@ -29,6 +33,14 @@ through the public Interpolator API — and its shard_geometry=True route
      max|X W X^T - I| (<= 10x the plain version's) with the same flagged
      pivots; prints kernel, plain and one library call's times (CUDA
      events);
+     4d. qr_r and sne_solve vs their plain versions on one chunk of every
+     class of the solver="pallas" route, on the inputs that route gives
+     them: R by backward error max|R^T R - Ar^T Ar| / max|Ar^T Ar| per
+     node (<= 10x the plain version's), y on e_n, on the route's residual
+     and on a seeded random b by residual ||R^T R y - b|| / (||R||_F^2
+     ||y||) (<= 10x the plain version's), and the whole gls_solve_csne
+     through the kernels vs through the plain versions (<= 1e-10 scaled,
+     the same rnorm > 1e-11 set); prints kernel, plain and library times;
   5. the main path: a warm-up prepare_interpolator, 3 timed device_out
      runs (torch.cuda.synchronize), interpolate() -> CSR; prints seconds,
      Mnodes/s, n_bad (which must be 0) and the kernel launch count, which
@@ -39,10 +51,13 @@ through the public Interpolator API — and its shard_geometry=True route
      exactly 1 gram, 2 chol_linv, 1 round2_gram and 4 prec_apply launches,
      no plain-version call and no solve-kernel launch; device-complete
      seconds beside the fused route's; a profiled run;
-  6. the delivered weights of both routes against the scipy dgels oracle
-     on 256 sampled nodes (128 interior, 128 Neumann; cond < 1e7): max
-     scaled error <= 1e-10, interior rows sum to 1; and the unfused
-     route's weights against the fused route's, <= 1e-10 scaled.
+     5c. the same for solver="pallas": per chunk per run exactly 1 qr_r
+     and 2 sne_solve launches and no other kernel's, no plain-version
+     call; a profiled run;
+  6. the delivered weights of the three routes against the scipy dgels
+     oracle on 256 sampled nodes (128 interior, 128 Neumann; cond < 1e7):
+     max scaled error <= 1e-10, interior rows sum to 1; and the other
+     routes' weights against the fused route's, <= 1e-10 scaled.
 
 Any failing phase raises (non-zero exit).  The last three lines are the
 card, the kernels JSON line and {"ok": true, "device": {...}}.
@@ -69,17 +84,25 @@ RNORM_TOL = 1e-11      # the exact-fallback threshold (fallback_tol)
 # summation order
 TOL_F32 = 1e-5
 CHOL_BACKWARD_RATIO = 10.0
-# nodes either route may send to the exact fallback: every node of this
+# qr_r's backward error and sne_solve's residual: at most this times the
+# plain version's
+QR_RATIO = 10.0
+# nodes any route may send to the exact fallback: every node of this
 # problem converges in the fast solve on the H100 (tetra_mesh(68))
 MAX_BAD = 0
 # H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 off the tensor cores,
-# and HBM3 bandwidth; bound_ms takes the larger of the two times
+# FP64 on them (DMMA; 34e12 off them), and HBM3 bandwidth; bound_ms takes
+# the larger of the two times
 PEAK_FP32 = 67e12
+PEAK_FP64 = 67e12
 PEAK_BYTES = 3.35e12
 SOLVE_KERNELS = ("gram_f32", "chol_linv_f32", "round2_gram_f32",
                  "prec_apply_f32")
-PER_CHUNK = {"gram_f32": 1, "chol_linv_f32": 2, "round2_gram_f32": 1,
-             "prec_apply_f32": 4}
+# kernel launches per solve chunk of each route
+PER_CHUNK = {"fused": {"gls_solve": 1},
+             "shard_geometry": {"gram_f32": 1, "chol_linv_f32": 2,
+                                "round2_gram_f32": 1, "prec_apply_f32": 4},
+             "pallas": {"qr_r": 1, "sne_solve": 2}}
 
 
 def check(cond, msg):
@@ -95,10 +118,11 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(flops, nbytes):
-    """The least time (ms) the card could take: the larger of the FP32
-    operations over the FP32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops, nbytes, peak=PEAK_FP32):
+    """The least time (ms) the card could take: the larger of the
+    operations over their type's peak (FP32 unless stated) and the bytes
+    over the memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes),
             "operations" if t_ops > t_bytes else "bytes")
 
@@ -476,16 +500,129 @@ def cholqr_vs_plain(interp, tp):
     return classes, rows
 
 
+def qr_work(Ar):
+    """FLOPs and bytes qr_r needs on Ar (B, m, n): per node, the
+    Householder QR of its rows that are not zero (the route's real rows,
+    one row per dead column), 2 p q^2 - 2/3 q^3 FLOP with q = min and
+    p = max of that row count and n; those rows read, R's triangle
+    written."""
+    n = Ar.shape[2]
+    rows = (Ar != 0).any(dim=2).sum(dim=1).double()
+    p, q = rows.clamp_min(n), rows.clamp_max(n)
+    flops = float((2 * p * q * q - 2 * q ** 3 / 3).sum())
+    return flops, (float(rows.sum()) * n + len(rows) * n * (n + 1) / 2) * 8
+
+
+def csne_vs_plain(interp, tp):
+    """Phase 4d: qr_r and sne_solve against their plain versions on one
+    chunk of every class of the solver="pallas" route, on the inputs that
+    route gives them, and the route's whole solve through the kernels
+    against the same function through the plain versions."""
+    from ninpol_tpu_torch._methods.gls import (csne_system, gls_gather,
+                                               gls_solve_csne)
+    from ninpol_tpu_torch.ops import qr
+    from ninpol_tpu_torch.ops.gls_solve import mul_G
+
+    dgrid = interp.device_grid
+    classes, face_table, nflag = interp.gls.plan(
+        dgrid, interp.cells_data, interp.points_data,
+        interp.variable_to_index, "u", tp)
+    rows = {"qr_r": [], "sne_solve": []}
+    f64 = torch.float64
+    for c in classes:
+        B = min(c["chunk"], len(c["nodes"]))
+        nodes = torch.as_tensor(c["nodes"][:B], device=dgrid.device)
+        inp, _ = gls_gather(dgrid, face_table, nflag, nodes, c["E"], c["F"],
+                            c["with_neumann"], tau_guard="norm")
+        head = {"E": c["E"], "F": c["F"], "with_neumann": c["with_neumann"],
+                "chunk": B}
+
+        # the whole solve, through the kernels and through the plain versions
+        wk, wnk, rk = gls_solve_csne(**inp)
+        wp, wnp, rp = gls_solve_csne(**inp, pieces=qr.PLAIN)
+        torch.cuda.synchronize()
+        conv = (rk <= RNORM_TOL) & (rp <= RNORM_TOL)
+        scale = max(float(wp.abs().max()), 1.0)
+        solve_err = max(float((wk - wp)[conv].abs().max()),
+                        float((wnk - wnp)[conv].abs().max())) / scale \
+            if conv.any() else 0.0
+        same_set = bool(torch.equal(rk > RNORM_TOL, rp > RNORM_TOL))
+        solve = dict(head, max_scaled_err=solve_err, same_fallback_set=same_set,
+                     n_unconverged_kernel=int((rk > RNORM_TOL).sum()),
+                     n_unconverged_plain=int((rp > RNORM_TOL).sum()))
+        print("# gls_solve_csne " + json.dumps(solve), flush=True)
+        check(solve_err <= TOL_KERNEL, f"gls_solve_csne through the kernels "
+                                       f"vs plain: {solve}")
+        check(same_set, f"gls_solve_csne: kernel and plain rnorm > "
+                        f"{RNORM_TOL} sets differ: {solve}")
+        del wk, wnk, rk, wp, wnp, rp
+
+        # qr_r on the route's A, with an identity row per dead column
+        A, Ar, _ = csne_system(**{k: v for k, v in inp.items() if k != "nm"})
+        del inp
+        _, m, n = Ar.shape
+        Rk, Rp = qr.qr_r(Ar), qr.qr_r_reference(Ar)
+        torch.cuda.synchronize()
+        # backward error: how far R^T R is from Ar^T Ar, per node
+        bk, bp = (qr.gram_backward_error(R, Ar) for R in (Rk, Rp))
+        row = dict(head, m=m, n=n, backward_error=bk, plain_backward_error=bp,
+                   max_entry_err_over_r=scaled_err(Rk, Rp, Rp),
+                   max_abs_err=float((Rk - Rp).abs().max()),
+                   ms=cuda_ms(lambda: qr.qr_r(Ar), 3),
+                   plain_ms=cuda_ms(lambda: qr.qr_r_reference(Ar), 1),
+                   library_ms=cuda_ms(lambda: torch.linalg.qr(Ar, mode="r"),
+                                      1))
+        row["bound_ms"], row["bound_by"] = bound(*qr_work(Ar), PEAK_FP64)
+        print("# qr_r " + json.dumps(row), flush=True)
+        check(bk <= QR_RATIO * bp, f"qr_r backward error {bk:.3e} > "
+                                   f"{QR_RATIO} x plain {bp:.3e}: {row}")
+        rows["qr_r"].append(row)
+        del Ar, Rp
+
+        # sne_solve on e_n, on the route's residual and on a random b
+        b = torch.zeros((B, n), dtype=f64, device=A.device)
+        b[:, n - 1] = 1.0
+        rhs = {"e_n": b, "residual": b - mul_G(A, qr.sne_solve(Rk, b)),
+               "random": torch.randn((B, n), dtype=f64, device=A.device,
+                                     generator=torch.Generator(
+                                         device=A.device).manual_seed(0))}
+        del A
+        row = dict(head, n=n, max_abs_err=0.0)
+        for label, bb in rhs.items():
+            yk, yp = qr.sne_solve(Rk, bb), qr.sne_solve_reference(Rk, bb)
+            rk_, rp_ = (qr.sne_residual(Rk, y, bb) for y in (yk, yp))
+            row[f"{label}_residual"], row[f"{label}_plain_residual"] = rk_, rp_
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     float((yk - yp).abs().max()))
+            check(rk_ <= QR_RATIO * rp_,
+                  f"sne_solve on {label}: residual {rk_:.3e} > {QR_RATIO} x "
+                  f"plain {rp_:.3e} in {head}")
+        row.update(ms=cuda_ms(lambda: qr.sne_solve(Rk, b), 5),
+                   plain_ms=cuda_ms(lambda: qr.sne_solve_reference(Rk, b), 2),
+                   library_ms=cuda_ms(lambda: torch.cholesky_solve(
+                       b[:, :, None], Rk, upper=True), 5))
+        # the triangle of R read, b read and y written
+        row["bound_ms"], row["bound_by"] = bound(
+            B * 2 * n * n, B * (n * (n + 1) // 2 + 2 * n) * 8, PEAK_FP64)
+        print("# sne_solve " + json.dumps(row), flush=True)
+        rows["sne_solve"].append(row)
+        del Rk, rhs, b
+    return rows
+
+
 def main_path(interp, tp, classes, label):
-    """Phase 5 (5b): the public entry points of one route, counting every
-    kernel's launches and every plain version's calls."""
+    """Phase 5 (5b, 5c): the public entry points of one route, counting
+    every kernel's launches and every plain version's calls."""
     from ninpol_tpu_torch.ops import cholqr as cq
     from ninpol_tpu_torch.ops import gls_solve as gs
+    from ninpol_tpu_torch.ops import qr
 
     wrappers = {"gls_solve": gs.gls_solve,
-                **{k: getattr(cq, k) for k in SOLVE_KERNELS}}
-    plain = [(gs, "gls_solve_reference")] + [(cq, f"{k}_reference")
-                                             for k in SOLVE_KERNELS]
+                **{k: getattr(cq, k) for k in SOLVE_KERNELS},
+                "qr_r": qr.qr_r, "sne_solve": qr.sne_solve}
+    plain = ([(gs, "gls_solve_reference")]
+             + [(cq, f"{k}_reference") for k in SOLVE_KERNELS]
+             + [(qr, "qr_r_reference"), (qr, "sne_solve_reference")])
     plain_calls = []
     saved = [(mod, name, getattr(mod, name)) for mod, name in plain]
 
@@ -521,11 +658,7 @@ def main_path(interp, tp, classes, label):
         for mod, name, fn in saved:
             setattr(mod, name, fn)
     runs = 5            # warm-up, 3 timed, interpolate
-    if interp.gls.fused:
-        want = {k: 0 for k in wrappers}
-        want["gls_solve"] = runs * chunks
-    else:
-        want = {k: runs * chunks * PER_CHUNK.get(k, 0) for k in wrappers}
+    want = {k: runs * chunks * PER_CHUNK[label].get(k, 0) for k in wrappers}
     check(launches == want,
           f"{label}: kernel launches {launches} != {want} ({runs} runs x "
           f"{chunks} chunks): some class did not go through the kernels")
@@ -627,8 +760,9 @@ def build_kernels():
     """Phase 2: one nvcc per kernel source, all started together."""
     from ninpol_tpu_torch.ops import cholqr as cq
     from ninpol_tpu_torch.ops import gls_solve as gs
+    from ninpol_tpu_torch.ops import qr
 
-    libs = (gs.library, cq.library)
+    libs = (gs.library, cq.library, qr.library)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
         for f in [ex.submit(lib.get) for lib in libs]:
@@ -670,32 +804,44 @@ def main():
     classes, rows = kernel_vs_plain(interp, tp)
     workspace_path(interp, tp, classes)
     classes_u, rows_u = cholqr_vs_plain(unfused, tp)
+    rows_q = csne_vs_plain(interp, tp)
 
-    # ---- 5. main path, both routes
+    # ---- 5. main path, the three routes
     W, NW, stats = main_path(interp, tp, classes, "fused")
     profile_main_path(interp, tp, "fused")
     Wu, NWu, stats_u = main_path(unfused, tp, classes_u, "shard_geometry")
     profile_main_path(unfused, tp, "shard_geometry")
+    interp.gls.solver = "pallas"
+    Wc, NWc, stats_c = main_path(interp, tp, classes, "pallas")
+    profile_main_path(interp, tp, "pallas")
+    interp.gls.solver = "auto"
     print("# routes " + json.dumps({
         "fused_best_s": stats["best_s"],
         "shard_geometry_best_s": stats_u["best_s"],
+        "pallas_best_s": stats_c["best_s"],
         "shard_geometry_over_fused": stats_u["best_s"] / stats["best_s"],
+        "pallas_over_fused": stats_c["best_s"] / stats["best_s"],
         "n_bad": {"fused": stats["n_bad"],
-                  "shard_geometry": stats_u["n_bad"]}}), flush=True)
+                  "shard_geometry": stats_u["n_bad"],
+                  "pallas": stats_c["n_bad"]}}), flush=True)
 
     # ---- 6. oracle, and the routes against each other
-    oracle_check(interp, {"fused": (W, NW), "shard_geometry": (Wu, NWu)})
+    oracle_check(interp, {"fused": (W, NW), "shard_geometry": (Wu, NWu),
+                          "pallas": (Wc, NWc)})
     scale = max(np.abs(W).max(), 1.0)
-    gap = max(np.abs(Wu - W).max(), np.abs(NWu - NW).max()) / scale
-    print("# shard_geometry vs fused " + json.dumps(
-        {"max_scaled_diff": float(gap)}), flush=True)
-    check(gap <= TOL_ORACLE, f"shard_geometry weights differ from the "
-                             f"fused route's by {gap:.3e} scaled")
+    for label, (Wx, NWx) in (("shard_geometry", (Wu, NWu)),
+                             ("pallas", (Wc, NWc))):
+        gap = max(np.abs(Wx - W).max(), np.abs(NWx - NW).max()) / scale
+        print(f"# {label} vs fused " + json.dumps(
+            {"max_scaled_diff": float(gap)}), flush=True)
+        check(gap <= TOL_ORACLE, f"{label} weights differ from the fused "
+                                 f"route's by {gap:.3e} scaled")
 
-    def entry(name, source, replaces, launches, rows, top):
+    def entry(name, source, replaces, launches, rows, top,
+              tpu_file="pallas_chol.py"):
         return {"name": name, "route": "cuda",
                 "source": f"ninpol_tpu_torch/csrc/{source}",
-                "replaces": f"ninpol_tpu/ops/pallas_chol.py:{replaces}",
+                "replaces": f"ninpol_tpu/ops/{tpu_file}:{replaces}",
                 "launches": launches,
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
@@ -714,6 +860,10 @@ def main():
                                                  not r.get("mul_right")))
         kernels.append(entry(name, "cholqr.cu", line,
                              stats_u["launches"][name], rows_u[name], top_u))
+    for name, line in (("qr_r", 122), ("sne_solve", 207)):
+        top_q = max(rows_q[name], key=lambda r: r["chunk"])
+        kernels.append(entry(name, "qr.cu", line, stats_c["launches"][name],
+                             rows_q[name], top_q, tpu_file="pallas_qr.py"))
     print(card, flush=True)            # nvidia-smi name, power.limit
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,10 @@ stencils are gathered and the geometric pieces computed in float64
 solve is the fused kernel (ops/gls_solve.py) or, with
 ``GLSInterpolation.fused = False``, ``gls_solve_unfused``: the same
 shifted-CholeskyQR2 algorithm composed from the four kernels of
-ops/cholqr.py and float64 torch ops (ninpol_tpu's unfused route).
+ops/cholqr.py and float64 torch ops (ninpol_tpu's unfused route).  With
+``GLSInterpolation.solver = "pallas"`` it is ``gls_solve_csne``, the
+cross-check route: a Householder R of A and the corrected semi-normal
+equations (the two kernels of ops/qr.py).
 Nodes whose convergence estimate rnorm is not provably below
 ``fallback_tol`` are re-solved exactly (float64 Householder, ``gls_exact``).
 
@@ -37,10 +40,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import qr
 from ..ops.cholqr import KERNELS
 from ..ops.gls_solve import (assemble, cholqr2_solve, gls_solve, incidence,
-                             node_active)
+                             mul_G, node_active, solve_outputs)
 from ..ops.solve import householder_lastrow
+
+# GLSInterpolation.solver: ninpol_tpu's names of the routes ported so far
+SOLVERS = ("auto", "cholqr", "pallas")
 
 # Solve-kernel chunks hold at most this many system-matrix elements
 # (B * m * n): it bounds the gathered inputs and the plain version's dense
@@ -168,6 +175,50 @@ def gls_solve_unfused(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu,
                          shift=shift)
 
 
+def csne_system(dk, l1, l2, t1m, tt, lb, pair, ks, cv, fv, isneu, valid):
+    """The systems of ``gls_solve_csne``: the dense float64 A (B, m, n),
+    Ar = A with the identity rows diag(dead) appended (B, m + n, n), what
+    ``qr_r`` factors, and the active-node mask."""
+    S1, S2, Sb = incidence(pair, ks, cv, fv, isneu)
+    active = node_active(pair, fv, valid)
+    A = assemble(dk, l1, l2, t1m, tt, lb, S1, S2, Sb, cv, active)
+    dead = torch.sum(A * A, dim=1) == 0
+    return A, torch.cat([A, torch.diag_embed(dead.to(A.dtype))], dim=1), active
+
+
+def gls_solve_csne(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu,
+                   valid, *, pieces=qr.KERNELS):
+    """The GLS solve of ninpol_tpu's ``solver="pallas"`` route
+    (gls.py:659-705, weights as at :712-733), with ``gls_solve``'s inputs
+    and outputs: R of the Householder QR of the dense float64 A with an
+    identity row appended for each dead (all-zero) column, which keeps R's
+    diagonal aligned without coupling that column to real rows; y from
+    the semi-normal equations R^T R y = e_n, one float64 correction
+    y += SNE(e_n - A^T A y) (corrected semi-normal equations);
+    rnorm = ||dy|| / ||y||, 1 where min|R_kk| / max|R_kk| < 1e-6.
+    ``pieces`` are (qr_r, sne_solve): ``qr.KERNELS`` (the wrappers) or
+    ``qr.PLAIN``.  The TPU's padding of the rows to a multiple of 32 is
+    left out: zero rows change no R."""
+    qr_r, sne_solve = pieces
+    B, E, _ = dk.shape
+    F = l1.shape[1]
+    n = 3 * E + 1
+    f64 = torch.float64
+    A, Ar, active = csne_system(dk, l1, l2, t1m, tt, lb, pair, ks, cv, fv,
+                                isneu, valid)
+    R = qr_r(Ar)
+    del Ar
+    b = torch.zeros((B, n), dtype=f64, device=dk.device)
+    b[:, n - 1] = 1.0
+    y = sne_solve(R, b)
+    dy = sne_solve(R, b - mul_G(A, y))
+    y = y + dy
+    rnorm = torch.linalg.vector_norm(dy, dim=1) / torch.clamp_min(
+        torch.linalg.vector_norm(y, dim=1), 1e-300)
+    rnorm = torch.where(qr.r_diag_quality(R) < 1e-6, 1.0, rnorm)
+    return solve_outputs(A, y, rnorm, nm, active, E, F)
+
+
 def gls_epilogue(w, wn, rnorm, inp, n_elem, neumann_compat):
     """Mask the solve outputs (counterpart of ninpol_tpu gls.py:279-295):
     weights by active & cell-valid, the Neumann weight (the last cell
@@ -240,6 +291,11 @@ class GLSInterpolation:
         # unfused composition gls_solve_unfused (ops/cholqr.py kernels),
         # which Interpolator(shard_geometry=True) selects
         self.fused = True
+        # "auto" and "cholqr": the CholeskyQR2 route ``fused`` picks;
+        # "pallas": the CSNE cross-check route, gls_solve_csne (ops/qr.py
+        # kernels).  Any other name raises ValueError: ninpol_tpu sends
+        # other names to its "refined" route, which is not ported yet.
+        self.solver = "auto"
         self.neumann_compat = True
         # Nodes whose estimated relative solve error (last refinement
         # correction / solution norm) is not provably below this are
@@ -312,6 +368,10 @@ class GLSInterpolation:
     def prepare(self, dgrid, cells_data, points_data, faces_data,
                 variable_to_index, variable, target_points,
                 weights, neumann_ws, device_out=False):
+        if self.solver not in SOLVERS:
+            raise ValueError(f"GLS solver must be one of {SOLVERS}, got "
+                             f"{self.solver!r}")
+        csne = self.solver == "pallas"
         classes, face_table, nflag_dev = self.plan(
             dgrid, cells_data, points_data, variable_to_index, variable,
             target_points)
@@ -325,7 +385,8 @@ class GLSInterpolation:
         def solve(c, sel, chunk, exact):
             """Solve the class members ``sel`` in chunks; scatter the rows
             into wdev; return [(positions, rnorm)] per chunk."""
-            fused = self.fused and not exact
+            # only the fused kernel's prologue guards tau on ||T2||^2
+            fused = self.fused and not (exact or csne)
             nodes_all, pos_all = c["nodes"][sel], c["pos"][sel]
             out = []
             for lo in range(0, len(nodes_all), chunk):
@@ -338,6 +399,8 @@ class GLSInterpolation:
                 if exact:
                     w, wn = gls_exact(inp, n_elem)
                     rn = torch.zeros_like(wn)
+                elif csne:
+                    w, wn, rn = gls_solve_csne(**inp)
                 else:
                     w, wn, rn = (gls_solve if fused else gls_solve_unfused)(
                         **inp, sweeps=max(self.n_refine + 1, 2))

@@ -62,7 +62,13 @@ class Interpolator:
         with float64 refinement sweeps) instead of the fused solve kernel.
         The weights agree to the same 1e-10 bar.  On one device nothing is
         partitioned: splitting the grid across several cards is not
-        ported yet."""
+        ported yet.
+
+        ``interp.gls.solver = "pallas"`` selects ninpol_tpu's cross-check
+        route of the same name, whatever ``shard_geometry`` says: a
+        Householder R per node and the corrected semi-normal equations
+        (the qr_r and sne_solve kernels of ops/qr.py), again to 1e-10.
+        "auto" (the default) and "cholqr" keep the CholeskyQR2 routes."""
         self.is_grid_initialized = False
         self.build_edges = build_edges
         self.logging = logging
@@ -412,7 +418,8 @@ class Interpolator:
         tp_key = (method, variable, len(target_points),
                   hash(target_points.tobytes()),
                   self.gls.exact, self.gls.neumann_compat,
-                  self.gls.n_refine, self.gls.fallback_tol, self.gls.fused)
+                  self.gls.n_refine, self.gls.fallback_tol, self.gls.fused,
+                  self.gls.solver)
         if tp_key in self._prep_cache:
             weights, neumann_ws = self._prep_cache[tp_key]
         else:

@@ -137,28 +137,37 @@ def cholqr2_solve(pieces, dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv,
     def M(r):
         return prec_apply(Lc, (r * D).to(f32)).to(f64) * D
 
-    def mul_G(y):
-        return torch.einsum("bmn,bm->bn", A, torch.einsum("bmn,bn->bm", A, y))
-
     # ---- float64 refinement sweeps
     b = torch.zeros((B, n), dtype=f64, device=dk.device)
     b[:, n - 1] = 1.0
     y = M(b)
     dy = y
     for _ in range(sweeps):
-        dy = M(b - mul_G(y))
+        dy = M(b - mul_G(A, y))
         y = y + dy
     rnorm = torch.linalg.vector_norm(dy, dim=1) / torch.clamp_min(
         torch.linalg.vector_norm(y, dim=1), 1e-300)
     rnorm = torch.where(pc["sick"], 1.0, rnorm)
+    return solve_outputs(A, y, rnorm, nm, active, E, F)
 
+
+def mul_G(A, y):
+    """A^T (A y) in float64, without forming A^T A."""
+    return torch.einsum("bmn,bm->bn", A, torch.einsum("bmn,bn->bm", A, y))
+
+
+def solve_outputs(A, y, rnorm, nm, active, E, F):
+    """The solve's outputs from its solution y of (A^T A) y = e_n: the
+    cell rows of A y (the node's cell weights), sum_f nm_f * (Neumann row
+    f . y) (0 without Neumann rows) and rnorm, each zeroed on inactive
+    nodes."""
     t = torch.einsum("bmn,bn->bm", A, y)
     w = t[:, :E]
-    if lb is not None:
+    if nm is not None:
         wn = torch.sum(nm * t[:, E + 3 * F:], dim=1)
     else:
-        wn = torch.zeros(B, dtype=f64, device=dk.device)
-    zero = torch.zeros((), dtype=f64, device=dk.device)
+        wn = torch.zeros_like(rnorm)
+    zero = torch.zeros((), dtype=A.dtype, device=A.device)
     return (torch.where(active[:, None], w, zero),
             torch.where(active, wn, zero),
             torch.where(active, rnorm, zero))
