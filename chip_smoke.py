@@ -19,8 +19,9 @@ all three:
   4. the solve kernel vs its plain PyTorch version on one chunk of every
      (E, F, with_neumann) class of the plan: w and wn agree to <= 1e-10
      scaled on the nodes both call converged, and the rnorm > 1e-11 sets
-     agree; prints both times, and the time of torch.linalg.lstsq on the
-     largest class's dense float64 system;
+     agree; prints both times, the kernel's dynamic shared memory and
+     blocks per SM, and the time of torch.linalg.lstsq on the largest
+     class's dense float64 system;
      4b. one chunk padded to (E, F) = (64, 96), too wide for shared
      memory, so the kernel runs from its device workspace: same weights;
      4c. each cholqr kernel vs its plain version on one chunk of every
@@ -236,8 +237,10 @@ def kernel_vs_plain(interp, tp):
                   + B * (E + 2) * 8)
         bound_ms, bound_by = bound(B * (3 * m * n * n + 4 * n ** 3 / 3),
                                    nbytes)
+        smem, blocks = gs.occupancy(E, F, c["with_neumann"])
         row = {"E": E, "F": F, "with_neumann": c["with_neumann"],
                "nodes_in_class": len(c["nodes"]), "chunk": B,
+               "smem_bytes": smem, "blocks_per_sm": blocks,
                "max_abs_err": err, "max_scaled_err": err / scale,
                "n_unconverged_kernel": int((rk > RNORM_TOL).sum()),
                "n_unconverged_plain": int((rp > RNORM_TOL).sum()),

@@ -47,59 +47,22 @@
  *   per row with a shuffle reduction, and o = Lc^T u one thread per column
  *   over conflict-free shared-memory rows.
  *
- * Each launch function returns a cudaError_t as int (0 on success); a
- * node too wide for shared memory returns cudaErrorInvalidValue.
+ * The device code of these stages lives in cholqr_device.cuh, which the
+ * fused solve (gls_solve.cu) runs too.  Each launch function returns a
+ * cudaError_t as int (0 on success); a node too wide for shared memory
+ * returns cudaErrorInvalidValue.
  */
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cholqr_device.cuh"
+
 namespace {
+
+using namespace cholqr_device;
 
 constexpr int kThreads = 256;
 constexpr int kRows = 32;   // rows of A staged per pass (gram, round2)
-constexpr int kTile = 4;    // register tile: kTile x kTile entries a thread
-
-// Round n up to the tile width: the row stride of the staged matrices, so
-// every tile starts on a 16-byte boundary (float4 loads).
-__host__ __device__ inline int padded(int n) { return (n + kTile - 1) / kTile * kTile; }
-
-__device__ inline float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// Accumulate rows [0, rows) of a (stride np) into the upper tiles of g
-// (np x np): g[i][j] += sum_r a[r][i] a[r][j] for the kTile x kTile tiles
-// (ti, tj), ti <= tj.  Each entry sums its rows in order with FMAs; a
-// thread keeps one tile in registers for the whole chunk: 8 shared loads
-// per 16 FMAs.  Thread t owns tiles t, t + blockDim, ..., so no two
-// threads write one entry.
-__device__ void gram_accumulate(const float* a, float* g, int rows, int np) {
-  const int nt = np / kTile;
-  for (int t = threadIdx.x; t < nt * (nt + 1) / 2; t += blockDim.x) {
-    int ti = 0, rest = t;              // t -> (ti, tj), row by row
-    while (rest >= nt - ti) { rest -= nt - ti; ++ti; }
-    const int i0 = ti * kTile, j0 = (ti + rest) * kTile;
-    float acc[kTile][kTile];
-#pragma unroll
-    for (int p = 0; p < kTile; ++p) {
-      const float4 v = load4(g + (i0 + p) * np + j0);
-      acc[p][0] = v.x; acc[p][1] = v.y; acc[p][2] = v.z; acc[p][3] = v.w;
-    }
-    for (int r = 0; r < rows; ++r) {
-      const float4 x4 = load4(a + r * np + i0), y4 = load4(a + r * np + j0);
-      const float x[kTile] = {x4.x, x4.y, x4.z, x4.w};
-      const float y[kTile] = {y4.x, y4.y, y4.z, y4.w};
-#pragma unroll
-      for (int p = 0; p < kTile; ++p)
-#pragma unroll
-        for (int q = 0; q < kTile; ++q) acc[p][q] = fmaf(x[p], y[q], acc[p][q]);
-    }
-#pragma unroll
-    for (int p = 0; p < kTile; ++p)
-      *reinterpret_cast<float4*>(g + (i0 + p) * np + j0) =
-          make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
-  }
-}
 
 // Write the upper triangle of g (stride np) to out (n x n) as a full
 // symmetric matrix.
@@ -180,22 +143,9 @@ round2_gram_kernel(const float* __restrict__ A, const float* __restrict__ Li,
     const int rt_count = (rows + kTile - 1) / kTile;
     for (int t = threadIdx.x; t < rt_count * nt; t += blockDim.x) {
       const int r0t = (t / nt) * kTile, k0 = (t % nt) * kTile;
-      float acc[kTile][kTile] = {};
-      for (int j = 0; j < n; ++j) {
-        const float4 y4 = load4(lit + j * np + k0);
-        const float y[kTile] = {y4.x, y4.y, y4.z, y4.w};
-#pragma unroll
-        for (int p = 0; p < kTile; ++p) {
-          const float x = a[(r0t + p) * np + j];
-#pragma unroll
-          for (int c = 0; c < kTile; ++c) acc[p][c] = fmaf(x, y[c], acc[p][c]);
-        }
-      }
-#pragma unroll
-      for (int p = 0; p < kTile; ++p)
-        if (r0t + p < rows)
-          *reinterpret_cast<float4*>(q + (r0t + p) * np + k0) =
-              make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
+      float acc[kTile][kTile];
+      q_tile(a, lit, r0t, k0, n, np, acc);
+      store_tile(q, r0t, k0, rows, np, acc);
     }
     __syncthreads();
     gram_accumulate(q, g, rows, np);
@@ -208,45 +158,14 @@ __global__ void __launch_bounds__(kThreads)
 chol_linv_kernel(const float* __restrict__ G, const float* __restrict__ P,
                  float* __restrict__ out, int n, float tiny) {
   extern __shared__ __align__(16) float smem[];
-  // s: G on entry.  The elimination updates its lower triangle in place;
-  // at step k the scaled column k of L (L[i][k], i > k) is written to
-  // s[k][i], the upper half of row k, which nothing reads after step k-1.
-  // So L[k][j] for j < k is s[j][k].
+  // s: G on entry, eliminated in place (chol_linv_rows); li: the rows of
+  // L^-1 (or of L^-1 P)
   float* s = smem;
-  float* li = s + n * n;      // rows of L^-1 (or of L^-1 P)
+  float* li = s + n * n;
   const long long node = blockIdx.x;
   const float* Pb = P ? P + node * n * n : nullptr;
   load(G + node * n * n, s, n * n);
-  // threads [0, nrow) form the output row, the rest run the elimination;
-  // nrow is whole warps, so no warp takes both branches
-  const int nrow = min((n + 31) / 32 * 32, (int)blockDim.x / 2);
-  const int nelim = blockDim.x - nrow;
-  const int t = threadIdx.x;
-  __syncthreads();
-  for (int k = 0; k < n; ++k) {
-    const float dinv = rsqrtf(fmaxf(s[k * n + k], tiny));
-    if (t < nrow) {
-      for (int c = t; c < n; c += nrow) {
-        float acc = 0.f;
-        for (int j = 0; j < k; ++j) acc = fmaf(s[j * n + k], li[j * n + c], acc);
-        const float base = Pb ? Pb[(long long)k * n + c] : (c == k ? 1.f : 0.f);
-        li[k * n + c] = (base - acc) * dinv;
-      }
-    } else {
-      // one trailing column j > k a thread: store L[j][k] into s[k][j],
-      // then update s[i][j] for i >= j.  All threads walk the rows i
-      // together, so s[i][k] is a broadcast and s[i][j] is consecutive.
-      for (int j = k + 1 + (t - nrow); j < n; j += nelim) {
-        const float cj = s[j * n + k] * dinv;
-        s[k * n + j] = cj;
-        for (int i = k + 1; i < n; ++i) {
-          const float ci = s[i * n + k] * dinv;
-          if (i >= j) s[i * n + j] -= ci * cj;
-        }
-      }
-    }
-    __syncthreads();
-  }
+  chol_linv_rows(s, li, Pb, n, tiny);
   float* ob = out + node * n * n;
   for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) ob[idx] = li[idx];
 }
@@ -264,20 +183,10 @@ prec_apply_kernel(const float* __restrict__ Lc, const float* __restrict__ v,
   load(Lc + node * n * n, l, n * n);
   load(v + node * n, vs, n);
   __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = warp; i < n; i += kApplyThreads / 32) {
-    float acc = 0.f;
-    for (int j = lane; j < n; j += 32) acc = fmaf(l[i * n + j], vs[j], acc);
-    for (int off = 16; off > 0; off /= 2)
-      acc += __shfl_down_sync(0xffffffffu, acc, off);
-    if (lane == 0) u[i] = acc;
-  }
+  rows_times(l, n, vs, u, n, false);
   __syncthreads();
-  for (int j = threadIdx.x; j < n; j += kApplyThreads) {
-    float acc = 0.f;
-    for (int i = 0; i < n; ++i) acc = fmaf(l[i * n + j], u[i], acc);
-    out[node * n + j] = acc;
-  }
+  for (int j = threadIdx.x; j < n; j += kApplyThreads)
+    out[node * n + j] = col_times(l, n, u, j, n, false);
 }
 
 // Set the kernel's dynamic shared memory and check it fits the device.

@@ -12,8 +12,8 @@
  *   2. assemble the dense float32 system A (m x n), m = E + 3F (+F Neumann
  *      rows), n = 3E + 1, columns 3e+c per cell gradient, 3E the constant;
  *   3. shifted CholeskyQR2 in float32: column equilibration D, G1 = A^T A +
- *      diag(dead + shift), clamped Cholesky, L1^-1, Q = A L1^-T (in place
- *      over A), G2 = Q^T Q + diag(dead), clamped Cholesky L2, and the
+ *      diag(dead + shift), clamped Cholesky with L1^-1, Q = A L1^-T (in
+ *      place over A), G2 = Q^T Q + diag(dead), clamped Cholesky with the
  *      combined factor Lc = L2^-1 L1^-1, so M = D Lc^T Lc D;
  *   4. float64 refinement: y = M e_{n-1}, then `sweeps` times
  *      y += M (e_{n-1} - A^T A y), with A applied structurally from the
@@ -21,24 +21,44 @@
  *   5. w = cell rows of A y, wn = sum_f nm_f (Neumann row f . y), rnorm =
  *      ||dy|| / ||y|| (1 when a pivot was clamped: dmax > 3e4).
  *
- * What bounds it on an H100: arithmetic on the CUDA cores, not memory.  A
- * tetrahedral Neumann node (E = 24, F = 36: m = 168, n = 73) reads about
- * 6 KB of inputs but does ~1.6 M float32 FMAs (three m n^2 / 2 products:
+ * What bounds it on an H100: arithmetic on the CUDA cores, not memory.  An
+ * interior tetrahedral node (E = 24, F = 36: m = 132, n = 73) reads about
+ * 6 KB of inputs but does ~1.3 M float32 FMAs (three m n^2 / 2 products:
  * Gram1, Q, Gram2; plus the two factorizations and inverses), and the
- * Cholesky steps are sequential, one block-wide barrier per pivot.  The
- * design keeps every intermediate (A, G, the factors, the float64
- * vectors) in shared memory, so device memory sees only the inputs and
- * the outputs; a class too large for shared memory puts A, G and L in a
- * per-node workspace the wrapper allocates.  Tensor cores (wgmma) and
- * warp-per-node layouts are left for later work.
+ * Cholesky steps are sequential, one block-wide barrier per pivot.  Every
+ * intermediate (A, the Gram matrices, the factors, the float64 vectors)
+ * stays in shared memory, so device memory sees only the inputs and the
+ * outputs; a class too large for shared memory puts A, X and Y (below) in
+ * a per-node workspace the wrapper allocates.
+ *
+ * The float32 stages run the device code of the unfused kernels
+ * (cholqr_device.cuh), on three buffers at the row stride np = padded(n),
+ * with zero pad columns:
+ *   A  (padded m x np): A, then Q, then Lc;
+ *   X  (np x np): G1 (4x4 register tiles, mirrored to its lower half),
+ *      eliminated in place, then L1^-T (stored transposed so the Q tiles
+ *      read it as consecutive float4s);
+ *   Y  (np x np): L1^-1, then G2.
+ * Each factorization (chol_linv_rows_inplace) has one barrier per pivot
+ * and finishes a row of its inverse at that pivot, updating the later
+ * rows right-looking, so no thread runs a chain of k dependent FMAs, and
+ * every thread takes a slice of a column's rows at every pivot; it runs
+ * over n, never over the pad, whose zero pivots would read as clamped.  The apply u = Lc v runs a warp per row, Lc^T u a thread per
+ * column.  At (24, 36) this is 93 KB of shared
+ * memory, two blocks an SM.  Tensor cores (3xTF32 at best: the Gram
+ * products must be accurate to ~eps32) and several nodes per block are
+ * left for later work.
  */
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cholqr_device.cuh"
+
 namespace {
 
+using namespace cholqr_device;
+
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr float kSickDinv = 3e4f;
 constexpr size_t kStaticSmemMargin = 64;
 
@@ -54,97 +74,72 @@ struct Params {
 };
 
 struct Layout {
-  int n, m;
+  int n, m, np, rows;     // np: padded(n), the row stride of A, X and Y
   size_t small_bytes;     // float64 pieces + vectors, float32 vectors, ints
-  long long big_floats;   // A (m x n), G (n x n), L (n x n)
+  long long big_floats;   // A (rows x np), X and Y (np x np each)
 };
 
 __host__ __device__ inline Layout make_layout(int E, int F, int wneu) {
   Layout lay;
   lay.n = 3 * E + 1;
   lay.m = E + (wneu ? 4 : 3) * F;
+  lay.np = padded(lay.n);
+  // A's rows, padded to whole tiles; at least np, so an np x np factor
+  // fits in A's storage once A is no longer needed
+  lay.rows = padded(lay.m) > lay.np ? padded(lay.m) : lay.np;
   const size_t n = lay.n;
   // dk; l1, l2, t1m, tt; lb, nm; y, r, dy; tcell; r1, r2, r3, tn
   const size_t nd = 3 * E + 12 * F + (wneu ? 4 * F : 0) + 3 * n + E + 4 * F;
-  // D, dead, dinv1, dinv2, v, u; one Q row per warp
-  const size_t nf = 6 * n + kWarps * n;
+  // D, dead, dinv1, dinv2, v, u
+  const size_t nf = 6 * n;
   const size_t ni = 3 * F;   // I1, I2, Ib
   lay.small_bytes = (nd * 8 + nf * 4 + ni * 4 + 15) / 16 * 16;
-  lay.big_floats = ((long long)lay.m * lay.n + 2LL * lay.n * lay.n + 3) / 4 * 4;
+  lay.big_floats = (long long)lay.rows * lay.np + 2LL * lay.np * lay.np;
   return lay;
 }
 
-// G (lower triangle) = A^T A + diag(dead + diag_add)
-__device__ void gram(const float* A, float* G, const float* dead,
-                     float diag_add, int m, int n) {
+// G = A^T A + diag(dead + diag_add), both triangles, into g (stride np,
+// zero on entry): the register-tiled upper tiles (gram_accumulate over
+// all m rows of A), then the upper triangle mirrored onto the lower one,
+// which the factorization reads.
+__device__ void gram(const float* A, float* g, const float* dead,
+                     float diag_add, int m, int n, int np) {
+  gram_accumulate(A, g, m, np);
+  __syncthreads();
   for (int idx = threadIdx.x; idx < n * n; idx += kThreads) {
     const int i = idx / n, j = idx - i * n;
-    if (j > i) continue;
-    float s = 0.f;
-    for (int r = 0; r < m; ++r)
-      s = fmaf(A[(size_t)r * n + i], A[(size_t)r * n + j], s);
-    if (i == j) s += dead[i] + diag_add;
-    G[idx] = s;
+    if (i > j) g[i * np + j] = g[j * np + i];
+    else if (i == j) g[i * np + i] += dead[i] + diag_add;
   }
   __syncthreads();
 }
 
-// Right-looking Cholesky of the lower triangle of G, in place, pivots
-// clamped at tiny: on exit G[i][k] (i > k) = L[i][k] and
-// dinv[k] = rsqrt(max(pivot_k, tiny)), which every later solve uses as
-// the inverse diagonal.
-__device__ void chol_clamped(float* G, float* dinv, int n, float tiny) {
-  for (int k = 0; k < n; ++k) {
-    const float d = rsqrtf(fmaxf(G[k * n + k], tiny));
-    for (int i = k + 1 + threadIdx.x; i < n; i += kThreads) G[i * n + k] *= d;
-    if (threadIdx.x == 0) dinv[k] = d;
-    __syncthreads();
-    const int t = n - k - 1;
-    for (int idx = threadIdx.x; idx < t * t; idx += kThreads) {
-      const int ii = idx / t, jj = idx - ii * t;
-      if (jj > ii) continue;
-      const int i = k + 1 + ii, j = k + 1 + jj;
-      G[i * n + j] = fmaf(-G[i * n + k], G[j * n + k], G[i * n + j]);
-    }
-    __syncthreads();
-  }
-}
-
-// X <- L^-1 X for lower-triangular X (identity when `identity`), L the
-// strictly-lower part of a chol_clamped factor with inverse diagonal dinv.
-// One thread per column: forward substitution, no barriers inside.
-__device__ void lower_solve_cols(const float* L, const float* dinv, float* X,
-                                 int n, bool identity) {
-  for (int j = threadIdx.x; j < n; j += kThreads) {
-    if (identity)
-      for (int i = 0; i < j; ++i) X[i * n + j] = 0.f;
-    for (int i = j; i < n; ++i) {
-      float s = identity ? (i == j ? 1.f : 0.f) : X[i * n + j];
-      for (int q = j; q < i; ++q) s = fmaf(-L[i * n + q], X[q * n + j], s);
-      X[i * n + j] = s * dinv[i];
-    }
-  }
-  __syncthreads();
-}
-
-// out = D Lc^T Lc D rin: float32 preconditioner, float64 in and out
+// out = D Lc^T Lc D rin: float32 preconditioner, float64 in and out, Lc
+// lower triangular at stride ld: u = Lc v one warp a row, then Lc^T u one
+// thread a column
 __device__ void apply_M(const double* rin, double* out, const float* Lc,
-                        const float* D, float* v, float* u, int n) {
+                        const float* D, float* v, float* u, int n, int ld) {
   for (int j = threadIdx.x; j < n; j += kThreads)
     v[j] = (float)rin[j] * D[j];
   __syncthreads();
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    float s = 0.f;
-    for (int k = 0; k <= i; ++k) s = fmaf(Lc[i * n + k], v[k], s);
-    u[i] = s;
-  }
+  rows_times(Lc, ld, v, u, n, true);
   __syncthreads();
-  for (int k = threadIdx.x; k < n; k += kThreads) {
-    float s = 0.f;
-    for (int i = k; i < n; ++i) s = fmaf(Lc[i * n + k], u[i], s);
-    out[k] = (double)(s * D[k]);
-  }
+  for (int k = threadIdx.x; k < n; k += kThreads)
+    out[k] = (double)(col_times(Lc, ld, u, k, n, true) * D[k]);
   __syncthreads();
+}
+
+// The sum (or max) of v over the lanes of a warp, in every lane.
+template <typename T>
+__device__ T warp_sum(T v) {
+  for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ float warp_max(float v) {
+  for (int off = 16; off > 0; off /= 2)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
 }
 
 struct Node {
@@ -216,13 +211,14 @@ __device__ void residual(const Node& nd, const double* y, double* r) {
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads) gls_solve_kernel(Params p) {
+// two blocks an SM at the interior class: at most 128 registers a thread
+__global__ void __launch_bounds__(kThreads, 2) gls_solve_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_flag[2];   // active, sick
   const int E = p.E, F = p.F;
   const bool wneu = p.with_neumann != 0;
   const Layout lay = make_layout(E, F, p.with_neumann);
-  const int n = lay.n, m = lay.m;
+  const int n = lay.n, m = lay.m, np = lay.np;
   const int tid = threadIdx.x;
   const long long b = blockIdx.x;
 
@@ -247,14 +243,13 @@ __global__ void __launch_bounds__(kThreads) gls_solve_kernel(Params p) {
   float* dinv2 = dinv1 + n;
   float* v = dinv2 + n;
   float* u = v + n;
-  float* qtmp = u + n;
-  int* I1 = reinterpret_cast<int*>(qtmp + kWarps * n);
+  int* I1 = reinterpret_cast<int*>(u + n);
   int* I2 = I1 + F;
   int* Ib = I2 + F;
   float* A = p.ws ? p.ws + b * p.ws_stride
                   : reinterpret_cast<float*>(smem + lay.small_bytes);
-  float* G = A + (size_t)m * n;
-  float* L = G + (size_t)n * n;
+  float* X = A + (size_t)lay.rows * np;
+  float* Y = X + (size_t)np * np;
 
   // ---- 1. inputs and local incidence
   const unsigned char* cvb = p.cv + b * E;
@@ -288,14 +283,16 @@ __global__ void __launch_bounds__(kThreads) gls_solve_kernel(Params p) {
     I2[f] = i2;
     Ib[f] = ib;
   }
-  if (tid == 0) {
+  if (tid < 32) {
     int n_face = 0, n_bface = 0;
-    for (int f = 0; f < F; ++f)
+    for (int f = tid; f < F; f += 32)
       if (fvb[f]) {
         ++n_face;
         if (pairb[2 * f + 1] < 0) ++n_bface;
       }
-    s_flag[0] = p.valid[b] != 0 && !(n_bface >= n_face);
+    n_face = warp_sum(n_face);
+    n_bface = warp_sum(n_bface);
+    if (tid == 0) s_flag[0] = p.valid[b] != 0 && !(n_bface >= n_face);
   }
   __syncthreads();
   if (!s_flag[0]) {
@@ -308,31 +305,33 @@ __global__ void __launch_bounds__(kThreads) gls_solve_kernel(Params p) {
   }
 
   // ---- 2. float32 system rows
-  for (long long i = tid; i < (long long)m * n; i += kThreads) A[i] = 0.f;
+  // A and the first Gram accumulator, pad rows and columns included
+  for (long long i = tid; i < (long long)lay.rows * np + np * np; i += kThreads)
+    A[i] = 0.f;
   __syncthreads();
   for (int e = tid; e < E; e += kThreads) {
-    float* row = A + (size_t)e * n;
+    float* row = A + (size_t)e * np;
     for (int c = 0; c < 3; ++c) row[3 * e + c] = (float)dk[3 * e + c];
     row[3 * E] = cvb[e] ? 1.f : 0.f;
   }
   for (int f = tid; f < F; f += kThreads) {
-    float* ra = A + (size_t)(E + 3 * f) * n;
+    float* ra = A + (size_t)(E + 3 * f) * np;
     for (int c = 0; c < 3; ++c) {
       const int o = 3 * f + c;
       if (I1[f] >= 0) {
         const int col = 3 * I1[f] + c;
         ra[col] = -(float)l1[o];
-        ra[n + col] = -(float)t1m[o];
-        ra[2 * n + col] = -(float)tt[o];
+        ra[np + col] = -(float)t1m[o];
+        ra[2 * np + col] = -(float)tt[o];
       }
       if (I2[f] >= 0) {
         const int col = 3 * I2[f] + c;
         ra[col] = (float)l2[o];
-        ra[n + col] = (float)t1m[o];
-        ra[2 * n + col] = (float)tt[o];
+        ra[np + col] = (float)t1m[o];
+        ra[2 * np + col] = (float)tt[o];
       }
       if (Ib[f] >= 0)
-        A[(size_t)(E + 3 * F + f) * n + 3 * Ib[f] + c] = -(float)lb[o];
+        A[(size_t)(E + 3 * F + f) * np + 3 * Ib[f] + c] = -(float)lb[o];
     }
   }
   __syncthreads();
@@ -341,43 +340,60 @@ __global__ void __launch_bounds__(kThreads) gls_solve_kernel(Params p) {
   for (int j = tid; j < n; j += kThreads) {
     float s = 0.f;
     for (int i = 0; i < m; ++i) {
-      const float a = A[(size_t)i * n + j];
+      const float a = A[(size_t)i * np + j];
       s = fmaf(a, a, s);
     }
     dead[j] = s == 0.f ? 1.f : 0.f;
     D[j] = s == 0.f ? 0.f : rsqrtf(s);
   }
   __syncthreads();
-  for (long long i = tid; i < (long long)m * n; i += kThreads) A[i] *= D[i % n];
-  __syncthreads();
-  gram(A, G, dead, p.shift, m, n);
-  chol_clamped(G, dinv1, n, p.tiny);
-  lower_solve_cols(G, dinv1, L, n, true);          // L <- L1^-1
-  {
-    // Q = A L1^-T in place over A, one row per warp
-    const int warp = tid >> 5, lane = tid & 31;
-    float* tmp = qtmp + warp * n;
-    for (int row = warp; row < m; row += kWarps) {
-      float* a = A + (size_t)row * n;
-      for (int j = lane; j < n; j += 32) {
-        float s = 0.f;
-        for (int k = 0; k <= j; ++k) s = fmaf(L[j * n + k], a[k], s);
-        tmp[j] = s;
-      }
-      __syncwarp();
-      for (int j = lane; j < n; j += 32) a[j] = tmp[j];
-      __syncwarp();
-    }
+  for (int i = tid; i < m * np; i += kThreads) {
+    const int c = i % np;
+    if (c < n) A[i] *= D[c];
   }
   __syncthreads();
-  gram(A, G, dead, 0.f, m, n);
-  chol_clamped(G, dinv2, n, p.tiny);
-  lower_solve_cols(G, dinv2, L, n, false);         // L <- L2^-1 L1^-1
-  if (tid == 0) {
+  gram(A, X, dead, p.shift, m, n, np);
+  chol_linv_rows_inplace(X, np, Y, np, true, n, p.tiny, dinv1);  // Y = L1^-1
+  // X <- L1^-T (G1 is dead): the Q tiles read it as consecutive float4s
+  for (int i = tid; i < np * np; i += kThreads) {
+    const int j = i / np, k = i - j * np;
+    X[i] = j < n && k < n ? Y[k * np + j] : 0.f;
+  }
+  __syncthreads();
+  {
+    // Q = A L1^-T in place over A, `chunk` rows at a time: each thread
+    // holds at most one kTile x kTile tile of the chunk in registers until
+    // every tile has read the chunk's rows of A.  Y (L1^-1, no longer
+    // read) is zeroed for the second Gram meanwhile.
+    const int nt = np / kTile;
+    const int chunk = kTile * (kThreads / nt);
+    for (int r0 = 0; r0 < m; r0 += chunk) {
+      const int tiles = (min(chunk, m - r0) + kTile - 1) / kTile * nt;
+      const int r0t = r0 + tid / nt * kTile, k0 = tid % nt * kTile;
+      float acc[kTile][kTile];
+      if (tid < tiles) q_tile(A, X, r0t, k0, n, np, acc);
+      if (r0 == 0)
+        for (int i = tid; i < np * np; i += kThreads) Y[i] = 0.f;
+      __syncthreads();
+      if (tid < tiles) store_tile(A, r0t, k0, m, np, acc);
+      __syncthreads();
+    }
+  }
+  gram(A, Y, dead, 0.f, m, n, np);
+  // Lc = L2^-1 L1^-1 in A's storage (Q is no longer read): L1^-1's rows
+  // from X, then the factorization in place over them
+  float* Lc = A;
+  for (int i = tid; i < n * n; i += kThreads) {
+    const int k = i / n, c = i - k * n;
+    Lc[k * np + c] = X[c * np + k];
+  }
+  chol_linv_rows_inplace(Y, np, Lc, np, false, n, p.tiny, dinv2);
+  if (tid < 32) {
     float dmax = 0.f;
-    for (int k = 0; k < n; ++k)
+    for (int k = tid; k < n; k += 32)
       dmax = fmaxf(dmax, fmaxf(dinv1[k], dinv1[k] * dinv2[k]));
-    s_flag[1] = dmax > kSickDinv;
+    dmax = warp_max(dmax);
+    if (tid == 0) s_flag[1] = dmax > kSickDinv;
   }
 
   // ---- 4. float64 refinement sweeps
@@ -385,10 +401,10 @@ __global__ void __launch_bounds__(kThreads) gls_solve_kernel(Params p) {
                 tcell, r1, r2, r3, tn};
   for (int j = tid; j < n; j += kThreads) r[j] = j == n - 1 ? 1.0 : 0.0;
   __syncthreads();
-  apply_M(r, y, L, D, v, u, n);
+  apply_M(r, y, Lc, D, v, u, n, np);
   for (int s = 0; s < p.sweeps; ++s) {
     residual(nd, y, r);
-    apply_M(r, dy, L, D, v, u, n);
+    apply_M(r, dy, Lc, D, v, u, n, np);
     for (int j = tid; j < n; j += kThreads) y[j] += dy[j];
     __syncthreads();
   }
@@ -397,20 +413,39 @@ __global__ void __launch_bounds__(kThreads) gls_solve_kernel(Params p) {
   // ---- 5. outputs
   apply_A(nd, y);
   for (int e = tid; e < E; e += kThreads) p.w[b * E + e] = tcell[e];
-  if (tid == 0) {
-    double dy2 = 0.0, y2 = 0.0;
-    for (int j = 0; j < n; ++j) {
+  if (tid < 32) {
+    double dy2 = 0.0, y2 = 0.0, wsum = 0.0;
+    for (int j = tid; j < n; j += 32) {
       dy2 += dlast[j] * dlast[j];
       y2 += y[j] * y[j];
     }
-    double rn = sqrt(dy2) / sqrt(fmax(y2, 1e-30));
-    if (s_flag[1]) rn = 1.0;
-    double wsum = 0.0;
     if (wneu)
-      for (int f = 0; f < F; ++f) wsum += nm[f] * tn[f];
-    p.wn[b] = wsum;
-    p.rnorm[b] = rn;
+      for (int f = tid; f < F; f += 32) wsum += nm[f] * tn[f];
+    dy2 = warp_sum(dy2);
+    y2 = warp_sum(y2);
+    wsum = warp_sum(wsum);
+    if (tid == 0) {
+      double rn = sqrt(dy2) / sqrt(fmax(y2, 1e-30));
+      if (s_flag[1]) rn = 1.0;
+      p.wn[b] = wsum;
+      p.rnorm[b] = rn;
+    }
   }
+}
+
+// Whether a class's A, X and Y fit in shared memory beside the rest.
+bool fits_in_smem(const Layout& lay) {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const size_t all = lay.small_bytes + (size_t)lay.big_floats * 4;
+  return all + kStaticSmemMargin <= (size_t)optin;
+}
+
+// Dynamic shared memory of a launch: all of it, or without A, X and Y
+// when they live in the device workspace.
+size_t launch_smem(const Layout& lay, bool workspace) {
+  return lay.small_bytes + (workspace ? 0 : (size_t)lay.big_floats * sizeof(float));
 }
 
 }  // namespace
@@ -420,11 +455,22 @@ __global__ void __launch_bounds__(kThreads) gls_solve_kernel(Params p) {
 extern "C" long long gls_solve_workspace_floats(int E, int F,
                                                 int with_neumann) {
   const Layout lay = make_layout(E, F, with_neumann);
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const size_t all = lay.small_bytes + (size_t)lay.big_floats * 4;
-  return all + kStaticSmemMargin <= (size_t)optin ? 0 : lay.big_floats;
+  return fits_in_smem(lay) ? 0 : lay.big_floats;
+}
+
+// The dynamic shared memory bytes of a class's launch and the blocks of
+// it an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
+// returns the cudaError_t (0 on success).
+extern "C" int gls_solve_occupancy(int E, int F, int with_neumann,
+                                   long long* smem_bytes, int* blocks_per_sm) {
+  const Layout lay = make_layout(E, F, with_neumann);
+  const size_t smem = launch_smem(lay, !fits_in_smem(lay));
+  *smem_bytes = (long long)smem;
+  cudaError_t err = cudaFuncSetAttribute(
+      gls_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, gls_solve_kernel, kThreads, smem);
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 on success).
@@ -439,13 +485,13 @@ extern "C" int gls_solve_launch(
   const Layout lay = make_layout(E, F, with_neumann);
   if (B <= 0 || E <= 0 || F <= 0 || sweeps < 0 ||
       (with_neumann && (lb == nullptr || nm == nullptr)) ||
+      lay.np > kTile * kThreads ||   // a Q tile row wider than the block
       (ws != nullptr && ws_stride < lay.big_floats))
     return (int)cudaErrorInvalidValue;
   Params p{dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu, valid,
            w, wn, rnorm, ws, ws_stride, E, F, with_neumann, sweeps,
            (float)tiny, (float)shift};
-  const size_t smem =
-      lay.small_bytes + (ws ? 0 : (size_t)lay.big_floats * sizeof(float));
+  const size_t smem = launch_smem(lay, ws != nullptr);
   cudaError_t err = cudaFuncSetAttribute(
       gls_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

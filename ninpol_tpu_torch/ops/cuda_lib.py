@@ -1,9 +1,10 @@
 """Build, load and call the package's hand-written CUDA kernels.
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, named by the source's content
-hash under ``_build/`` (so an edited source rebuilds and an unchanged one
-is reused), and loaded with ctypes on first use.  Nothing here runs at
+shared library with a plain C interface, named under ``_build/`` by the
+content hash of the source and of every ``csrc/*.cuh`` header (so an
+edited source or header rebuilds and an unchanged tree is reused), and
+loaded with ctypes on first use.  Nothing here runs at
 import time: the CPU tests import every module, and this machine may have
 no ``nvcc`` and no card.
 
@@ -13,6 +14,7 @@ and raise through ``check_launch`` when a launch returns a CUDA error.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -26,15 +28,28 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 
+def source_digest(source, csrc=CSRC):
+    """Content hash of a kernel source together with every header in
+    ``csrc`` (``*.cuh``), each under its file name: a source may include
+    any of them, so an edited header must change the digest."""
+    h = hashlib.sha1()
+    for path in [source] + sorted(glob.glob(os.path.join(csrc, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0")
+            h.update(hashlib.sha1(f.read()).digest())
+    return h.hexdigest()[:16]
+
+
 class CudaLibrary:
     """One ``csrc/<name>.cu`` as a ctypes library, built on first use.
 
     ``bind(lib)`` declares the argument and result types of the library's
     C functions."""
 
-    def __init__(self, name, bind):
+    def __init__(self, name, bind, csrc=CSRC):
         self.name = name
-        self.source = os.path.join(CSRC, f"{name}.cu")
+        self.csrc = csrc
+        self.source = os.path.join(csrc, f"{name}.cu")
         self._bind = bind
         self.lib = None
         self.build_seconds = None
@@ -45,10 +60,13 @@ class CudaLibrary:
             self._build()
         return self.lib
 
+    def path(self):
+        """The built library's path, named by ``source_digest``."""
+        digest = source_digest(self.source, self.csrc)
+        return os.path.join(BUILD_DIR, f"{self.name}_{digest}.so")
+
     def _build(self):
-        with open(self.source, "rb") as f:
-            digest = hashlib.sha1(f.read()).hexdigest()[:16]
-        path = os.path.join(BUILD_DIR, f"{self.name}_{digest}.so")
+        path = self.path()
         t0 = time.perf_counter()
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)

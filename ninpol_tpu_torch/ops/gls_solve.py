@@ -195,9 +195,22 @@ def _bind(lib):
         [vp] * 13 + [vp] * 3 + [vp, ctypes.c_longlong]
         + [ci] * 5 + [ctypes.c_double] * 2 + [vp])
     lib.gls_solve_launch.restype = ci
+    lib.gls_solve_occupancy.argtypes = [
+        ci, ci, ci, ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ci)]
+    lib.gls_solve_occupancy.restype = ci
 
 
 library = CudaLibrary("gls_solve", _bind)
+
+
+def occupancy(E, F, with_neumann):
+    """(dynamic shared memory bytes, blocks an SM holds) of the kernel's
+    launch for one (E, F, with_neumann) class, on the current card."""
+    smem, blocks = ctypes.c_longlong(), ctypes.c_int()
+    check_launch(library.get().gls_solve_occupancy(
+        E, F, int(with_neumann), ctypes.byref(smem), ctypes.byref(blocks)),
+        f"gls_solve occupancy query (E={E}, F={F})")
+    return smem.value, blocks.value
 
 
 def _check_inputs(t):

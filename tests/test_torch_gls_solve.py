@@ -224,17 +224,26 @@ def test_cpu_wrapper_runs_plain_version_without_counting():
 @pytest.mark.parametrize("neumann", [False, True])
 def test_cuda_kernel_matches_plain_version(neumann):
     """The CUDA kernel against its plain version on the card, on the
-    converged nodes; the fallback sets agree."""
+    converged nodes; the fallback sets agree.  One node is made rank
+    deficient as in test_clamped_pivot_forces_rnorm_one: the kernel, like
+    the plain version, clamps a pivot there and forces its rnorm to 1."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernel has no CPU mode)")
-    inp = {k: None if v is None else v.cuda()
-           for k, v in _port_chunk(n=4, neumann=neumann).items()}
+    inp = _port_chunk(n=4, neumann=neumann)
+    sick = inp["dk"].shape[0] // 2
+    for key in ("dk", "l1", "l2", "t1m", "tt") + (("lb",) if neumann else ()):
+        inp[key] = inp[key].clone()
+        inp[key][sick, :, 1] = inp[key][sick, :, 0]
+    inp = {k: None if v is None else v.cuda() for k, v in inp.items()}
     before = gls_solve.launches
     wk, wnk, rk = gls_solve(**inp)
     assert gls_solve.launches == before + 1
     wp, wnp, rp = gls_solve_reference(**inp)
+    assert rk[sick].item() == 1.0 and rp[sick].item() == 1.0
     conv = (rk <= RNORM_TOL) & (rp <= RNORM_TOL)
-    scale = max(wp.abs().max().item(), 1.0)
+    assert conv.sum().item() >= len(rk) - 2
+    # the sick node's weights may overflow: scale by the converged ones
+    scale = max(wp[conv].abs().max().item(), 1.0)
     assert (wk - wp)[conv].abs().max().item() / scale < TOL
     assert (wnk - wnp)[conv].abs().max().item() / scale < TOL
     assert torch.equal(rk > RNORM_TOL, rp > RNORM_TOL)
