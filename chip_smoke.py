@@ -33,15 +33,24 @@ all three:
      factors by backward error
      max|X W X^T - I| (<= 10x the plain version's) with the same flagged
      pivots; prints kernel, plain and one library call's times (CUDA
-     events);
+     events), and each kernel's registers, local (spill) bytes, shared
+     memory and blocks per SM per class;
      4d. qr_r and sne_solve vs their plain versions on one chunk of every
      class of the solver="pallas" route, on the inputs that route gives
-     them: R by backward error max|R^T R - Ar^T Ar| / max|Ar^T Ar| per
-     node (<= 10x the plain version's), y on e_n, on the route's residual
-     and on a seeded random b by residual ||R^T R y - b|| / (||R||_F^2
-     ||y||) (<= 10x the plain version's), and the whole gls_solve_csne
-     through the kernels vs through the plain versions (<= 1e-10 scaled,
-     the same rnorm > 1e-11 set); prints kernel, plain and library times;
+     them: R of Ar = [A; diag(dead)] (qr_r takes A) by backward error
+     max|R^T R - Ar^T Ar| / max|Ar^T Ar| per node (<= 10x the plain
+     version's) with the same r_diag_quality flags, y on e_n, on the
+     route's residual and on a seeded random b by residual
+     ||R^T R y - b|| / (||R||_F^2 ||y||) (<= 10x the plain version's),
+     and the whole gls_solve_csne through the kernels vs through the
+     plain versions (<= 1e-10 scaled, the same rnorm > 1e-11 set);
+     prints kernel, plain and library times, qr_r's time on each of its
+     two bodies (register tile, shared memory) and each body's
+     registers, local bytes, shared memory and blocks per SM;
+     4e. one chunk of the unfused route and one of the solver="pallas"
+     route padded to (E, F) = (64, 96), where chol_linv, round2_gram and
+     qr_r run from device workspaces: the unpadded weights (<= 1e-10
+     scaled), the same rnorm > 1e-11 set;
   5. the main path: a warm-up prepare_interpolator, 3 timed device_out
      runs (torch.cuda.synchronize), interpolate() -> CSR; prints seconds,
      Mnodes/s, n_bad (which must be 0) and the kernel launch count, which
@@ -442,6 +451,7 @@ def cholqr_vs_plain(interp, tp):
                 lambda: torch.bmm(aLc.transpose(1, 2),
                                   torch.bmm(aLc, v.abs()[:, :, None])),
                 2 * B * n * (n + 1), Lc.nbytes + 2 * v.nbytes)}
+        occ = {k: cq.occupancy(k, n) for k in SOLVE_KERNELS}
         for name, (kernel, plain, library, magnitude, flops,
                    nbytes) in products.items():
             got, ref = kernel(), plain()
@@ -453,7 +463,8 @@ def cholqr_vs_plain(interp, tp):
             row = timed(dict(head, max_err_over_magnitude=err,
                              max_err_over_result=scaled_err(got, ref, ref),
                              max_abs_err=max(abs_err, extra.get(
-                                 "random_v_max_abs_err", 0.0)), **extra),
+                                 "random_v_max_abs_err", 0.0)),
+                             occupancy=occ[name], **extra),
                         kernel, plain, library, flops, nbytes)
             del got, ref
             print(f"# {name} " + json.dumps(row), flush=True)
@@ -478,6 +489,7 @@ def cholqr_vs_plain(interp, tp):
             bk = chol_backward_error(Xk, G, P, ok) if ok.any() else 0.0
             bp = chol_backward_error(Xp, G, P, ok) if ok.any() else 0.0
             row = dict(head, mul_right=P is not None,
+                       occupancy=occ["chol_linv_f32"],
                        n_flagged=int(fk.sum()),
                        backward_error=bk, plain_backward_error=bp,
                        max_abs_err=float((Xk - Xp)[ok].abs().max())
@@ -560,25 +572,45 @@ def csne_vs_plain(interp, tp):
                         f"{RNORM_TOL} sets differ: {solve}")
         del wk, wnk, rk, wp, wnp, rp
 
-        # qr_r on the route's A, with an identity row per dead column
-        A, Ar, _ = csne_system(**{k: v for k, v in inp.items() if k != "nm"})
+        # qr_r on the route's A; R is that of Ar, A with an identity row
+        # per dead column, which the kernel never builds
+        A, _ = csne_system(**{k: v for k, v in inp.items() if k != "nm"})
         del inp
-        _, m, n = Ar.shape
-        Rk, Rp = qr.qr_r(Ar), qr.qr_r_reference(Ar)
+        Ar = qr.with_dead_rows(A)
+        _, m, n = A.shape
+        Rk, Rp = qr.qr_r(A), qr.qr_r_reference(A)
         torch.cuda.synchronize()
         # backward error: how far R^T R is from Ar^T Ar, per node
         bk, bp = (qr.gram_backward_error(R, Ar) for R in (Rk, Rp))
-        row = dict(head, m=m, n=n, backward_error=bk, plain_backward_error=bp,
+        flags = [qr.r_diag_quality(R) < 1e-6 for R in (Rk, Rp)]
+        path = qr.library.get().qr_r_path(m, n)
+        row = dict(head, m=m, n=n, path=path, backward_error=bk,
+                   plain_backward_error=bp,
+                   n_r_diag_flagged=int(flags[0].sum()),
                    max_entry_err_over_r=scaled_err(Rk, Rp, Rp),
                    max_abs_err=float((Rk - Rp).abs().max()),
-                   ms=cuda_ms(lambda: qr.qr_r(Ar), 3),
-                   plain_ms=cuda_ms(lambda: qr.qr_r_reference(Ar), 1),
+                   ms=cuda_ms(lambda: qr.qr_r(A), 3),
+                   plain_ms=cuda_ms(lambda: qr.qr_r_reference(A), 1),
                    library_ms=cuda_ms(lambda: torch.linalg.qr(Ar, mode="r"),
                                       1))
+        # each body: its time, and what its launch holds on an SM
+        for p, label in ((2, "register"), (1, "shared")):
+            if p == 2 and path != 2:       # no register tile for the class
+                continue
+            Rb = qr.qr_r(A, path=p)
+            row[f"{label}_backward_error"] = qr.gram_backward_error(Rb, Ar)
+            row[f"{label}_ms"] = cuda_ms(lambda: qr.qr_r(A, path=p), 3)
+            row[f"{label}_occupancy"] = qr.occupancy(m, n, p)
+            check(row[f"{label}_backward_error"] <= QR_RATIO * bp,
+                  f"qr_r {label} body: backward error > {QR_RATIO} x plain "
+                  f"{bp:.3e}: {row}")
+            del Rb
         row["bound_ms"], row["bound_by"] = bound(*qr_work(Ar), PEAK_FP64)
         print("# qr_r " + json.dumps(row), flush=True)
         check(bk <= QR_RATIO * bp, f"qr_r backward error {bk:.3e} > "
                                    f"{QR_RATIO} x plain {bp:.3e}: {row}")
+        check(torch.equal(*flags), f"qr_r kernel and plain version flag "
+                                   f"different nodes: {row}")
         rows["qr_r"].append(row)
         del Ar, Rp
 
@@ -611,6 +643,51 @@ def csne_vs_plain(interp, tp):
         rows["sne_solve"].append(row)
         del Rk, rhs, b
     return rows
+
+
+def wide_routes(interp, tp, classes):
+    """Phase 4e: a class too wide for shared memory on the unfused and
+    solver="pallas" routes; padding a real chunk to (E, F) = (64, 96)
+    must not change its weights."""
+    from ninpol_tpu_torch._methods.gls import (gls_gather, gls_solve_csne,
+                                               gls_solve_unfused)
+    from ninpol_tpu_torch.ops import cholqr as cq
+    from ninpol_tpu_torch.ops import qr
+
+    dgrid = interp.device_grid
+    _, face_table, nflag = interp.gls.plan(
+        dgrid, interp.cells_data, interp.points_data,
+        interp.variable_to_index, "u", tp)
+    c = classes[-1]
+    nodes = torch.as_tensor(c["nodes"][:2048], device=dgrid.device)
+    inp, _ = gls_gather(dgrid, face_table, nflag, nodes, c["E"], c["F"],
+                        c["with_neumann"], tau_guard="norm")
+    wide = pad_class(inp, 64, 96)
+    n, m = 3 * 64 + 1, 64 + (4 if c["with_neumann"] else 3) * 96
+    ws = {k: getattr(cq.library.get(), f"{k}_workspace_floats")(n)
+          for k in SOLVE_KERNELS}
+    ws["qr_r"] = qr.library.get().qr_r_workspace_doubles(m, n)
+    check(ws["chol_linv_f32"] > 0 and ws["round2_gram_f32"] > 0
+          and ws["qr_r"] > 0, f"(64, 96) unexpectedly fits: {ws}")
+    for label, solve in (("shard_geometry", gls_solve_unfused),
+                         ("pallas", gls_solve_csne)):
+        w, wn, rn = solve(**inp)
+        w2, wn2, rn2 = solve(**wide)
+        torch.cuda.synchronize()
+        scale = max(float(w.abs().max()), 1.0)
+        err = max(float((w2[:, :c["E"]] - w).abs().max()),
+                  float((wn2 - wn).abs().max()),
+                  float(w2[:, c["E"]:].abs().max()))
+        same = bool(torch.equal(rn > RNORM_TOL, rn2 > RNORM_TOL))
+        stats = {"route": label, "E": c["E"], "F": c["F"],
+                 "with_neumann": c["with_neumann"], "nodes": len(nodes),
+                 "m": m, "n": n, "workspace_per_node": ws,
+                 "max_scaled_err": err / scale, "same_fallback_set": same,
+                 "n_unconverged": int((rn2 > RNORM_TOL).sum())}
+        print("# wide class " + json.dumps(stats), flush=True)
+        check(err / scale <= TOL_KERNEL, f"wide class differs: {stats}")
+        check(same, f"wide class changes the fallback set: {stats}")
+        del w, wn, rn, w2, wn2, rn2
 
 
 def main_path(interp, tp, classes, label):
@@ -808,6 +885,7 @@ def main():
     workspace_path(interp, tp, classes)
     classes_u, rows_u = cholqr_vs_plain(unfused, tp)
     rows_q = csne_vs_plain(interp, tp)
+    wide_routes(interp, tp, classes)
 
     # ---- 5. main path, the three routes
     W, NW, stats = main_path(interp, tp, classes, "fused")

@@ -176,14 +176,12 @@ def gls_solve_unfused(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu,
 
 
 def csne_system(dk, l1, l2, t1m, tt, lb, pair, ks, cv, fv, isneu, valid):
-    """The systems of ``gls_solve_csne``: the dense float64 A (B, m, n),
-    Ar = A with the identity rows diag(dead) appended (B, m + n, n), what
-    ``qr_r`` factors, and the active-node mask."""
+    """The dense float64 A (B, m, n) of ``gls_solve_csne`` and the
+    active-node mask."""
     S1, S2, Sb = incidence(pair, ks, cv, fv, isneu)
     active = node_active(pair, fv, valid)
     A = assemble(dk, l1, l2, t1m, tt, lb, S1, S2, Sb, cv, active)
-    dead = torch.sum(A * A, dim=1) == 0
-    return A, torch.cat([A, torch.diag_embed(dead.to(A.dtype))], dim=1), active
+    return A, active
 
 
 def gls_solve_csne(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu,
@@ -192,8 +190,9 @@ def gls_solve_csne(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu,
     (gls.py:659-705, weights as at :712-733), with ``gls_solve``'s inputs
     and outputs: R of the Householder QR of the dense float64 A with an
     identity row appended for each dead (all-zero) column, which keeps R's
-    diagonal aligned without coupling that column to real rows; y from
-    the semi-normal equations R^T R y = e_n, one float64 correction
+    diagonal aligned without coupling that column to real rows (``qr_r``
+    takes A and never builds those rows); y from the semi-normal
+    equations R^T R y = e_n, one float64 correction
     y += SNE(e_n - A^T A y) (corrected semi-normal equations);
     rnorm = ||dy|| / ||y||, 1 where min|R_kk| / max|R_kk| < 1e-6.
     ``pieces`` are (qr_r, sne_solve): ``qr.KERNELS`` (the wrappers) or
@@ -204,10 +203,9 @@ def gls_solve_csne(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu,
     F = l1.shape[1]
     n = 3 * E + 1
     f64 = torch.float64
-    A, Ar, active = csne_system(dk, l1, l2, t1m, tt, lb, pair, ks, cv, fv,
-                                isneu, valid)
-    R = qr_r(Ar)
-    del Ar
+    A, active = csne_system(dk, l1, l2, t1m, tt, lb, pair, ks, cv, fv, isneu,
+                            valid)
+    R = qr_r(A)
     b = torch.zeros((B, n), dtype=f64, device=dk.device)
     b[:, n - 1] = 1.0
     y = sne_solve(R, b)
@@ -296,6 +294,10 @@ class GLSInterpolation:
         # kernels).  Any other name raises ValueError: ninpol_tpu sends
         # other names to its "refined" route, which is not ported yet.
         self.solver = "auto"
+        # rounds of the CholeskyQR preconditioner: ninpol_tpu's setting
+        # (its gls.py:1115), of which only its default, 2, is ported (any
+        # other value raises in prepare)
+        self.precond_rounds = 2
         self.neumann_compat = True
         # Nodes whose estimated relative solve error (last refinement
         # correction / solution norm) is not provably below this are
@@ -371,6 +373,10 @@ class GLSInterpolation:
         if self.solver not in SOLVERS:
             raise ValueError(f"GLS solver must be one of {SOLVERS}, got "
                              f"{self.solver!r}")
+        if self.precond_rounds != 2:
+            raise ValueError(f"GLS precond_rounds must be 2, the only "
+                             f"preconditioner ported, got "
+                             f"{self.precond_rounds!r}")
         csne = self.solver == "pallas"
         classes, face_table, nflag_dev = self.plan(
             dgrid, cells_data, points_data, variable_to_index, variable,

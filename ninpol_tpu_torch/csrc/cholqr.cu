@@ -26,19 +26,25 @@
  *   for ~2.1 MFLOP (Q as a full product, the Gram on its upper
  *   triangle), so FP32 operations bound it, narrowly.
  *
- * chol_linv_kernel replaces pallas_chol.py::chol_linv_f32 (_chol_kernel):
- *   a right-looking Cholesky elimination with each pivot clamped,
- *   dinv = rsqrt(max(pivot, tiny)), and row k of L^-1 (or of L^-1 P)
- *   formed at step k as (base - sum_{j<k} L[k,j] Li[j,:]) * dinv.  G and
- *   the output rows sit in shared memory (42.6 KB at n = 73).  Only the
- *   lower half of the trailing update is computed: it is all the
- *   elimination reads, so the result equals the TPU kernel's full update.
- *   Column k of L is stored transposed into the dead upper half of row k,
- *   so the column scaling, the trailing update (one column a thread) and
- *   the output row (one column a thread, on other warps) run in one phase
- *   with one barrier per pivot.  Bound by memory (G read, the output
- *   written: 42.6 KB per node at n = 73) but limited in practice by
- *   instruction issue and latency: n dependent steps of short loops.
+ * chol_linv_reg_kernel and chol_linv_kernel replace
+ *   pallas_chol.py::chol_linv_f32 (_chol_kernel): a Cholesky elimination
+ *   with each pivot clamped, dinv = rsqrt(max(pivot, tiny)), and L^-1 P
+ *   (P lower triangular, the identity without mul_right) formed
+ *   right-looking beside it: at pivot k row k of L^-1 P is final, and
+ *   every later row takes its share at once.  Only the lower half of the
+ *   trailing update counts: it is all the elimination reads, so the result
+ *   equals the TPU kernel's full update up to rounding.  Bound by memory
+ *   (G and P read, the output written: 42.6 KB per node at n = 73),
+ *   limited in practice by instruction issue and latency: n dependent
+ *   steps, one barrier each.
+ *   Up to n = 80 (the tet classes) chol_linv_reg_kernel keeps G and
+ *   L^-1 P in registers, 5 x 5 entries of each a thread on a 16 x 16
+ *   grid: per pivot two shared-memory loads and one FMA an entry, three
+ *   blocks an SM at 80 registers.
+ *   Wider nodes take chol_linv_kernel, the fused kernel's factorization
+ *   (chol_linv_rows_inplace) on G, L^-1 P and dinv in shared memory (or
+ *   the workspace), every thread a slice of one column's rows at each
+ *   pivot: an FMA there costs two loads and a store.
  *
  * prec_apply_kernel replaces pallas_chol.py::prec_apply_f32
  *   (_prec_apply_kernel): o = Lc^T (Lc v).  Bound by memory (the factor
@@ -48,9 +54,13 @@
  *   over conflict-free shared-memory rows.
  *
  * The device code of these stages lives in cholqr_device.cuh, which the
- * fused solve (gls_solve.cu) runs too.  Each launch function returns a
- * cudaError_t as int (0 on success); a node too wide for shared memory
- * returns cudaErrorInvalidValue.
+ * fused solve (gls_solve.cu) runs too.  A node whose matrices do not fit
+ * in the 227 KB of shared memory a block may use (n past ~152 for
+ * round2_gram, ~170 for chol_linv, ~226 for gram, ~240 for prec_apply)
+ * runs the same code on a per-node workspace in device memory, which the
+ * wrapper allocates (``*_workspace_floats`` gives its size, 0 where the
+ * node fits).  Each launch function returns a cudaError_t as int (0 on
+ * success).
  */
 #include <cuda_runtime.h>
 #include <math.h>
@@ -62,7 +72,36 @@ namespace {
 using namespace cholqr_device;
 
 constexpr int kThreads = 256;
+constexpr int kApplyThreads = 128;
 constexpr int kRows = 32;   // rows of A staged per pass (gram, round2)
+
+// Floats a node's matrices take, shared memory or workspace, rounded up to
+// whole tiles so that a node's workspace starts on a 16-byte boundary.
+__host__ __device__ inline long long round_tile(long long f) {
+  return (f + kTile - 1) / kTile * kTile;
+}
+__host__ __device__ inline long long gram_floats(int n) {
+  const long long np = padded(n);
+  return np * np + kRows * np;
+}
+__host__ __device__ inline long long round2_floats(int n) {
+  const long long np = padded(n);
+  return 2 * np * np + 2 * kRows * np;
+}
+__host__ __device__ inline long long chol_floats(int n) {
+  return round_tile(2LL * n * n + n);
+}
+__host__ __device__ inline long long apply_floats(int n) {
+  return round_tile((long long)n * n + 2LL * n);
+}
+
+// The node's matrices: the workspace's slice (kWs), else the block's
+// shared memory.  A compile-time choice, so that the shared-memory
+// instance addresses shared memory directly.
+template <bool kWs>
+__device__ inline float* node_base(float* smem, float* ws, long long floats) {
+  return kWs ? ws + (long long)blockIdx.x * floats : smem;
+}
 
 // Write the upper triangle of g (stride np) to out (n x n) as a full
 // symmetric matrix.
@@ -91,12 +130,14 @@ __device__ void load_rows(const float* Ab, float* a, int r0, int rows, int n,
   }
 }
 
+template <bool kWs>
 __global__ void __launch_bounds__(kThreads)
-gram_kernel(const float* __restrict__ A, float* __restrict__ G, int m, int n) {
+gram_kernel(const float* __restrict__ A, float* __restrict__ G, float* ws, int m,
+            int n) {
   extern __shared__ __align__(16) float smem[];
   const int np = padded(n);
-  float* g = smem;                              // np x np accumulators
-  float* a = g + np * np;                       // kRows x np rows of A
+  float* g = node_base<kWs>(smem, ws, gram_floats(n));   // np x np accumulators
+  float* a = g + np * np;                           // kRows x np rows of A
   const long long node = blockIdx.x;
   const float* Ab = A + node * m * n;
   fill_zero(g, np * np + kRows * np);
@@ -111,12 +152,13 @@ gram_kernel(const float* __restrict__ A, float* __restrict__ G, int m, int n) {
   store_symmetric(g, G + node * n * n, n, np);
 }
 
+template <bool kWs>
 __global__ void __launch_bounds__(kThreads)
 round2_gram_kernel(const float* __restrict__ A, const float* __restrict__ Li,
-                   float* __restrict__ G, int m, int n) {
+                   float* __restrict__ G, float* ws, int m, int n) {
   extern __shared__ __align__(16) float smem[];
   const int np = padded(n), nt = np / kTile;
-  float* lit = smem;                             // Li^T, np x np
+  float* lit = node_base<kWs>(smem, ws, round2_floats(n));   // Li^T, np x np
   float* g = lit + np * np;                      // np x np accumulators
   float* a = g + np * np;                        // kRows x np rows of A
   float* q = a + kRows * np;                     // the same rows of Q = A Li^T
@@ -154,29 +196,131 @@ round2_gram_kernel(const float* __restrict__ A, const float* __restrict__ Li,
   store_symmetric(g, G + node * n * n, n, np);
 }
 
+template <bool kWs>
 __global__ void __launch_bounds__(kThreads)
 chol_linv_kernel(const float* __restrict__ G, const float* __restrict__ P,
-                 float* __restrict__ out, int n, float tiny) {
+                 float* __restrict__ out, float* ws, int n, float tiny) {
   extern __shared__ __align__(16) float smem[];
-  // s: G on entry, eliminated in place (chol_linv_rows); li: the rows of
-  // L^-1 (or of L^-1 P)
-  float* s = smem;
+  // s: G, eliminated in place; li: P's lower triangle (the identity
+  // without P), then L^-1 P; dinv: the clamped pivots' rsqrt
+  float* s = node_base<kWs>(smem, ws, chol_floats(n));
   float* li = s + n * n;
+  float* dinv = li + n * n;
   const long long node = blockIdx.x;
-  const float* Pb = P ? P + node * n * n : nullptr;
   load(G + node * n * n, s, n * n);
-  chol_linv_rows(s, li, Pb, n, tiny);
+  if (P) {
+    const float* Pb = P + node * n * n;
+    for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
+      const int i = idx / n, c = idx - i * n;
+      li[idx] = c <= i ? Pb[idx] : 0.f;
+    }
+  }
+  chol_linv_rows_inplace(s, n, li, n, P == nullptr, n, tiny, dinv);
   float* ob = out + node * n * n;
   for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) ob[idx] = li[idx];
 }
 
-constexpr int kApplyThreads = 128;
+// chol_linv's register body: a kGrid x kGrid grid of threads, thread
+// (tr, tc) holding entries (tr + kGrid a, tc + kGrid b), a, b < kS, of G
+// (g) and of L^-1 P (x, P's lower triangle on entry) in registers, so
+// n <= kGrid kS.  Right-looking: at pivot k the raw column k of the
+// eliminated G and the raw row k of x, published by their owners at the
+// end of pivot k - 1 (double-buffered), give every thread d_k, L[i][k] =
+// g[i][k] d_k and x[k][c] d_k; each then updates its entries of rows
+// i > k: g[i][j] -= L[i][k] L[j][k] for j > k, x[i][c] -= L[i][k] x[k][c] d_k
+// for c <= k, and the owners of row k scale it by d_k, where it is final.
+// One barrier a pivot; two loads and one FMA an entry where the shared
+// body takes two loads, an FMA and a store; row slots that are all
+// finished are skipped.
+constexpr int kGrid = 16;
+constexpr int kCholRegMax = 5 * kGrid;   // the widest n of the register body
 
+template <int kS>
+__global__ void __launch_bounds__(kGrid * kGrid, 3)
+chol_linv_reg_kernel(const float* __restrict__ G, const float* __restrict__ P,
+                     float* __restrict__ out, int n, float tiny) {
+  constexpr int kN = kGrid * kS;
+  __shared__ float lcol[2][kN], xrow[2][kN];
+  const long long node = blockIdx.x;
+  const int t = threadIdx.x, tr = t / kGrid, tc = t % kGrid;
+  const float* Gb = G + node * n * n;
+  const float* Pb = P ? P + node * n * n : nullptr;
+  float g[kS][kS], x[kS][kS];
+#pragma unroll
+  for (int a = 0; a < kS; ++a)
+#pragma unroll
+    for (int b = 0; b < kS; ++b) {
+      const int i = tr + kGrid * a, c = tc + kGrid * b;
+      const bool in = i < n && c < n;
+      g[a][b] = in ? Gb[i * n + c] : 0.f;
+      x[a][b] = !in || c > i ? 0.f : Pb ? Pb[i * n + c] : (i == c ? 1.f : 0.f);
+    }
+  if (tc == 0)
+#pragma unroll
+    for (int a = 0; a < kS; ++a) lcol[0][tr + kGrid * a] = g[a][0];
+  if (tr == 0)
+#pragma unroll
+    for (int b = 0; b < kS; ++b) xrow[0][tc + kGrid * b] = x[0][b];
+  __syncthreads();
+  for (int k = 0; k < n; ++k) {
+    const int p = k & 1;
+    const float d = rsqrtf(fmaxf(lcol[p][k], tiny));
+    float mult[kS];     // L[c][k] for the trailing columns, x[k][c] d_k else
+#pragma unroll
+    for (int b = 0; b < kS; ++b) {
+      const int c = tc + kGrid * b;
+      mult[b] = (c > k ? lcol[p][c] : xrow[p][c]) * d;
+    }
+#pragma unroll
+    for (int a = 0; a < kS; ++a) {
+      if (kGrid * a + kGrid - 1 < k) continue;   // every row of the slot is final
+      const int i = tr + kGrid * a;
+      if (i == k) {
+#pragma unroll
+        for (int b = 0; b < kS; ++b) x[a][b] *= d;
+      } else if (i > k) {
+        const float l = lcol[p][i] * d;
+#pragma unroll
+        for (int b = 0; b < kS; ++b) {
+          if (tc + kGrid * b > k) g[a][b] = fmaf(-l, mult[b], g[a][b]);
+          else x[a][b] = fmaf(-l, mult[b], x[a][b]);
+        }
+      }
+    }
+    // publish the raw column k + 1 and row k + 1 for the next pivot
+    const int k1 = k + 1;
+    if (k1 < n) {
+      if (tc == k1 % kGrid)
+#pragma unroll
+        for (int b = 0; b < kS; ++b)
+          if (tc + kGrid * b == k1)
+#pragma unroll
+            for (int a = 0; a < kS; ++a) lcol[p ^ 1][tr + kGrid * a] = g[a][b];
+      if (tr == k1 % kGrid)
+#pragma unroll
+        for (int a = 0; a < kS; ++a)
+          if (tr + kGrid * a == k1)
+#pragma unroll
+            for (int b = 0; b < kS; ++b) xrow[p ^ 1][tc + kGrid * b] = x[a][b];
+      __syncthreads();
+    }
+  }
+  float* ob = out + node * n * n;
+#pragma unroll
+  for (int a = 0; a < kS; ++a)
+#pragma unroll
+    for (int b = 0; b < kS; ++b) {
+      const int i = tr + kGrid * a, c = tc + kGrid * b;
+      if (i < n && c < n) ob[i * n + c] = c <= i ? x[a][b] : 0.f;
+    }
+}
+
+template <bool kWs>
 __global__ void __launch_bounds__(kApplyThreads)
 prec_apply_kernel(const float* __restrict__ Lc, const float* __restrict__ v,
-                  float* __restrict__ out, int n) {
+                  float* __restrict__ out, float* ws, int n) {
   extern __shared__ __align__(16) float smem[];
-  float* l = smem;            // n x n
+  float* l = node_base<kWs>(smem, ws, apply_floats(n));   // n x n
   float* vs = l + n * n;      // n
   float* u = vs + n;          // n
   const long long node = blockIdx.x;
@@ -189,59 +333,150 @@ prec_apply_kernel(const float* __restrict__ Lc, const float* __restrict__ v,
     out[node * n + j] = col_times(l, n, u, j, n, false);
 }
 
-// Set the kernel's dynamic shared memory and check it fits the device.
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t bytes) {
+// The four kernels, by their ids in cholqr_occupancy: a kernel's threads
+// and its node's floats.
+enum Kernel { kGram = 0, kRound2 = 1, kCholLinv = 2, kApply = 3 };
+
+struct Launch {
+  const void* kernel;
+  int threads;
+  long long floats;
+};
+
+// The kernel of a launch: chol_linv's register body where it holds the
+// node, else the shared-memory body, on the workspace when `ws`.
+Launch launch_of(int kernel, int n, bool ws) {
+  switch (kernel) {
+    case kGram:
+      return {ws ? (const void*)gram_kernel<true> : (const void*)gram_kernel<false>, kThreads,
+              gram_floats(n)};
+    case kRound2:
+      return {ws ? (const void*)round2_gram_kernel<true> : (const void*)round2_gram_kernel<false>,
+              kThreads, round2_floats(n)};
+    case kCholLinv:
+      if (!ws && n <= kCholRegMax)
+        return {n <= 3 * kGrid ? (const void*)chol_linv_reg_kernel<3>
+                               : (const void*)chol_linv_reg_kernel<5>,
+                kGrid * kGrid, 0};
+      return {ws ? (const void*)chol_linv_kernel<true> : (const void*)chol_linv_kernel<false>,
+              kThreads, chol_floats(n)};
+    case kApply:
+      return {ws ? (const void*)prec_apply_kernel<true> : (const void*)prec_apply_kernel<false>,
+              kApplyThreads, apply_floats(n)};
+    default: return {nullptr, 0, 0};
+  }
+}
+
+bool fits(long long floats) {
   int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (bytes > (size_t)optin) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (size_t)floats * sizeof(float) <= (size_t)optin;
+}
+
+// The dynamic shared memory of a launch (none on the workspace), set on
+// the kernel.
+cudaError_t prepare(const Launch& l, bool workspace, size_t* bytes) {
+  if (l.kernel == nullptr || (!workspace && !fits(l.floats))) return cudaErrorInvalidValue;
+  *bytes = workspace ? 0 : (size_t)l.floats * sizeof(float);
+  return cudaFuncSetAttribute(l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*bytes);
+}
+
+// Floats of device workspace per node that a kernel needs at width n; 0
+// when the node fits in shared memory.
+long long workspace_floats(int kernel, int n) {
+  const Launch l = launch_of(kernel, n, false);
+  return l.kernel == nullptr || fits(l.floats) ? 0 : l.floats;
 }
 
 }  // namespace
 
-extern "C" int gram_f32_launch(const float* A, float* G, int B, int m, int n,
+extern "C" long long gram_f32_workspace_floats(int n) { return workspace_floats(kGram, n); }
+extern "C" long long round2_gram_f32_workspace_floats(int n) {
+  return workspace_floats(kRound2, n);
+}
+extern "C" long long chol_linv_f32_workspace_floats(int n) {
+  return workspace_floats(kCholLinv, n);
+}
+extern "C" long long prec_apply_f32_workspace_floats(int n) {
+  return workspace_floats(kApply, n);
+}
+
+// A launch of kernel `kernel` (0 gram, 1 round2_gram, 2 chol_linv, 3
+// prec_apply) at width n: its dynamic shared memory,
+// threads, the blocks an SM holds, and the kernel's registers a thread
+// and local memory bytes a thread (spills); returns the cudaError_t.
+extern "C" int cholqr_occupancy(int kernel, int n, long long* smem_bytes, int* threads,
+                                int* blocks_per_sm, int* regs, long long* local_bytes) {
+  const bool ws = workspace_floats(kernel, n) > 0;
+  const Launch l = launch_of(kernel, n, ws);
+  size_t bytes = 0;
+  cudaError_t err = prepare(l, ws, &bytes);
+  if (err != cudaSuccess) return (int)err;
+  *smem_bytes = (long long)bytes;
+  *threads = l.threads;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, l.kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *local_bytes = (long long)attr.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, l.kernel,
+                                                            l.threads, bytes);
+}
+
+// Each launch takes ws, a workspace of its kernel's *_workspace_floats(n)
+// floats a node, or null to keep the node in shared memory.
+extern "C" int gram_f32_launch(const float* A, float* G, float* ws, int B, int m, int n,
                                void* stream) {
   if (B <= 0 || m <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  const size_t np = padded(n);
-  const size_t bytes = sizeof(float) * (np * np + kRows * np);
-  cudaError_t err = prepare(gram_kernel, bytes);
+  size_t bytes = 0;
+  cudaError_t err = prepare(launch_of(kGram, n, ws != nullptr), ws != nullptr, &bytes);
   if (err != cudaSuccess) return (int)err;
-  gram_kernel<<<B, kThreads, bytes, (cudaStream_t)stream>>>(A, G, m, n);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (ws) gram_kernel<true><<<B, kThreads, bytes, s>>>(A, G, ws, m, n);
+  else gram_kernel<false><<<B, kThreads, bytes, s>>>(A, G, ws, m, n);
   return (int)cudaGetLastError();
 }
 
 extern "C" int round2_gram_f32_launch(const float* A, const float* Li, float* G,
-                                      int B, int m, int n, void* stream) {
+                                      float* ws, int B, int m, int n, void* stream) {
   if (B <= 0 || m <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  const size_t np = padded(n);
-  const size_t bytes = sizeof(float) * (2 * np * np + 2 * kRows * np);
-  cudaError_t err = prepare(round2_gram_kernel, bytes);
+  size_t bytes = 0;
+  cudaError_t err = prepare(launch_of(kRound2, n, ws != nullptr), ws != nullptr, &bytes);
   if (err != cudaSuccess) return (int)err;
-  round2_gram_kernel<<<B, kThreads, bytes, (cudaStream_t)stream>>>(A, Li, G, m, n);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (ws) round2_gram_kernel<true><<<B, kThreads, bytes, s>>>(A, Li, G, ws, m, n);
+  else round2_gram_kernel<false><<<B, kThreads, bytes, s>>>(A, Li, G, ws, m, n);
   return (int)cudaGetLastError();
 }
 
+// P (mul_right) is read as lower triangular: its upper triangle is not read.
 extern "C" int chol_linv_f32_launch(const float* G, const float* P, float* out,
-                                    int B, int n, float tiny, void* stream) {
+                                    float* ws, int B, int n, float tiny, void* stream) {
   if (B <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  const size_t bytes = sizeof(float) * 2 * (size_t)n * n;
-  cudaError_t err = prepare(chol_linv_kernel, bytes);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (ws == nullptr && n <= kCholRegMax) {
+    if (n <= 3 * kGrid) chol_linv_reg_kernel<3><<<B, kGrid * kGrid, 0, s>>>(G, P, out, n, tiny);
+    else chol_linv_reg_kernel<5><<<B, kGrid * kGrid, 0, s>>>(G, P, out, n, tiny);
+    return (int)cudaGetLastError();
+  }
+  size_t bytes = 0;
+  cudaError_t err = prepare(launch_of(kCholLinv, n, ws != nullptr), ws != nullptr, &bytes);
   if (err != cudaSuccess) return (int)err;
-  chol_linv_kernel<<<B, kThreads, bytes, (cudaStream_t)stream>>>(G, P, out, n, tiny);
+  if (ws) chol_linv_kernel<true><<<B, kThreads, bytes, s>>>(G, P, out, ws, n, tiny);
+  else chol_linv_kernel<false><<<B, kThreads, bytes, s>>>(G, P, out, ws, n, tiny);
   return (int)cudaGetLastError();
 }
 
 extern "C" int prec_apply_f32_launch(const float* Lc, const float* v, float* out,
-                                     int B, int n, void* stream) {
+                                     float* ws, int B, int n, void* stream) {
   if (B <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  const size_t bytes = sizeof(float) * ((size_t)n * n + 2 * (size_t)n);
-  cudaError_t err = prepare(prec_apply_kernel, bytes);
+  size_t bytes = 0;
+  cudaError_t err = prepare(launch_of(kApply, n, ws != nullptr), ws != nullptr, &bytes);
   if (err != cudaSuccess) return (int)err;
-  prec_apply_kernel<<<B, kApplyThreads, bytes, (cudaStream_t)stream>>>(Lc, v, out, n);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (ws) prec_apply_kernel<true><<<B, kApplyThreads, bytes, s>>>(Lc, v, out, ws, n);
+  else prec_apply_kernel<false><<<B, kApplyThreads, bytes, s>>>(Lc, v, out, ws, n);
   return (int)cudaGetLastError();
 }

@@ -98,80 +98,27 @@ __device__ inline void store_tile(float* q, int r0, int k0, int rows, int np,
 }
 
 // The clamped Cholesky factorization of the lower triangle of s (n x n,
-// stride n), d_k = rsqrt(max(pivot_k, tiny)), eliminated in place
-// (right-looking), with the rows of L^-1 P (P = identity when null, stride
-// n) formed one per pivot into li (stride n, left-looking): row k at step
-// k, as (P[k][:] - sum_{j<k} L[k][j] li[j][:]) * d_k.  At step k the scaled
-// column k of L (L[i][k], i > k) is written to s[k][i], the upper half of
-// row k, which nothing reads after step k-1, so L[k][j] for j < k is
-// s[j][k]; only the lower half of the trailing matrix is updated: it is
-// all the elimination reads.  Threads [0, nrow) form the output row, one
-// column a thread; the rest update one trailing column j > k a thread,
-// all of them walking the rows i together, so s[i][k] is a broadcast and
-// s[i][j] is consecutive.  The rows go kElimRows at a time, every load
-// before any store: the compiler cannot move a load of one row above the
-// store of the last, so row by row each would wait out the load latency.
-// One barrier per pivot; nrow is whole warps, so no warp takes both
-// branches.  Starts and ends with a barrier.
-__device__ inline void chol_linv_rows(float* s, float* li, const float* P, int n,
-                                      float tiny) {
-  const int nrow = min((n + 31) / 32 * 32, (int)blockDim.x / 2);
-  const int nelim = blockDim.x - nrow;
-  const int t = threadIdx.x;
-  __syncthreads();
-  for (int k = 0; k < n; ++k) {
-    const float d = rsqrtf(fmaxf(s[k * n + k], tiny));
-    if (t < nrow) {
-      for (int c = t; c < n; c += nrow) {
-        float acc = 0.f;
-        for (int j = 0; j < k; ++j) acc = fmaf(s[j * n + k], li[j * n + c], acc);
-        const float base = P ? P[(long long)k * n + c] : (c == k ? 1.f : 0.f);
-        li[k * n + c] = (base - acc) * d;
-      }
-    } else {
-      for (int j = k + 1 + (t - nrow); j < n; j += nelim) {
-        const float cj = s[j * n + k] * d;
-        s[k * n + j] = cj;
-        int i = k + 1;
-        for (; i + kElimRows <= n; i += kElimRows) {
-          float ci[kElimRows], x[kElimRows];
-#pragma unroll
-          for (int q = 0; q < kElimRows; ++q) {
-            ci[q] = s[(i + q) * n + k] * d;
-            x[q] = s[(i + q) * n + j];
-          }
-#pragma unroll
-          for (int q = 0; q < kElimRows; ++q)
-            if (i + q >= j) s[(i + q) * n + j] = x[q] - ci[q] * cj;
-        }
-        for (; i < n; ++i) {
-          const float ci = s[i * n + k] * d;
-          if (i >= j) s[i * n + j] -= ci * cj;
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// The same factorization with L^-1 P formed in place over li (stride ldl),
-// which holds P, lower triangular, on entry (the identity when `identity`:
-// then written here).  Right-looking: at step k row k of li is final once
-// scaled by d_k, and each later row takes li[i][:] -= L[i][k] li[k][:] at
-// once, so no thread waits on a chain of k dependent FMAs, and each entry
-// subtracts its terms one by one (the left-looking form subtracts their
-// sum: the same up to rounding).  L's column k is read from s as it is
-// eliminated, so nothing is stored in s's upper half.
+// stride ld), d_k = rsqrt(max(pivot_k, tiny)), eliminated in place
+// (right-looking), with L^-1 P formed in place over li (stride ldl), which
+// holds P, lower triangular, on entry (the identity when `identity`: then
+// written here).  At step k row k of li is final once scaled by d_k, and
+// each later row takes li[i][:] -= L[i][k] li[k][:] at once, so no thread
+// waits on a chain of k dependent FMAs.  L's column k is read from s as
+// it is eliminated, so nothing is stored in s's upper half; only the
+// lower half of the trailing matrix is updated: it is all the elimination
+// reads.
 //
 // Every thread works at every step: column col < n of the step (col <= k:
 // the inverse's column; col > k: the trailing matrix's) and one of `parts`
-// interleaved slices of its rows i > k, kElimRows rows at a time as in
-// chol_linv_rows, lanes over consecutive columns (only the warp that
-// holds column k runs both kinds).  At (n, blockDim) = (73, 256) that is
-// three slices of 24 rows at k = 0, where one thread a column would walk
-// all 72.  Row k of li is read by every slice, so it is scaled in place
-// only after the step's barrier.  d_k goes to dinv[k].  Starts and ends
-// with a barrier.
+// interleaved slices of its rows i > k, kElimRows rows at a time, every
+// load before any store (the compiler cannot move a load of one row above
+// the store of the last, so row by row each would wait out the load
+// latency), lanes over consecutive columns (only the warp that holds
+// column k runs both kinds).  At (n, blockDim) = (73, 256) that is three
+// slices of 24 rows at k = 0, where one thread a column would walk all 72.
+// Row k of li is read by every slice, so it is scaled in place only after
+// the step's barrier.  d_k goes to dinv[k].  Starts and ends with a
+// barrier.
 __device__ inline void chol_linv_rows_inplace(float* s, int ld, float* li, int ldl,
                                               bool identity, int n, float tiny,
                                               float* dinv) {

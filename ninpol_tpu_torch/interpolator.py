@@ -419,7 +419,7 @@ class Interpolator:
                   hash(target_points.tobytes()),
                   self.gls.exact, self.gls.neumann_compat,
                   self.gls.n_refine, self.gls.fallback_tol, self.gls.fused,
-                  self.gls.solver)
+                  self.gls.solver, self.gls.precond_rounds)
         if tp_key in self._prep_cache:
             weights, neumann_ws = self._prep_cache[tp_key]
         else:

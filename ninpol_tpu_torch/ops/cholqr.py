@@ -19,9 +19,12 @@ products accurate to ~eps32), natural (node, row, column) layout, any B.
 Each wrapper runs its plain version for CPU tensors and launches its
 kernel in ``csrc/cholqr.cu`` (built with nvcc on first use) for CUDA
 tensors, or raises; ``<wrapper>.launches`` counts kernel launches.  The
-kernels stage a node's matrices in shared memory, which bounds n at 152
-for round2_gram_f32 and 170 for chol_linv_f32 (E at 50; a wider launch
-raises).
+kernels stage a node's matrices in shared memory; past n ~152
+(round2_gram_f32), ~170 (chol_linv_f32), ~226 (gram_f32) or ~240
+(prec_apply_f32) the same code runs on a per-node workspace in device
+memory, which the wrapper allocates (``<name>_workspace_floats(n)`` in
+the library gives its size, 0 where the node fits).  chol_linv_f32 reads
+``mul_right`` as lower triangular, as the route's (L1^-1) is.
 
 ``cholqr_factors`` composes the four into the preconditioner, from the
 wrappers (``KERNELS``) or from the plain versions (``PLAIN``).
@@ -32,6 +35,7 @@ import ctypes
 
 import torch
 
+from . import cuda_lib
 from .cuda_lib import CudaLibrary, check_launch, check_tensor, on_card, stream
 
 SICK_DINV = 3e4          # clamped-pivot flag threshold on |diag(L^-1)|
@@ -87,13 +91,20 @@ def prec_apply_f32_reference(Lc, v):
 # ---------------------------------------------------------------------------
 def _bind(lib):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gram_f32_launch.argtypes = [vp, vp, ci, ci, ci, vp]
-    lib.round2_gram_f32_launch.argtypes = [vp, vp, vp, ci, ci, ci, vp]
-    lib.chol_linv_f32_launch.argtypes = [vp, vp, vp, ci, ci, cf, vp]
-    lib.prec_apply_f32_launch.argtypes = [vp, vp, vp, ci, ci, vp]
-    for f in (lib.gram_f32_launch, lib.round2_gram_f32_launch,
-              lib.chol_linv_f32_launch, lib.prec_apply_f32_launch):
-        f.restype = ci
+    ll = ctypes.c_longlong
+    lib.gram_f32_launch.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+    lib.round2_gram_f32_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.chol_linv_f32_launch.argtypes = [vp, vp, vp, vp, ci, ci, cf, vp]
+    lib.prec_apply_f32_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+    for name in ("gram_f32", "round2_gram_f32", "chol_linv_f32",
+                 "prec_apply_f32"):
+        getattr(lib, f"{name}_launch").restype = ci
+        f = getattr(lib, f"{name}_workspace_floats")
+        f.argtypes, f.restype = [ci], ll
+    lib.cholqr_occupancy.argtypes = [
+        ci, ci, ctypes.POINTER(ll), ctypes.POINTER(ci), ctypes.POINTER(ci),
+        ctypes.POINTER(ci), ctypes.POINTER(ll)]
+    lib.cholqr_occupancy.restype = ci
 
 
 library = CudaLibrary("cholqr", _bind)
@@ -115,6 +126,27 @@ def _launch(wrapper, what, fn, *args):
     wrapper.launches += 1
 
 
+def _workspace(lib, name, B, n, device):
+    """The per-node device workspace of kernel ``name`` at width n, or
+    None where a node fits in shared memory."""
+    floats = getattr(lib, f"{name}_workspace_floats")(n)
+    return torch.empty(B * floats, dtype=_F32, device=device) if floats \
+        else None
+
+
+# the kernels' ids in the library's cholqr_occupancy
+_KERNEL_IDS = {"gram_f32": 0, "round2_gram_f32": 1, "chol_linv_f32": 2,
+               "prec_apply_f32": 3}
+
+
+def occupancy(name, n):
+    """The launch of kernel ``name`` at width n on the current card
+    (``cuda_lib.occupancy``)."""
+    return cuda_lib.occupancy(library.get().cholqr_occupancy,
+                              f"{name} occupancy query (n={n})",
+                              _KERNEL_IDS[name], n)
+
+
 def gram_f32(A):
     """(B, m, n) float32 -> (B, n, n) Gram matrices A_b^T A_b."""
     B, m, n = _shape("A", A, 3)
@@ -123,14 +155,17 @@ def gram_f32(A):
         return gram_f32_reference(A)
     out = torch.empty((B, n, n), dtype=_F32, device=A.device)
     if B:
+        lib = library.get()
         _launch(gram_f32, f"gram_f32 (B={B}, m={m}, n={n})",
-                library.get().gram_f32_launch, A, out, B, m, n)
+                lib.gram_f32_launch, A, out,
+                _workspace(lib, "gram_f32", B, n, A.device), B, m, n)
     return out
 
 
 def chol_linv_f32(G, tiny=1e-12, mul_right=None):
     """(B, n, n) SPD float32 -> L^-1 with G = L L^T, or L^-1 @ mul_right
-    when that (B, n, n) float32 is given; pivots clamped at ``tiny``."""
+    when that (B, n, n) lower-triangular float32 is given (the kernel
+    does not read its upper triangle); pivots clamped at ``tiny``."""
     B, n, _ = _shape("G", G, 3)
     check_tensor("G", G, (B, n, n), _F32, G.device)
     if mul_right is not None:
@@ -139,10 +174,12 @@ def chol_linv_f32(G, tiny=1e-12, mul_right=None):
         return chol_linv_f32_reference(G, tiny, mul_right)
     out = torch.empty((B, n, n), dtype=_F32, device=G.device)
     if B:
+        lib = library.get()
         _launch(chol_linv_f32, f"chol_linv_f32 (B={B}, n={n}, "
                                f"mul_right={mul_right is not None})",
-                library.get().chol_linv_f32_launch, G, mul_right, out, B,
-                n, float(tiny))
+                lib.chol_linv_f32_launch, G, mul_right, out,
+                _workspace(lib, "chol_linv_f32", B, n, G.device), B, n,
+                float(tiny))
     return out
 
 
@@ -155,8 +192,10 @@ def round2_gram_f32(A, Li):
         return round2_gram_f32_reference(A, Li)
     out = torch.empty((B, n, n), dtype=_F32, device=A.device)
     if B:
+        lib = library.get()
         _launch(round2_gram_f32, f"round2_gram_f32 (B={B}, m={m}, n={n})",
-                library.get().round2_gram_f32_launch, A, Li, out, B, m, n)
+                lib.round2_gram_f32_launch, A, Li, out,
+                _workspace(lib, "round2_gram_f32", B, n, A.device), B, m, n)
     return out
 
 
@@ -169,8 +208,10 @@ def prec_apply_f32(Lc, v):
         return prec_apply_f32_reference(Lc, v)
     out = torch.empty((B, n), dtype=_F32, device=Lc.device)
     if B:
+        lib = library.get()
         _launch(prec_apply_f32, f"prec_apply_f32 (B={B}, n={n})",
-                library.get().prec_apply_f32_launch, Lc, v, out, B, n)
+                lib.prec_apply_f32_launch, Lc, v, out,
+                _workspace(lib, "prec_apply_f32", B, n, Lc.device), B, n)
     return out
 
 

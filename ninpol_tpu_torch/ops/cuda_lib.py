@@ -116,6 +116,18 @@ def stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+def occupancy(fn, what, *args):
+    """A launch's occupancy from a library's ``*_occupancy(*args, &smem,
+    &threads, &blocks, &regs, &local)`` query: its dynamic shared memory
+    bytes, threads, blocks an SM holds, registers a thread and local
+    memory bytes a thread (spills)."""
+    out = [ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int(),
+           ctypes.c_int(), ctypes.c_longlong()]
+    check_launch(fn(*args, *[ctypes.byref(x) for x in out]), what)
+    return dict(zip(("smem_bytes", "threads", "blocks_per_sm", "registers",
+                     "local_bytes"), (x.value for x in out)))
+
+
 def check_launch(err, what):
     """Raise if a launch function returned a CUDA error code."""
     if err != 0:

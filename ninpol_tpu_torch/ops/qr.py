@@ -6,9 +6,16 @@ Replace the Pallas kernels of ninpol_tpu/ops/pallas_qr.py that
 ninpol_tpu's ``solver="pallas"`` GLS route runs (its gls.py:659-705):
 
   qr_r_df32(Ah, Al)    -> qr_r(A)         (B, m, n) -> (B, n, n)
-        R of the Householder QR of A: upper triangular, zeros below the
-        diagonal, with R_kk = -||x|| where the pivot column's x_k >= 0
-        (the TPU kernel's sign convention, so R agrees entry by entry)
+        R of the Householder QR of Ar = [A; diag(dead)], A with an
+        identity row appended for each dead (all-zero) column, as the
+        route factors it (ninpol_tpu gls.py:674-686): upper triangular,
+        zeros below the diagonal, with R_kk = -||x|| where the pivot
+        column's x_k >= 0 (the TPU kernel's sign convention, so R agrees
+        entry by entry).  A dead column j gives R's row j = -e_j.  Needs
+        m >= n, which every class of the route has: m - n = 3F - 2E - 1
+        (+F with Neumann rows), and a node has at least as many faces as
+        cells (each cell has two or more faces at the node, each face two
+        cells at most), so F >= E in every class.
   sne_solve_df32(R, b) -> sne_solve(R, b) (B, n, n), (B, n) -> (B, n)
         y with R^T R y = b: forward, then backward substitution; every
         |R_kk| < ``tiny`` counts as exactly 1 in both
@@ -17,9 +24,11 @@ The TPU kernels compute in double-float32 pairs because the TPU emulates
 float64.  Here both take and return float64, which the H100 has natively.
 Each wrapper runs its plain version for CPU tensors and launches its
 kernel in ``csrc/qr.cu`` (built with nvcc on first use) for CUDA tensors,
-or raises; ``<wrapper>.launches`` counts kernel launches.  ``qr_r`` keeps
-a node's whole A in shared memory, so it takes (m | 1) * n + n + 16
-doubles up to the H100's 232,448 bytes a block (a wider class raises).
+or raises; ``<wrapper>.launches`` counts kernel launches.  ``qr_r`` never
+builds Ar: the kernel writes a dead column's closed form.  It keeps a
+node's A in registers where a register tile holds the class (path 2),
+else in shared memory, or, past the 227 KB a block may use, in a per-node
+workspace it allocates (path 1).
 """
 from __future__ import annotations
 
@@ -27,19 +36,32 @@ import ctypes
 
 import torch
 
+from . import cuda_lib
 from .cuda_lib import CudaLibrary, check_launch, check_tensor, on_card, stream
 from .solve import householder_sweep
 
-SMEM_LIMIT = 232448      # bytes of shared memory a block may use (H100)
 _F64 = torch.float64
 
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
+def dead_columns(A):
+    """(B, n) bool: the all-zero columns of A (B, m, n)."""
+    return torch.sum(A * A, dim=1) == 0
+
+
+def with_dead_rows(A):
+    """Ar = [A; diag(dead)] (B, m + n, n): what ``qr_r`` factors."""
+    return torch.cat([A, torch.diag_embed(dead_columns(A).to(A.dtype))],
+                     dim=1)
+
+
 def qr_r_reference(A):
     n = A.shape[2]
-    return torch.triu(householder_sweep(A.clone(), n)[:, :n, :n])
+    # without a dead column Ar's rows past m are zero and change no R
+    Ar = with_dead_rows(A) if dead_columns(A).any() else A.clone()
+    return torch.triu(householder_sweep(Ar, n)[:, :n, :n])
 
 
 def _clamp_diagonal(R, tiny):
@@ -90,9 +112,15 @@ def sne_residual(R, y, b, tiny=1e-7):
 # ---------------------------------------------------------------------------
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.qr_r_smem_bytes.argtypes = [ci, ci]
-    lib.qr_r_smem_bytes.restype = ctypes.c_longlong
-    lib.qr_r_launch.argtypes = [vp, vp, ci, ci, ci, vp]
+    ll, pi, pll = ctypes.c_longlong, ctypes.POINTER(ci), ctypes.POINTER(
+        ctypes.c_longlong)
+    lib.qr_r_path.argtypes = [ci, ci]
+    lib.qr_r_path.restype = ci
+    lib.qr_r_workspace_doubles.argtypes = [ci, ci]
+    lib.qr_r_workspace_doubles.restype = ll
+    lib.qr_r_occupancy.argtypes = [ci, ci, ci, pll, pi, pi, pi, pll]
+    lib.qr_r_occupancy.restype = ci
+    lib.qr_r_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
     lib.sne_solve_launch.argtypes = [vp, vp, vp, ci, ci, ctypes.c_double, vp]
     for f in (lib.qr_r_launch, lib.sne_solve_launch):
         f.restype = ci
@@ -109,8 +137,10 @@ def _launch(wrapper, what, fn, *args):
     wrapper.launches += 1
 
 
-def qr_r(A):
-    """(B, m, n) float64, m >= n -> R (B, n, n) of A = QR."""
+def qr_r(A, path=0):
+    """(B, m, n) float64, m >= n -> R (B, n, n) of [A; diag(dead)].
+    ``path`` picks the kernel's body: 0 the default, 1 shared memory (or
+    the workspace), 2 the register tile (raises where none holds m x n)."""
     if A.dim() != 3:
         raise ValueError(f"A must have 3 dimensions, got {tuple(A.shape)}")
     B, m, n = A.shape
@@ -120,17 +150,23 @@ def qr_r(A):
                          f"got {m} x {n}")
     if not on_card(A, "qr_r"):
         return qr_r_reference(A)
-    lib = library.get()
-    need = lib.qr_r_smem_bytes(m, n)
-    if need > SMEM_LIMIT:
-        raise ValueError(f"qr_r: a {m} x {n} node needs {need} bytes of "
-                         f"shared memory, over the {SMEM_LIMIT} a block may "
-                         f"use")
     out = torch.empty((B, n, n), dtype=_F64, device=A.device)
     if B:
-        _launch(qr_r, f"qr_r (B={B}, m={m}, n={n})", lib.qr_r_launch, A,
-                out, B, m, n)
+        lib = library.get()
+        path = path or lib.qr_r_path(m, n)
+        ws = lib.qr_r_workspace_doubles(m, n) if path == 1 else 0
+        ws = torch.empty(B * ws, dtype=_F64, device=A.device) if ws else None
+        _launch(qr_r, f"qr_r (B={B}, m={m}, n={n}, path={path})",
+                lib.qr_r_launch, A, out, ws, B, m, n, path)
     return out
+
+
+def occupancy(m, n, path=0):
+    """The launch of ``qr_r``'s body ``path`` (0: the default) on an
+    m x n node on the current card (``cuda_lib.occupancy``)."""
+    return cuda_lib.occupancy(library.get().qr_r_occupancy,
+                              f"qr_r occupancy query (m={m}, n={n}, "
+                              f"path={path})", m, n, path)
 
 
 def sne_solve(R, b, tiny=1e-7):

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (ninpol_tpu_torch/csrc/cholqr.cu, gls_solve.cu)
-run on the CPU through the thread-per-CUDA-thread emulator of
-tests/utils/cuda_emu, against their plain PyTorch versions.  On a card
+run on the CPU through the emulator of tests/utils/cuda_emu, against
+their plain PyTorch versions.  On a card
 chip_smoke.py holds the compiled kernels to the same versions; here the
 kernels' own index arithmetic, buffer reuse and barriers are checked
 without nvcc.  Needs g++ (C++20)."""
@@ -60,21 +60,21 @@ def test_cholqr_kernel_matches_plain_version(emu, kernel):
     Lc = cq.chol_linv_f32_reference(G2, mul_right=Li)
     out = torch.empty((B, n, n), dtype=torch.float32)
     if kernel == "gram_f32":
-        _call(lib.gram_f32_launch, A, out, B, m, n)
+        _call(lib.gram_f32_launch, A, out, None, B, m, n)
         assert _scaled(out, G, A.abs().transpose(1, 2) @ A.abs()) < TOL_F32
     elif kernel == "chol_linv_f32":
-        _call(lib.chol_linv_f32_launch, G, None, out, B, n, 1e-12)
+        _call(lib.chol_linv_f32_launch, G, None, out, None, B, n, 1e-12)
         assert _scaled(out, Li, Li) < 1e-4
     elif kernel == "chol_linv_f32_mul_right":
-        _call(lib.chol_linv_f32_launch, G2, Li, out, B, n, 1e-12)
+        _call(lib.chol_linv_f32_launch, G2, Li, out, None, B, n, 1e-12)
         assert _scaled(out, Lc, Lc) < 1e-4
     elif kernel == "round2_gram_f32":
-        _call(lib.round2_gram_f32_launch, A, Li, out, B, m, n)
+        _call(lib.round2_gram_f32_launch, A, Li, out, None, B, m, n)
         aQ = A.abs() @ Li.abs().transpose(1, 2)
         assert _scaled(out, G2, aQ.transpose(1, 2) @ aQ) < TOL_F32
     else:
         o = torch.empty((B, n), dtype=torch.float32)
-        _call(lib.prec_apply_f32_launch, Lc, v, o, B, n)
+        _call(lib.prec_apply_f32_launch, Lc, v, o, None, B, n)
         ref = cq.prec_apply_f32_reference(Lc, v)
         mag = torch.einsum("bij,bi->bj", Lc.abs(),
                            torch.einsum("bij,bj->bi", Lc.abs(), v.abs()))

@@ -2,11 +2,12 @@
 the CPU, so that a test can run the kernel's own code without nvcc or a
 card: the source is rewritten into C++ (dynamic ``extern __shared__``
 arrays become the emulator's block buffer, static ``__shared__`` arrays
-function statics, ``kernel<<<...>>>(...)`` a call of ``emu_launch``) and
-compiled by g++ against this directory's ``cuda_runtime.h``, which runs
-each CUDA thread as an OS thread.  The library keeps the source's C
-interface, so the port's ctypes bindings apply to it, with CPU pointers
-and a null stream."""
+function statics, ``kernel<...><<<...>>>(...)`` a call of
+``emu_launch``) and compiled by g++ against this directory's
+``cuda_runtime.h``, which runs each warp as an OS thread and each of its
+lanes as a fiber on it.  The library keeps the source's C interface, so
+the port's ctypes bindings apply to it, with CPU pointers and a null
+stream."""
 import ctypes
 import os
 import re
@@ -23,8 +24,9 @@ def to_cpp(text):
     text = re.sub(r"extern __shared__ __align__\(16\) ([\w ]+?) (\w+)\[\];",
                   r"\1* \2 = reinterpret_cast<\1*>(emu_smem);", text)
     text = text.replace("__shared__ ", "static ")
-    text = re.sub(r"(\w+)<<<(.*?)>>>\((.*?)\);", r"emu_launch(\1, \2, \3);",
-                  text, flags=re.S)
+    # kernel<<<...>>>(...), the kernel's template arguments included
+    text = re.sub(r"(\w+(?:<[^<>;()]*>)?)<<<(.*?)>>>\((.*?)\);",
+                  r"emu_launch(\1, \2, \3);", text, flags=re.S)
     return text
 
 

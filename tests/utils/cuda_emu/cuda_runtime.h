@@ -1,15 +1,24 @@
 // The pieces of the CUDA runtime that the port's kernels use, for running
-// a kernel source on the CPU in tests (tests/utils/cuda_emu): each CUDA
-// thread is an OS thread, __syncthreads a barrier of the block's threads,
-// warp shuffles an exchange through one slot a lane.  Blocks run one after
-// another, so a block's static __shared__ arrays can be function statics.
-// It checks the kernels' logic (indices, buffer reuse, barriers), not
-// their speed; rsqrtf is exact here and approximate on a card.
+// a kernel source on the CPU in tests (tests/utils/cuda_emu).  Each warp
+// is an OS thread and each of its 32 lanes a fiber (ucontext) on it:
+// __syncwarp and the shuffles and votes are a switch between the warp's
+// fibers, which run in turn until every lane has reached the call;
+// __syncthreads is that, then a barrier of the block's warps.  Blocks run
+// one after another, so a block's static __shared__ arrays can be
+// function statics.  It checks the kernels' logic (indices, buffer reuse,
+// barriers), not their speed; rsqrtf is exact here and approximate on a
+// card.  A warp-wide call must be reached by all 32 lanes, as on a card
+// with a full mask.
 #pragma once
+#include <ucontext.h>
+
 #include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdio>
+#include <cstdlib>
+#include <functional>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -32,30 +41,59 @@ enum { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 
 constexpr int kEmuSmemOptin = 232448;   // an H100's shared memory a block
+constexpr size_t kEmuStack = 256 * 1024;  // a lane's fiber stack
 
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 inline unsigned char* emu_smem = nullptr;
 inline std::barrier<>* emu_block_barrier = nullptr;
-struct EmuWarp { std::barrier<> bar{32}; double slot[32]; };
+
+// One warp: its scheduler context, its lanes' fibers and where each is.
+struct EmuWarp {
+  enum State { kReady, kAtWarp, kAtBlock, kDone };
+  ucontext_t sched;
+  ucontext_t lane[32];
+  State state[32];
+  double slot[32];
+  std::function<void()> body;
+  int warp = 0, cur = 0;
+};
 inline thread_local EmuWarp* emu_warp = nullptr;
 inline thread_local int emu_lane = 0;
 
-inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
-inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp->bar.arrive_and_wait(); }
+// The running lane waits at a warp-wide (kAtWarp) or block-wide (kAtBlock)
+// point until its warp's scheduler resumes it.
+inline void emu_wait(EmuWarp::State at) {
+  EmuWarp* w = emu_warp;
+  w->state[w->cur] = at;
+  swapcontext(&w->lane[w->cur], &w->sched);
+}
+
+inline void __syncthreads() { emu_wait(EmuWarp::kAtBlock); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_wait(EmuWarp::kAtWarp); }
 
 template <typename T>
 inline T emu_exchange(T v, int from) {
   emu_warp->slot[emu_lane] = (double)v;
-  emu_warp->bar.arrive_and_wait();
+  __syncwarp();
   const T r = from < 32 ? (T)emu_warp->slot[from] : v;
-  emu_warp->bar.arrive_and_wait();
+  __syncwarp();
   return r;
 }
 template <typename T>
 inline T __shfl_down_sync(unsigned, T v, int off) { return emu_exchange(v, emu_lane + off); }
 template <typename T>
 inline T __shfl_xor_sync(unsigned, T v, int mask) { return emu_exchange(v, emu_lane ^ mask); }
+template <typename T>
+inline T __shfl_sync(unsigned, T v, int src) { return emu_exchange(v, src % 32); }
+inline bool __any_sync(unsigned, bool pred) {
+  emu_warp->slot[emu_lane] = pred ? 1.0 : 0.0;
+  __syncwarp();
+  bool any = false;
+  for (int l = 0; l < 32; ++l) any = any || emu_warp->slot[l] != 0.0;
+  __syncwarp();
+  return any;
+}
 
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 using std::fmaf; using std::fmaxf; using std::sqrt; using std::fmax;
@@ -65,6 +103,12 @@ inline int cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 inline int cudaDeviceGetAttribute(int* v, int, int) { *v = kEmuSmemOptin; return cudaSuccess; }
 template <typename K> inline int cudaFuncSetAttribute(K, int, int) { return cudaSuccess; }
 inline int cudaGetLastError() { return cudaSuccess; }
+// registers and local memory are not modelled: both read 0
+struct cudaFuncAttributes { int numRegs = 0; size_t localSizeBytes = 0; };
+template <typename K> inline int cudaFuncGetAttributes(cudaFuncAttributes* a, K) {
+  *a = cudaFuncAttributes();
+  return cudaSuccess;
+}
 // an H100 SM: 228 KB of shared memory (1 KB of it reserved a block),
 // 2048 threads
 template <typename K>
@@ -72,6 +116,51 @@ inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, K, int thr
                                                          size_t smem) {
   *blocks = std::min((int)(233472 / (smem + 1024)), 2048 / threads);
   return cudaSuccess;
+}
+
+inline void emu_lane_main() {
+  emu_warp->body();
+  emu_warp->state[emu_warp->cur] = EmuWarp::kDone;   // uc_link: back to sched
+}
+
+// Run one warp of the block on this OS thread: every ready lane until it
+// waits or ends, then release the lanes once all wait at the same point
+// (a block-wide point after the block's other warps reach it too).
+inline void emu_run_warp(EmuWarp* w, char* stacks) {
+  emu_warp = w;
+  for (int l = 0; l < 32; ++l) {
+    getcontext(&w->lane[l]);
+    w->lane[l].uc_stack.ss_sp = stacks + (size_t)l * kEmuStack;
+    w->lane[l].uc_stack.ss_size = kEmuStack;
+    w->lane[l].uc_link = &w->sched;
+    makecontext(&w->lane[l], emu_lane_main, 0);
+    w->state[l] = EmuWarp::kReady;
+  }
+  for (;;) {
+    for (int l = 0; l < 32; ++l) {
+      if (w->state[l] != EmuWarp::kReady) continue;
+      w->cur = l;
+      emu_lane = l;
+      threadIdx.x = w->warp * 32 + l;
+      swapcontext(&w->sched, &w->lane[l]);
+    }
+    int done = 0, at_warp = 0, at_block = 0;
+    for (int l = 0; l < 32; ++l) {
+      done += w->state[l] == EmuWarp::kDone;
+      at_warp += w->state[l] == EmuWarp::kAtWarp;
+      at_block += w->state[l] == EmuWarp::kAtBlock;
+    }
+    if (done == 32) {
+      emu_block_barrier->arrive_and_drop();
+      return;
+    }
+    if (at_warp + at_block != 32 || (at_warp && at_block)) {
+      std::fprintf(stderr, "cuda_emu: warp %d diverged at a warp-wide call\n", w->warp);
+      std::abort();
+    }
+    if (at_block) emu_block_barrier->arrive_and_wait();
+    for (int l = 0; l < 32; ++l) w->state[l] = EmuWarp::kReady;
+  }
 }
 
 // kernel<<<blocks, threads, smem, stream>>>(args...), rewritten as a call;
@@ -83,20 +172,24 @@ void emu_launch(K kernel, long long blocks, int threads, size_t smem, void*, Arg
   std::vector<unsigned char> buf(smem + 16, 0xCD);
   const size_t mis = reinterpret_cast<size_t>(buf.data()) % 16;
   emu_smem = buf.data() + (mis ? 16 - mis : 0);
+  const int warps = threads / 32;
+  std::unique_ptr<char[]> stacks(new char[(size_t)warps * 32 * kEmuStack]);
   for (long long b = 0; b < blocks; ++b) {
-    std::barrier<> bar(threads);
+    std::barrier<> bar(warps);
     emu_block_barrier = &bar;
-    std::vector<std::unique_ptr<EmuWarp>> warps;
-    for (int w = 0; w < threads / 32; ++w) warps.emplace_back(new EmuWarp());
+    std::vector<std::unique_ptr<EmuWarp>> ws;
     std::vector<std::thread> ts;
-    for (int t = 0; t < threads; ++t)
-      ts.emplace_back([&, t] {
-        threadIdx.x = t;
+    for (int w = 0; w < warps; ++w) {
+      ws.emplace_back(new EmuWarp());
+      ws.back()->warp = w;
+      ws.back()->body = [&] { kernel(args...); };
+      char* st = stacks.get() + (size_t)w * 32 * kEmuStack;
+      EmuWarp* wp = ws.back().get();
+      ts.emplace_back([wp, st, b] {
         blockIdx.x = (unsigned)b;
-        emu_warp = warps[t / 32].get();
-        emu_lane = t % 32;
-        kernel(args...);
+        emu_run_warp(wp, st);
       });
+    }
     for (auto& th : ts) th.join();
   }
 }
