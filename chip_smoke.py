@@ -34,7 +34,9 @@ all three:
      max|X W X^T - I| (<= 10x the plain version's) with the same flagged
      pivots; prints kernel, plain and one library call's times (CUDA
      events), and each kernel's registers, local (spill) bytes, shared
-     memory and blocks per SM per class;
+     memory and blocks per SM per class; round2_gram's two bodies
+     (registers, shared memory) each held to the same bound and timed,
+     and the one its class takes;
      4d. qr_r and sne_solve vs their plain versions on one chunk of every
      class of the solver="pallas" route, on the inputs that route gives
      them: R of Ar = [A; diag(dead)] (qr_r takes A) by backward error
@@ -44,9 +46,11 @@ all three:
      ||R^T R y - b|| / (||R||_F^2 ||y||) (<= 10x the plain version's),
      and the whole gls_solve_csne through the kernels vs through the
      plain versions (<= 1e-10 scaled, the same rnorm > 1e-11 set);
-     prints kernel, plain and library times, qr_r's time on each of its
-     two bodies (register tile, shared memory) and each body's
-     registers, local bytes, shared memory and blocks per SM;
+     prints kernel, plain and library times, the time of each of the
+     two bodies of qr_r (register tile, shared memory) and of sne_solve
+     (a warp a node on the staged triangle, R from device memory; each
+     held to the same residual bound), the body each class takes, and
+     each body's registers, local bytes, shared memory and blocks per SM;
      4e. one chunk of the unfused route and one of the solver="pallas"
      route padded to (E, F) = (64, 96), where chol_linv, round2_gram and
      qr_r run from device workspaces: the unpadded weights (<= 1e-10
@@ -467,6 +471,8 @@ def cholqr_vs_plain(interp, tp):
                              occupancy=occ[name], **extra),
                         kernel, plain, library, flops, nbytes)
             del got, ref
+            if name == "round2_gram_f32":
+                round2_bodies(row, As, Li1, magnitude, n)
             print(f"# {name} " + json.dumps(row), flush=True)
             check(err <= TOL_F32, f"{name} kernel vs plain: error "
                                   f"{err:.3e} of the magnitude product > "
@@ -513,6 +519,29 @@ def cholqr_vs_plain(interp, tp):
             rows["chol_linv_f32"].append(row)
         del pc, As, G1, Li1, G2, Lc, v, prec_random
     return classes, rows
+
+
+def round2_bodies(row, As, Li1, magnitude, n):
+    """Phase 4c for round2_gram_f32: the body its class takes, and each
+    body's error (held to TOL_F32 of the magnitude product, as the
+    default), time and launch on an SM."""
+    from ninpol_tpu_torch.ops import cholqr as cq
+
+    row["path"] = cq.library.get().round2_gram_f32_path(n)
+    mag = magnitude()
+    ref = cq.round2_gram_f32_reference(As, Li1)
+    for p, label in ((2, "register"), (1, "shared")):
+        if p == 2 and row["path"] != 2:    # no register body at this width
+            continue
+        err = scaled_err(cq.round2_gram_f32(As, Li1, path=p), ref,
+                         mag.reshape(ref.shape))
+        row[f"{label}_err_over_magnitude"] = err
+        row[f"{label}_ms"] = cuda_ms(lambda: cq.round2_gram_f32(As, Li1,
+                                                                path=p), 5)
+        row[f"{label}_occupancy"] = cq.occupancy("round2_gram_f32", n, p)
+        check(err <= TOL_F32, f"round2_gram_f32 {label} body: error "
+                              f"{err:.3e} of the magnitude product > "
+                              f"{TOL_F32}: {row}")
 
 
 def qr_work(Ar):
@@ -622,7 +651,8 @@ def csne_vs_plain(interp, tp):
                                      generator=torch.Generator(
                                          device=A.device).manual_seed(0))}
         del A
-        row = dict(head, n=n, max_abs_err=0.0)
+        row = dict(head, n=n, path=qr.library.get().sne_solve_path(n),
+                   max_abs_err=0.0)
         for label, bb in rhs.items():
             yk, yp = qr.sne_solve(Rk, bb), qr.sne_solve_reference(Rk, bb)
             rk_, rp_ = (qr.sne_residual(Rk, y, bb) for y in (yk, yp))
@@ -632,6 +662,19 @@ def csne_vs_plain(interp, tp):
             check(rk_ <= QR_RATIO * rp_,
                   f"sne_solve on {label}: residual {rk_:.3e} > {QR_RATIO} x "
                   f"plain {rp_:.3e} in {head}")
+        # each body on the random b: its residual, time and launch on an SM
+        bb = rhs["random"]
+        for p, label in ((2, "warp"), (1, "global")):
+            if p == 2 and row["path"] != 2:  # the triangle passes shared memory
+                continue
+            res = qr.sne_residual(Rk, qr.sne_solve(Rk, bb, path=p), bb)
+            row[f"{label}_random_residual"] = res
+            row[f"{label}_ms"] = cuda_ms(lambda: qr.sne_solve(Rk, b, path=p),
+                                         5)
+            row[f"{label}_occupancy"] = qr.sne_solve_occupancy(n, p)
+            check(res <= QR_RATIO * row["random_plain_residual"],
+                  f"sne_solve {label} body: residual {res:.3e} > "
+                  f"{QR_RATIO} x plain: {row}")
         row.update(ms=cuda_ms(lambda: qr.sne_solve(Rk, b), 5),
                    plain_ms=cuda_ms(lambda: qr.sne_solve_reference(Rk, b), 2),
                    library_ms=cuda_ms(lambda: torch.cholesky_solve(

@@ -17,14 +17,32 @@
  *   FMA would make shared memory the limit); the mirrored matrix is
  *   written once.
  *
- * round2_gram_kernel replaces pallas_chol.py::round2_gram_f32
- *   (_round2_kernel): G = (A Li^T)^T (A Li^T).  Li^T stays in shared
- *   memory; each chunk of kRows rows of A becomes kRows rows of Q in
- *   shared memory (4 x 4 register tiles again) and is folded into the Gram
- *   accumulators at once, so Q never reaches device memory (the point of
- *   the TPU kernel).  A and Li read, G written: 81 KB per interior node
- *   for ~2.1 MFLOP (Q as a full product, the Gram on its upper
- *   triangle), so FP32 operations bound it, narrowly.
+ * round2_gram_reg_kernel and round2_gram_kernel replace
+ *   pallas_chol.py::round2_gram_f32 (_round2_kernel): G = (A Li^T)^T
+ *   (A Li^T), Li lower triangular (the route's L1^-1).  Each chunk of rows
+ *   of A becomes the same rows of Q in shared memory and is folded into
+ *   the Gram at once, so Q never reaches device memory (the point of the
+ *   TPU kernel).  A and Li read, G written: 81 KB per interior node
+ *   (m = 132, n = 73) for 1.43 MFLOP counted on the triangles (Q's
+ *   m n(n+1)/2 FMAs, the Gram's as many), 17.6 FLOP/byte: bound by memory
+ *   on an H100, narrowly (0.79 ms a 32,768-node chunk against 0.70 ms of
+ *   FP32 FMAs).  What holds a kernel back is shared-memory traffic and
+ *   instruction issue, not the bytes.
+ *   Up to n = 76 (the tet classes) round2_gram_reg_kernel: one thread per
+ *   upper 4 x 4 tile of the Gram (190 at n = 73, so 192 threads), its
+ *   sums in registers for all of m (no Gram round trip through shared
+ *   memory); Q on the triangle only (a Q tile at columns k0..k0+3 sums
+ *   j <= k0 + 3), in 2 x 4 tiles with column tile u paired with
+ *   nt - 1 - u so that every thread's pair costs the same; A staged
+ *   transposed by asynchronous copies that overlap the previous chunk's
+ *   Gram, so a thread reads its two rows of a column as one float2.  One
+ *   buffer each for A^T and Q (two barriers a chunk) keeps the block at
+ *   46.2 KB, four blocks an SM; G leaves through a symmetric tile in shared
+ *   memory, row by row.  The sums run in the shared body's order, so G
+ *   equals its G bit for bit.
+ *   Wider nodes take round2_gram_kernel: Li^T and the Gram accumulators in
+ *   shared memory (or the workspace), kRows rows of Q at a time in 4 x 4
+ *   register tiles over all of j, folded by gram_accumulate.
  *
  * chol_linv_reg_kernel and chol_linv_kernel replace
  *   pallas_chol.py::chol_linv_f32 (_chol_kernel): a Cholesky elimination
@@ -62,6 +80,7 @@
  * node fits).  Each launch function returns a cudaError_t as int (0 on
  * success).
  */
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -194,6 +213,171 @@ round2_gram_kernel(const float* __restrict__ A, const float* __restrict__ Li,
   }
   __syncthreads();
   store_symmetric(g, G + node * n * n, n, np);
+}
+
+// ---- round2_gram's register body (path 2)
+//
+// One block a node, one thread per upper kTile x kTile tile of the Gram,
+// whose sums stay in that thread's registers across all of m.  Rows of A
+// arrive a chunk at a time, transposed (A^T, so a thread reads its two
+// rows of a column as one float2), by asynchronous copies that overlap
+// the Gram of the chunk before.  Q = A Li^T is formed a chunk at a time
+// on the triangle only: a Q tile at columns k0..k0+3 sums j <= k0 + 3,
+// since Li^T[j][k] = 0 for j > k; tile u is paired with tile nt - 1 - u,
+// so every thread's pair costs the same.  A^T and Q have one buffer each
+// (two barriers a chunk), so that four blocks share an SM.
+constexpr int kR2Threads = 192;   // the block's most threads: 190 upper tiles
+constexpr int kR2RegMax = 76;     // the widest n: 19 x 19 tiles
+
+__host__ __device__ inline int r2_tiles(int n) {
+  const int nt = padded(n) / kTile;
+  return nt * (nt + 1) / 2;
+}
+__host__ __device__ inline int r2_threads(int n) { return (r2_tiles(n) + 31) / 32 * 32; }
+// Q's column units: tile u with tile nt - 1 - u (the middle tile alone
+// when nt is odd)
+__host__ __device__ inline int r2_units(int n) { return (padded(n) / kTile + 1) / 2; }
+// rows of A a chunk holds: a row pair a thread for every unit
+__host__ __device__ inline int r2_rows(int n) { return 2 * (r2_threads(n) / r2_units(n)); }
+// Li^T (np x np), a chunk of A^T (np x rows) and one of Q (rows x np)
+__host__ __device__ inline long long r2_reg_floats(int n) {
+  const long long np = padded(n);
+  return np * np + 2 * np * r2_rows(n);
+}
+
+// The (row, column) of a thread's elements idx = start, start + step, ...
+// of a row-major matrix of width w, without a division per element.
+struct Walk {
+  int r, c, dr, dc, w;
+  __device__ Walk(int start, int step, int width)
+      : r(start / width), c(start % width), dr(step / width), dc(step % width), w(width) {}
+  __device__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= w) {
+      c -= w;
+      ++r;
+    }
+  }
+};
+
+// Rows [r0, r0 + rows) of the node's A into at as A^T (at[j * ld + r]),
+// one asynchronous 4-byte copy an element, reading A in order.
+__device__ inline void copy_rows_transposed(const float* Ab, float* at, int r0, int rows,
+                                            int n, int ld) {
+  const float* src = Ab + (long long)r0 * n;
+  Walk w(threadIdx.x, blockDim.x, n);
+  for (int idx = threadIdx.x; idx < rows * n; idx += blockDim.x, w.next())
+    __pipeline_memcpy_async(at + w.c * ld + w.r, src + idx, sizeof(float));
+}
+
+// Q's rows of one chunk: thread t takes row pair t % pairs and column
+// unit t / pairs; each of the unit's tiles sums j in order up to the
+// tile's last column (or n).
+__device__ inline void r2_q_chunk(const float* at, const float* lit, float* q, int rows,
+                                  int n, int np, int ld) {
+  const int nt = np / kTile, pairs = ld / 2;
+  const int p = threadIdx.x % pairs, u = threadIdx.x / pairs;
+  if (u >= (nt + 1) / 2 || 2 * p >= rows) return;
+  for (int h = 0; h < 2; ++h) {
+    const int tile = h == 0 ? u : nt - 1 - u;
+    if (h == 1 && tile == u) break;
+    const int k0 = tile * kTile, jend = min(k0 + kTile, n);
+    float acc[2][kTile] = {};
+#pragma unroll 4
+    for (int j = 0; j < jend; ++j) {
+      const float2 x = *reinterpret_cast<const float2*>(at + j * ld + 2 * p);
+      const float4 y4 = load4(lit + j * np + k0);
+      const float y[kTile] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+      for (int c = 0; c < kTile; ++c) {
+        acc[0][c] = fmaf(x.x, y[c], acc[0][c]);
+        acc[1][c] = fmaf(x.y, y[c], acc[1][c]);
+      }
+    }
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2)
+      *reinterpret_cast<float4*>(q + (2 * p + h2) * np + k0) =
+          make_float4(acc[h2][0], acc[h2][1], acc[h2][2], acc[h2][3]);
+  }
+}
+
+// g += the chunk's rows of Q^T Q on this thread's tile (i0, j0), rows in
+// order.
+__device__ inline void r2_gram_chunk(const float* q, int rows, int np, int i0, int j0,
+                                     float (&g)[kTile][kTile]) {
+#pragma unroll 4
+  for (int r = 0; r < rows; ++r) {
+    const float4 x4 = load4(q + r * np + i0), y4 = load4(q + r * np + j0);
+    const float x[kTile] = {x4.x, x4.y, x4.z, x4.w};
+    const float y[kTile] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+    for (int a = 0; a < kTile; ++a)
+#pragma unroll
+      for (int b = 0; b < kTile; ++b) g[a][b] = fmaf(x[a], y[b], g[a][b]);
+  }
+}
+
+__global__ void __launch_bounds__(kR2Threads, 4)
+round2_gram_reg_kernel(const float* __restrict__ A, const float* __restrict__ Li,
+                       float* __restrict__ G, int m, int n) {
+  extern __shared__ __align__(16) float smem[];
+  const int np = padded(n), nt = np / kTile, ld = r2_rows(n);
+  float* lit = smem;                 // Li^T, np x np; the Gram at the end
+  float* at = lit + np * np;         // a chunk of A^T, np x ld
+  float* q = at + np * ld;           // the chunk's rows of Q, ld x np
+  const int t = threadIdx.x;
+  const long long node = blockIdx.x;
+  const float* Ab = A + node * m * n;
+  // Li^T[j][k] = Li[k][j] for j <= k (Li read in order), zero elsewhere
+  {
+    const float* Lb = Li + node * n * n;
+    Walk w(t, blockDim.x, n);
+    for (int idx = t; idx < n * n; idx += blockDim.x, w.next())
+      if (w.c <= w.r) __pipeline_memcpy_async(lit + w.c * np + w.r, Lb + idx, sizeof(float));
+    Walk z(t, blockDim.x, np);
+    for (int idx = t; idx < np * np; idx += blockDim.x, z.next())
+      if (z.r > z.c || z.c >= n) lit[idx] = 0.f;
+  }
+  copy_rows_transposed(Ab, at, 0, min(ld, m), n, ld);
+  __pipeline_commit();
+  // this thread's Gram tile (ti, tj), ti <= tj, row by row
+  const bool owner = t < r2_tiles(n);
+  int ti = 0, rest = t;
+  while (owner && rest >= nt - ti) {
+    rest -= nt - ti;
+    ++ti;
+  }
+  const int i0 = ti * kTile, j0 = (ti + rest) * kTile;
+  float g[kTile][kTile] = {};
+  for (int r0 = 0; r0 < m; r0 += ld) {
+    const int rows = min(ld, m - r0);
+    __pipeline_wait_prior(0);
+    __syncthreads();   // the chunk staged, the last chunk's Q consumed
+    r2_q_chunk(at, lit, q, rows, n, np, ld);
+    __syncthreads();   // Q written, A^T free
+    if (r0 + ld < m) {
+      copy_rows_transposed(Ab, at, r0 + ld, min(ld, m - r0 - ld), n, ld);
+      __pipeline_commit();
+    }
+    if (owner) r2_gram_chunk(q, rows, np, i0, j0, g);
+  }
+  // the Gram's tile and its mirror into Li^T's place (a diagonal tile is
+  // symmetric to the bit: its two products take the same operands), then
+  // G row by row
+  if (owner) {
+#pragma unroll
+    for (int a = 0; a < kTile; ++a) {
+      *reinterpret_cast<float4*>(lit + (i0 + a) * np + j0) =
+          make_float4(g[a][0], g[a][1], g[a][2], g[a][3]);
+      *reinterpret_cast<float4*>(lit + (j0 + a) * np + i0) =
+          make_float4(g[0][a], g[1][a], g[2][a], g[3][a]);
+    }
+  }
+  __syncthreads();
+  float* Gb = G + node * n * n;
+  Walk w(t, blockDim.x, n);
+  for (int idx = t; idx < n * n; idx += blockDim.x, w.next()) Gb[idx] = lit[w.r * np + w.c];
 }
 
 template <bool kWs>
@@ -343,16 +527,28 @@ struct Launch {
   long long floats;
 };
 
-// The kernel of a launch: chol_linv's register body where it holds the
-// node, else the shared-memory body, on the workspace when `ws`.
+// round2_gram's bodies: 2, the register body, up to n = kR2RegMax; else
+// 1, the shared-memory body (on the workspace when `ws`).
+int round2_path(int n) { return n <= kR2RegMax ? 2 : 1; }
+
+Launch round2_launch(int n, int path, bool ws) {
+  if (path == 2) {
+    if (ws || n > kR2RegMax) return {nullptr, 0, 0};
+    return {(const void*)round2_gram_reg_kernel, r2_threads(n), r2_reg_floats(n)};
+  }
+  return {ws ? (const void*)round2_gram_kernel<true> : (const void*)round2_gram_kernel<false>,
+          kThreads, round2_floats(n)};
+}
+
+// The kernel of a launch: chol_linv's and round2_gram's register bodies
+// where they hold the node, else the shared-memory body, on the
+// workspace when `ws`.
 Launch launch_of(int kernel, int n, bool ws) {
   switch (kernel) {
     case kGram:
       return {ws ? (const void*)gram_kernel<true> : (const void*)gram_kernel<false>, kThreads,
               gram_floats(n)};
-    case kRound2:
-      return {ws ? (const void*)round2_gram_kernel<true> : (const void*)round2_gram_kernel<false>,
-              kThreads, round2_floats(n)};
+    case kRound2: return round2_launch(n, round2_path(n), ws);
     case kCholLinv:
       if (!ws && n <= kCholRegMax)
         return {n <= 3 * kGrid ? (const void*)chol_linv_reg_kernel<3>
@@ -390,6 +586,24 @@ long long workspace_floats(int kernel, int n) {
   return l.kernel == nullptr || fits(l.floats) ? 0 : l.floats;
 }
 
+// A launch's dynamic shared memory, threads, blocks an SM holds,
+// registers and local memory bytes a thread; returns the cudaError_t.
+int occupancy_of(const Launch& l, bool ws, long long* smem_bytes, int* threads,
+                 int* blocks_per_sm, int* regs, long long* local_bytes) {
+  size_t bytes = 0;
+  cudaError_t err = prepare(l, ws, &bytes);
+  if (err != cudaSuccess) return (int)err;
+  *smem_bytes = (long long)bytes;
+  *threads = l.threads;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, l.kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *local_bytes = (long long)attr.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, l.kernel,
+                                                            l.threads, bytes);
+}
+
 }  // namespace
 
 extern "C" long long gram_f32_workspace_floats(int n) { return workspace_floats(kGram, n); }
@@ -410,19 +624,8 @@ extern "C" long long prec_apply_f32_workspace_floats(int n) {
 extern "C" int cholqr_occupancy(int kernel, int n, long long* smem_bytes, int* threads,
                                 int* blocks_per_sm, int* regs, long long* local_bytes) {
   const bool ws = workspace_floats(kernel, n) > 0;
-  const Launch l = launch_of(kernel, n, ws);
-  size_t bytes = 0;
-  cudaError_t err = prepare(l, ws, &bytes);
-  if (err != cudaSuccess) return (int)err;
-  *smem_bytes = (long long)bytes;
-  *threads = l.threads;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, l.kernel);
-  if (err != cudaSuccess) return (int)err;
-  *regs = attr.numRegs;
-  *local_bytes = (long long)attr.localSizeBytes;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, l.kernel,
-                                                            l.threads, bytes);
+  return occupancy_of(launch_of(kernel, n, ws), ws, smem_bytes, threads, blocks_per_sm, regs,
+                      local_bytes);
 }
 
 // Each launch takes ws, a workspace of its kernel's *_workspace_floats(n)
@@ -439,16 +642,44 @@ extern "C" int gram_f32_launch(const float* A, float* G, float* ws, int B, int m
   return (int)cudaGetLastError();
 }
 
-extern "C" int round2_gram_f32_launch(const float* A, const float* Li, float* G,
-                                      float* ws, int B, int m, int n, void* stream) {
-  if (B <= 0 || m <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+// The body round2_gram takes by default at width n: 2, the register
+// body (n <= 76); else 1, the shared-memory body.
+extern "C" int round2_gram_f32_path(int n) { return round2_path(n); }
+
+// As cholqr_occupancy, for round2_gram's body `path` (0: the default) at
+// width n.
+extern "C" int round2_gram_f32_occupancy(int n, int path, long long* smem_bytes,
+                                         int* threads, int* blocks_per_sm, int* regs,
+                                         long long* local_bytes) {
+  if (n <= 0 || path < 0 || path > 2) return (int)cudaErrorInvalidValue;
+  if (path == 0) path = round2_path(n);
+  const bool ws = path == 1 && workspace_floats(kRound2, n) > 0;
+  return occupancy_of(round2_launch(n, path, ws), ws, smem_bytes, threads, blocks_per_sm,
+                      regs, local_bytes);
+}
+
+// G = (A Li^T)^T (A Li^T) by body `path` (0: the default, 1: shared
+// memory, on ws when not null, 2: registers, ws null).  Li is read as
+// lower triangular: the register body does not read its upper triangle.
+extern "C" int round2_gram_f32_path_launch(const float* A, const float* Li, float* G,
+                                           float* ws, int B, int m, int n, int path,
+                                           void* stream) {
+  if (B <= 0 || m <= 0 || n <= 0 || path < 0 || path > 2) return (int)cudaErrorInvalidValue;
+  if (path == 0) path = ws ? 1 : round2_path(n);
   size_t bytes = 0;
-  cudaError_t err = prepare(launch_of(kRound2, n, ws != nullptr), ws != nullptr, &bytes);
+  cudaError_t err = prepare(round2_launch(n, path, ws != nullptr), ws != nullptr, &bytes);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (ws) round2_gram_kernel<true><<<B, kThreads, bytes, s>>>(A, Li, G, ws, m, n);
+  if (path == 2) round2_gram_reg_kernel<<<B, r2_threads(n), bytes, s>>>(A, Li, G, m, n);
+  else if (ws) round2_gram_kernel<true><<<B, kThreads, bytes, s>>>(A, Li, G, ws, m, n);
   else round2_gram_kernel<false><<<B, kThreads, bytes, s>>>(A, Li, G, ws, m, n);
   return (int)cudaGetLastError();
+}
+
+// round2_gram by its default body.
+extern "C" int round2_gram_f32_launch(const float* A, const float* Li, float* G,
+                                      float* ws, int B, int m, int n, void* stream) {
+  return round2_gram_f32_path_launch(A, Li, G, ws, B, m, n, 0, stream);
 }
 
 // P (mul_right) is read as lower triangular: its upper triangle is not read.

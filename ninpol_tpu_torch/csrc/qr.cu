@@ -55,20 +55,38 @@
  *     barriers a column.  At (24, 36) its 77.7 KB lets two blocks share an
  *     SM.
  *
- * sne_solve_kernel replaces pallas_qr.py::sne_solve_df32
- *   (_solve_step_kernel): y with R^T R y = b, forward substitution
- *   (R^T z = b) then backward (R y = z), every |R_kk| < tiny taken as
- *   exactly 1 in both.  Bound by memory: the triangle of R is read once,
- *   n (n + 1) / 2 doubles per node, for n^2 FMAs.  Column-oriented
- *   substitution with the running right-hand side in shared memory: once
- *   z_k is known, each thread subtracts its own entry's share, reading row k
- *   of R from device memory in one coalesced pass (forward) or its own row
- *   walking down the columns (backward, cached lines).  One barrier per
- *   step, 2n steps, each waiting on a load and a division: latency, not
- *   bytes, limits it.
+ * sne_solve_warp_kernel and sne_solve_kernel replace
+ *   pallas_qr.py::sne_solve_df32 (_solve_step_kernel): y with R^T R y = b,
+ *   forward substitution (R^T z = b) then backward (R y = z), every
+ *   |R_kk| < tiny taken as exactly 1 in both.  Bound by memory: the
+ *   triangle of R is read once, n (n + 1) / 2 doubles per node, for n^2
+ *   FMAs.  What holds it back is latency: 2n dependent steps a node.
+ *
+ *   sne_solve_warp_kernel (every n whose triangle fits in the shared
+ *     memory a block may use: n <= 240): one warp a node, two a block.
+ *     The node's upper triangle is staged once, packed row by row (21.6 KB
+ *     at n = 73, so five blocks, ten nodes an SM), by asynchronous copies
+ *     that walk the packed entries in order (coalesced, and no byte of
+ *     the lower triangle read); each lane inverts the clamped pivots of
+ *     its rows once.  Lane l owns rows l + 32 s, their running right-hand
+ *     side in registers.  A step: the owner of row k forms z_k (times the
+ *     inverted pivot), one shuffle hands it to the warp, and each lane
+ *     subtracts its rows' share, reading row k of the triangle (forward:
+ *     consecutive entries across the lanes, no bank conflict) or column k
+ *     (backward); the next step's loads are issued before the shuffle.
+ *     No block barrier, one shuffle, a DMUL and a DFMA on the chain of a
+ *     step, where the block-per-node body waited on a device-memory load,
+ *     a division and a barrier.  Rows in blocks of four a lane (four
+ *     steps a shuffle round) were slower on the card.
+ *
+ *   sne_solve_kernel (wider nodes): one block of 128 threads a node, R
+ *     read from device memory: the running right-hand side in shared
+ *     memory, row k read coalesced (forward) or each thread's own row
+ *     down the columns (backward), one barrier a step.
  *
  * Each launch function returns a cudaError_t as int (0 on success).
  */
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -462,6 +480,7 @@ __device__ inline double pivot_value(const double* Rb, int k, int n, double tiny
   return fabs(d) < tiny ? 1.0 : d;
 }
 
+// sne_solve's body 1: one block a node, R read from device memory.
 __global__ void __launch_bounds__(kSolveThreads)
 sne_solve_kernel(const double* __restrict__ R, const double* __restrict__ b,
                  double* __restrict__ y, int n, double tiny) {
@@ -489,6 +508,128 @@ sne_solve_kernel(const double* __restrict__ R, const double* __restrict__ b,
     __syncthreads();
   }
   for (int i = t; i < n; i += kSolveThreads) y[node * n + i] = c[i];
+}
+
+// ---- sne_solve's body 2: a warp a node on its staged triangle
+
+// Doubles of a node's packed upper triangle: row i holds columns i..n-1
+// from tri_row(i, n) on, so entry (i, j) lies at tri_row(i, n) + j - i.
+__host__ __device__ inline long long tri_doubles(int n) { return (long long)n * (n + 1) / 2; }
+__host__ __device__ inline int tri_row(int i, int n) { return i * n - i * (i - 1) / 2; }
+
+// Nodes (warps) a block of body 2 holds at most; fewer where their
+// triangles would pass the shared memory a block may use.
+constexpr int kSneWarps = 2;
+constexpr int kSneMaxSlots = 8;   // rows a lane owns at most: n <= 256
+
+// One warp solves one node.  Lane l owns rows i = l + 32 s (s < kS): the
+// running right-hand side, then z, then y, in registers x[s].  The node's
+// upper triangle is staged once into shared memory with asynchronous
+// copies (coalesced: the lanes walk the packed entries in order), and
+// each lane's clamped pivots are inverted once.  Forward step k: the
+// owner of row k forms z_k = c_k / R_kk (times the inverted pivot), a
+// shuffle hands it to every lane, and each lane takes R[k][i] z_k from
+// its rows i > k, reading row k of the triangle (consecutive entries
+// across the lanes).  Backward step k the same with y_k and column k of
+// rows i < k.  Each step's shared loads are issued a step ahead: their
+// addresses do not depend on z.  The 2n steps need no block barrier.
+template <int kS>
+__global__ void __launch_bounds__(32 * kSneWarps)
+sne_solve_warp_kernel(const double* __restrict__ R, const double* __restrict__ b,
+                      double* __restrict__ y, int B, int n, double tiny) {
+  extern __shared__ __align__(16) double smem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const long long node = (long long)blockIdx.x * (blockDim.x / 32) + warp;
+  if (node >= B) return;   // the ragged last block: no block barrier follows
+  double* tri = smem + (size_t)warp * tri_doubles(n);
+  const double* Rb = R + node * n * n;
+  {
+    const int count = (int)tri_doubles(n);
+    int i = 0, j = lane;   // entry p = lane of the packed triangle
+    while (j >= n && i < n) { ++i; j += i - n; }
+    for (int p = lane; p < count; p += 32) {
+      __pipeline_memcpy_async(tri + p, Rb + (size_t)i * n + j, sizeof(double));
+      j += 32;
+      while (j >= n && i < n) { ++i; j += i - n; }
+    }
+    __pipeline_commit();
+  }
+  double x[kS], rinv[kS];
+#pragma unroll
+  for (int s = 0; s < kS; ++s) {
+    const int i = lane + 32 * s;
+    x[s] = i < n ? b[node * n + i] : 0.0;
+  }
+  __pipeline_wait_prior(0);
+  __syncwarp();
+  int coff[kS];   // column k of row i (i <= k) lies at coff + k
+#pragma unroll
+  for (int s = 0; s < kS; ++s) {
+    const int i = lane + 32 * s;
+    const double d = i < n ? tri[tri_row(i, n)] : 1.0;
+    rinv[s] = fabs(d) < tiny ? 1.0 : 1.0 / d;
+    coff[s] = i < n ? tri_row(i, n) - i : 0;
+  }
+  double v[kS];   // this lane's entries of the step's row (or column)
+  // R^T z = b: row k at rk + i, rk = tri_row(k, n) - k
+  int rk = 0;
+#pragma unroll
+  for (int s = 0; s < kS; ++s) {
+    const int i = lane + 32 * s;
+    v[s] = i > 0 && i < n ? tri[i] : 0.0;
+  }
+#pragma unroll
+  for (int r = 0; r < kS; ++r) {
+    const int kend = min(32, n - 32 * r);
+    for (int kk = 0; kk < kend; ++kk) {
+      const int k = 32 * r + kk;
+      const double zk = __shfl_sync(kFull, x[r] * rinv[r], kk);
+      const int rn = rk + n - k - 1;
+      double vn[kS];
+#pragma unroll
+      for (int s = r; s < kS; ++s) {
+        const int i = lane + 32 * s;
+        vn[s] = i > k + 1 && i < n ? tri[rn + i] : 0.0;
+      }
+      if (lane == kk) x[r] = zk;
+#pragma unroll
+      for (int s = r; s < kS; ++s) {
+        if (lane + 32 * s > k) x[s] = fma(-v[s], zk, x[s]);
+        v[s] = vn[s];
+      }
+      rk = rn;
+    }
+  }
+  // R y = z: column k of row i at coff + k
+#pragma unroll
+  for (int s = 0; s < kS; ++s) {
+    const int i = lane + 32 * s;
+    v[s] = i < n - 1 ? tri[coff[s] + n - 1] : 0.0;
+  }
+#pragma unroll
+  for (int r = kS - 1; r >= 0; --r) {
+    for (int kk = min(32, n - 32 * r) - 1; kk >= 0; --kk) {
+      const int k = 32 * r + kk;
+      const double yk = __shfl_sync(kFull, x[r] * rinv[r], kk);
+      double vn[kS];
+#pragma unroll
+      for (int s = 0; s <= r; ++s) {
+        const int i = lane + 32 * s;
+        vn[s] = i < k - 1 ? tri[coff[s] + k - 1] : 0.0;
+      }
+      if (lane == kk) x[r] = yk;
+#pragma unroll
+      for (int s = 0; s <= r; ++s) {
+        if (lane + 32 * s < k) x[s] = fma(-v[s], yk, x[s]);
+        v[s] = vn[s];
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kS; ++s) {
+    const int i = lane + 32 * s;
+    if (i < n) y[node * n + i] = x[s];
+  }
 }
 
 int smem_optin() {
@@ -535,6 +676,66 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// sne_solve's bodies: the warp body's instance for n (kS = ceil(n / 32)
+// rows a lane), and a body's kernel, threads and dynamic shared memory.
+using SneWarpKernel = void (*)(const double*, const double*, double*, int, int, double);
+
+SneWarpKernel sne_warp_kernel(int n) {
+  switch ((n + 31) / 32) {
+    case 1: return sne_solve_warp_kernel<1>;
+    case 2: return sne_solve_warp_kernel<2>;
+    case 3: return sne_solve_warp_kernel<3>;
+    case 4: return sne_solve_warp_kernel<4>;
+    case 5: return sne_solve_warp_kernel<5>;
+    case 6: return sne_solve_warp_kernel<6>;
+    case 7: return sne_solve_warp_kernel<7>;
+    case 8: return sne_solve_warp_kernel<8>;
+    default: return nullptr;
+  }
+}
+
+// Whether one node's triangle fits in the shared memory a block may use.
+bool sne_fits(int n) {
+  return sizeof(double) * (size_t)tri_doubles(n) <= (size_t)smem_optin();
+}
+
+struct SneLaunch {
+  const void* kernel;
+  int threads;
+  size_t smem;
+};
+
+SneLaunch sne_launch_of(int n, int path) {
+  if (path == 1)
+    return {(const void*)sne_solve_kernel, kSolveThreads, sizeof(double) * 2 * (size_t)n};
+  const SneWarpKernel kernel = sne_warp_kernel(n);
+  if (kernel == nullptr || !sne_fits(n)) return {nullptr, 0, 0};
+  const size_t node_bytes = sizeof(double) * (size_t)tri_doubles(n);
+  const size_t fit = (size_t)smem_optin() / node_bytes;
+  const int warps = fit < (size_t)kSneWarps ? (int)fit : kSneWarps;
+  return {(const void*)kernel, 32 * warps, node_bytes * warps};
+}
+
+// A launch's dynamic shared memory, threads, the blocks an SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and the kernel's
+// registers a thread and local memory bytes a thread (spills); returns
+// the cudaError_t.
+int occupancy_of(const void* kernel, int threads, size_t smem, long long* smem_bytes,
+                 int* threads_out, int* blocks_per_sm, int* regs, long long* local_bytes) {
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  *smem_bytes = (long long)smem;
+  *threads_out = threads;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *local_bytes = (long long)attr.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads,
+                                                            smem);
+}
+
 }  // namespace
 
 // The body qr_r takes by default for an m x n node: 2, the register tile,
@@ -547,27 +748,15 @@ extern "C" long long qr_r_workspace_doubles(int m, int n) {
   return qr_fits(m, n) ? 0 : (long long)qr_a_doubles(m, n);
 }
 
-// A launch's dynamic shared memory, threads, the blocks an SM holds
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the kernel's
-// registers a thread and local memory bytes a thread (spills), for body
-// `path` (0: the default) on an m x n node; returns the cudaError_t.
+// The launch of qr_r's body `path` (0: the default) on an m x n node, as
+// occupancy_of gives it.
 extern "C" int qr_r_occupancy(int m, int n, int path, long long* smem_bytes,
                               int* threads, int* blocks_per_sm, int* regs,
                               long long* local_bytes) {
   if (path == 0) path = qr_r_path(m, n);
   const QrLaunch l = qr_launch_of(m, n, path, path == 1 && !qr_fits(m, n));
-  if (l.kernel == nullptr) return (int)cudaErrorInvalidValue;
-  *smem_bytes = (long long)l.smem;
-  *threads = l.threads;
-  cudaError_t err = set_smem(l.kernel, l.smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, l.kernel);
-  if (err != cudaSuccess) return (int)err;
-  *regs = attr.numRegs;
-  *local_bytes = (long long)attr.localSizeBytes;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, l.kernel,
-                                                            l.threads, l.smem);
+  return occupancy_of(l.kernel, l.threads, l.smem, smem_bytes, threads, blocks_per_sm, regs,
+                      local_bytes);
 }
 
 // R (B, n, n) of [A; diag(dead)] for A (B, m, n), m >= n, by body `path`
@@ -595,12 +784,47 @@ extern "C" int qr_r_launch(const double* A, double* R, double* ws, int B, int m,
   return (int)cudaGetLastError();
 }
 
+// The body sne_solve takes by default at width n: 2, a warp a node on its
+// staged triangle, where the triangle fits in the shared memory a block
+// may use (n <= 240 on an H100); else 1, sne_solve_kernel, which reads R
+// from device memory.
+extern "C" int sne_solve_path(int n) {
+  return n <= 32 * kSneMaxSlots && sne_fits(n) ? 2 : 1;
+}
+
+// As qr_r_occupancy, for sne_solve's body `path` (0: the default) at
+// width n.
+extern "C" int sne_solve_occupancy(int n, int path, long long* smem_bytes, int* threads,
+                                   int* blocks_per_sm, int* regs, long long* local_bytes) {
+  if (n <= 0 || path < 0 || path > 2) return (int)cudaErrorInvalidValue;
+  const SneLaunch l = sne_launch_of(n, path == 0 ? sne_solve_path(n) : path);
+  return occupancy_of(l.kernel, l.threads, l.smem, smem_bytes, threads, blocks_per_sm, regs,
+                      local_bytes);
+}
+
+// y (B, n) with R^T R y = b for R (B, n, n), b (B, n), by body `path`
+// (0: the default, 1: sne_solve_kernel, 2: the warp body).
+extern "C" int sne_solve_path_launch(const double* R, const double* b, double* y, int B,
+                                     int n, double tiny, int path, void* stream) {
+  if (B <= 0 || n <= 0 || path < 0 || path > 2) return (int)cudaErrorInvalidValue;
+  if (path == 0) path = sne_solve_path(n);
+  const SneLaunch l = sne_launch_of(n, path);
+  if (l.kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem(l.kernel, l.smem);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (path == 1) {
+    sne_solve_kernel<<<B, kSolveThreads, l.smem, s>>>(R, b, y, n, tiny);
+  } else {
+    const int warps = l.threads / 32;
+    const SneWarpKernel kernel = sne_warp_kernel(n);
+    kernel<<<(B + warps - 1) / warps, l.threads, l.smem, s>>>(R, b, y, B, n, tiny);
+  }
+  return (int)cudaGetLastError();
+}
+
+// sne_solve by its default body.
 extern "C" int sne_solve_launch(const double* R, const double* b, double* y, int B,
                                 int n, double tiny, void* stream) {
-  if (B <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  const size_t bytes = sizeof(double) * 2 * (size_t)n;
-  cudaError_t err = set_smem((const void*)sne_solve_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  sne_solve_kernel<<<B, kSolveThreads, bytes, (cudaStream_t)stream>>>(R, b, y, n, tiny);
-  return (int)cudaGetLastError();
+  return sne_solve_path_launch(R, b, y, B, n, tiny, 0, stream);
 }

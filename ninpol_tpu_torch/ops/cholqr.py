@@ -19,12 +19,14 @@ products accurate to ~eps32), natural (node, row, column) layout, any B.
 Each wrapper runs its plain version for CPU tensors and launches its
 kernel in ``csrc/cholqr.cu`` (built with nvcc on first use) for CUDA
 tensors, or raises; ``<wrapper>.launches`` counts kernel launches.  The
-kernels stage a node's matrices in shared memory; past n ~152
+kernels stage a node's matrices in shared memory (round2_gram_f32 and
+chol_linv_f32 keep them in registers up to n = 76 and 80); past n ~152
 (round2_gram_f32), ~170 (chol_linv_f32), ~226 (gram_f32) or ~240
 (prec_apply_f32) the same code runs on a per-node workspace in device
 memory, which the wrapper allocates (``<name>_workspace_floats(n)`` in
 the library gives its size, 0 where the node fits).  chol_linv_f32 reads
-``mul_right`` as lower triangular, as the route's (L1^-1) is.
+``mul_right`` and round2_gram_f32 reads ``Li`` as lower triangular, as
+the route's (L1^-1) is.
 
 ``cholqr_factors`` composes the four into the preconditioner, from the
 wrappers (``KERNELS``) or from the plain versions (``PLAIN``).
@@ -105,6 +107,15 @@ def _bind(lib):
         ci, ci, ctypes.POINTER(ll), ctypes.POINTER(ci), ctypes.POINTER(ci),
         ctypes.POINTER(ci), ctypes.POINTER(ll)]
     lib.cholqr_occupancy.restype = ci
+    lib.round2_gram_f32_path.argtypes = [ci]
+    lib.round2_gram_f32_path.restype = ci
+    lib.round2_gram_f32_occupancy.argtypes = [
+        ci, ci, ctypes.POINTER(ll), ctypes.POINTER(ci), ctypes.POINTER(ci),
+        ctypes.POINTER(ci), ctypes.POINTER(ll)]
+    lib.round2_gram_f32_occupancy.restype = ci
+    lib.round2_gram_f32_path_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci,
+                                                ci, vp]
+    lib.round2_gram_f32_path_launch.restype = ci
 
 
 library = CudaLibrary("cholqr", _bind)
@@ -139,10 +150,16 @@ _KERNEL_IDS = {"gram_f32": 0, "round2_gram_f32": 1, "chol_linv_f32": 2,
                "prec_apply_f32": 3}
 
 
-def occupancy(name, n):
+def occupancy(name, n, path=0):
     """The launch of kernel ``name`` at width n on the current card
-    (``cuda_lib.occupancy``)."""
-    return cuda_lib.occupancy(library.get().cholqr_occupancy,
+    (``cuda_lib.occupancy``); for round2_gram_f32, of its body ``path``
+    (0: the default)."""
+    lib = library.get()
+    if name == "round2_gram_f32":
+        return cuda_lib.occupancy(lib.round2_gram_f32_occupancy,
+                                  f"{name} occupancy query (n={n}, "
+                                  f"path={path})", n, path)
+    return cuda_lib.occupancy(lib.cholqr_occupancy,
                               f"{name} occupancy query (n={n})",
                               _KERNEL_IDS[name], n)
 
@@ -183,8 +200,11 @@ def chol_linv_f32(G, tiny=1e-12, mul_right=None):
     return out
 
 
-def round2_gram_f32(A, Li):
-    """(B, m, n), (B, n, n) float32 -> (A Li^T)^T (A Li^T), (B, n, n)."""
+def round2_gram_f32(A, Li, path=0):
+    """(B, m, n), (B, n, n) lower-triangular float32 -> (A Li^T)^T (A Li^T),
+    (B, n, n); the kernel's register body does not read Li's upper
+    triangle.  ``path`` picks the kernel's body: 0 the default, 1 shared
+    memory (or the workspace), 2 registers (raises past n = 76)."""
     B, m, n = _shape("A", A, 3)
     check_tensor("A", A, (B, m, n), _F32, A.device)
     check_tensor("Li", Li, (B, n, n), _F32, A.device)
@@ -193,9 +213,13 @@ def round2_gram_f32(A, Li):
     out = torch.empty((B, n, n), dtype=_F32, device=A.device)
     if B:
         lib = library.get()
-        _launch(round2_gram_f32, f"round2_gram_f32 (B={B}, m={m}, n={n})",
-                lib.round2_gram_f32_launch, A, Li, out,
-                _workspace(lib, "round2_gram_f32", B, n, A.device), B, m, n)
+        path = path or lib.round2_gram_f32_path(n)
+        ws = _workspace(lib, "round2_gram_f32", B, n, A.device) \
+            if path == 1 else None
+        _launch(round2_gram_f32, f"round2_gram_f32 (B={B}, m={m}, n={n}, "
+                                 f"path={path})",
+                lib.round2_gram_f32_path_launch, A, Li, out, ws, B, m, n,
+                path)
     return out
 
 

@@ -28,7 +28,9 @@ or raises; ``<wrapper>.launches`` counts kernel launches.  ``qr_r`` never
 builds Ar: the kernel writes a dead column's closed form.  It keeps a
 node's A in registers where a register tile holds the class (path 2),
 else in shared memory, or, past the 227 KB a block may use, in a per-node
-workspace it allocates (path 1).
+workspace it allocates (path 1).  ``sne_solve`` runs a warp a node on the
+node's triangle staged in shared memory (path 2); past shared memory
+(n > 240) one block a node reads R from device memory (path 1).
 """
 from __future__ import annotations
 
@@ -121,8 +123,15 @@ def _bind(lib):
     lib.qr_r_occupancy.argtypes = [ci, ci, ci, pll, pi, pi, pi, pll]
     lib.qr_r_occupancy.restype = ci
     lib.qr_r_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.sne_solve_path.argtypes = [ci]
+    lib.sne_solve_path.restype = ci
+    lib.sne_solve_occupancy.argtypes = [ci, ci, pll, pi, pi, pi, pll]
+    lib.sne_solve_occupancy.restype = ci
     lib.sne_solve_launch.argtypes = [vp, vp, vp, ci, ci, ctypes.c_double, vp]
-    for f in (lib.qr_r_launch, lib.sne_solve_launch):
+    lib.sne_solve_path_launch.argtypes = [vp, vp, vp, ci, ci, ctypes.c_double,
+                                          ci, vp]
+    for f in (lib.qr_r_launch, lib.sne_solve_launch,
+              lib.sne_solve_path_launch):
         f.restype = ci
 
 
@@ -169,9 +178,20 @@ def occupancy(m, n, path=0):
                               f"path={path})", m, n, path)
 
 
-def sne_solve(R, b, tiny=1e-7):
+def sne_solve_occupancy(n, path=0):
+    """The launch of ``sne_solve``'s body ``path`` (0: the default) at
+    width n on the current card (``cuda_lib.occupancy``)."""
+    return cuda_lib.occupancy(library.get().sne_solve_occupancy,
+                              f"sne_solve occupancy query (n={n}, "
+                              f"path={path})", n, path)
+
+
+def sne_solve(R, b, tiny=1e-7, path=0):
     """(B, n, n) upper-triangular float64 R, (B, n) b -> y with
-    R^T R y = b, every |R_kk| < tiny taken as 1."""
+    R^T R y = b, every |R_kk| < tiny taken as 1; R's lower triangle is
+    not read.  ``path`` picks the kernel's body: 0 the default, 1 R read
+    from device memory, 2 a warp a node on its staged triangle (raises
+    where the triangle passes shared memory)."""
     if R.dim() != 3:
         raise ValueError(f"R must have 3 dimensions, got {tuple(R.shape)}")
     B, n, _ = R.shape
@@ -181,8 +201,9 @@ def sne_solve(R, b, tiny=1e-7):
         return sne_solve_reference(R, b, tiny)
     out = torch.empty((B, n), dtype=_F64, device=R.device)
     if B:
-        _launch(sne_solve, f"sne_solve (B={B}, n={n})",
-                library.get().sne_solve_launch, R, b, out, B, n, float(tiny))
+        _launch(sne_solve, f"sne_solve (B={B}, n={n}, path={path})",
+                library.get().sne_solve_path_launch, R, b, out, B, n,
+                float(tiny), path)
     return out
 
 

@@ -41,16 +41,22 @@ def _scaled(got, ref, scale):
     return float((got - ref).abs().max() / scale.abs().max())
 
 
-@pytest.mark.parametrize("kernel", ["gram_f32", "chol_linv_f32",
-                                    "chol_linv_f32_mul_right",
-                                    "round2_gram_f32", "prec_apply_f32"])
-def test_cholqr_kernel_matches_plain_version(emu, kernel):
+@pytest.mark.parametrize("kernel,m,n", [
+    pytest.param(k, 48, 29, id=k)
+    for k in ("gram_f32", "chol_linv_f32", "chol_linv_f32_mul_right",
+              "round2_gram_f32", "prec_apply_f32")] + [
+    # round2_gram_f32 at the tet classes' (m, n): (12, 24) and (24, 36)
+    pytest.param("round2_gram_f32", 108, 37, id="round2_gram_f32-108x37"),
+    pytest.param("round2_gram_f32", 132, 73, id="round2_gram_f32-132x73")])
+def test_cholqr_kernel_matches_plain_version(emu, kernel, m, n):
     """Each unfused preconditioner kernel on a random, well-conditioned
-    chunk (n = 29: a row stride padded to 32), against its plain version:
-    the products to TOL_F32 of the operands' magnitude product, the
-    inverse factors to 1e-4 of the factor."""
+    chunk (n = 29: a row stride padded to 32; round2_gram_f32 also at the
+    route's classes), against its plain version: the products to TOL_F32
+    of the operands' magnitude product, the inverse factors to 1e-4 of
+    the factor.  round2_gram_f32's default body (registers, to n = 76)
+    gives the shared-memory body's G bit for bit: both sum in one order."""
     lib = emu["cholqr"]
-    B, m, n = 3, 48, 29
+    B = 3
     rng = np.random.default_rng(0)
     A = torch.as_tensor(rng.standard_normal((B, m, n)), dtype=torch.float32)
     v = torch.as_tensor(rng.standard_normal((B, n)), dtype=torch.float32)
@@ -72,6 +78,11 @@ def test_cholqr_kernel_matches_plain_version(emu, kernel):
         _call(lib.round2_gram_f32_launch, A, Li, out, None, B, m, n)
         aQ = A.abs() @ Li.abs().transpose(1, 2)
         assert _scaled(out, G2, aQ.transpose(1, 2) @ aQ) < TOL_F32
+        assert lib.round2_gram_f32_path(n) == 2
+        shared = torch.empty_like(out)
+        _call(lib.round2_gram_f32_path_launch, A, Li, shared, None, B, m, n,
+              1)
+        assert torch.equal(out, shared)
     else:
         o = torch.empty((B, n), dtype=torch.float32)
         _call(lib.prec_apply_f32_launch, Lc, v, o, None, B, n)

@@ -126,6 +126,42 @@ def test_qr_r_path_and_workspace_per_class(lib):
     assert lib.qr_r_workspace_doubles(448, 193) == 449 * 193
 
 
+def _occupancy(query, *args):
+    out = [ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int(),
+           ctypes.c_int(), ctypes.c_longlong()]
+    assert query(*args, *[ctypes.byref(x) for x in out]) == 0
+    return [x.value for x in out]
+
+
+@pytest.mark.parametrize("rhs", ["e_n", "random"])
+@pytest.mark.parametrize("n", [37, 73])
+def test_sne_solve_kernel_matches_plain_version(lib, n, rhs):
+    """sne_solve at the widths of the tet classes (12, 24) and (24, 36),
+    on e_n and on a seeded random b, each body against
+    sne_solve_reference: residual within 10x the plain version's, y to
+    1e-12 of max|y| (R is well conditioned).  B = 3 on the default body
+    (2), a warp a node and two a block, leaves a ragged last block.  R's
+    lower triangle holds junk, which neither body may read."""
+    B = 3
+    R = qr.qr_r_reference(_dead_column_input(B, n + 20, n, seed=n))
+    b = torch.zeros((B, n), dtype=torch.float64)
+    if rhs == "e_n":
+        b[:, n - 1] = 1.0
+    else:
+        b = torch.from_numpy(np.random.default_rng(n).standard_normal((B, n)))
+    yp = qr.sne_solve_reference(R, b)
+    Rj = R + torch.tril(torch.full_like(R, 3.0), -1)
+    assert lib.sne_solve_path(n) == 2
+    smem, threads, _, _, _ = _occupancy(lib.sne_solve_occupancy, n, 0)
+    assert threads == 64 and smem == 2 * 8 * n * (n + 1) // 2
+    for path in (1, 2):
+        y = torch.empty((B, n), dtype=torch.float64)
+        _call(lib.sne_solve_path_launch, Rj, b, y, B, n, 1e-7, path)
+        assert (qr.sne_residual(R, y, b)
+                <= QR_RATIO * qr.sne_residual(R, yp, b))
+        assert _scaled(y, yp) < 1e-12
+
+
 def test_sne_solve_kernel_on_a_clamped_pivot(lib):
     """sne_solve on an R with one pivot under tiny = 1e-7, which both
     versions take as exactly 1: residual within 10x the plain version's,

@@ -165,6 +165,51 @@ def test_chol_linv_body_per_width(emu, n):
         assert not torch.triu(X, 1).any()
 
 
+@pytest.mark.parametrize("n", [37, 73, 77])
+def test_round2_gram_body_per_width(emu, n):
+    """round2_gram_f32 keeps the Gram in registers up to n = 76 (the tet
+    classes' 37 and 73: one thread per upper 4 x 4 tile, so 64 and 192
+    threads) and stages it in shared memory past it (77: 256 threads);
+    against the plain version to 1e-5 of the operands' magnitude
+    product."""
+    lib = emu["cholqr"]
+    out = [ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int(),
+           ctypes.c_int(), ctypes.c_longlong()]
+    assert lib.round2_gram_f32_occupancy(n, 0,
+                                         *[ctypes.byref(x) for x in out]) == 0
+    path = lib.round2_gram_f32_path(n)
+    assert path == (2 if n <= 76 else 1)
+    assert out[1].value == {37: 64, 73: 192, 77: 256}[n]
+    _, _, round2, _ = cholqr_pieces(lib)
+    rng = np.random.default_rng(n)
+    A = torch.as_tensor(rng.standard_normal((2, n + 40, n)),
+                        dtype=torch.float32)
+    A /= torch.linalg.vector_norm(A, dim=1, keepdim=True)
+    Li = cq.chol_linv_f32_reference(cq.gram_f32_reference(A)
+                                    + 1.5e-5 * torch.eye(n))
+    aQ = A.abs() @ Li.abs().transpose(1, 2)
+    err = (round2(A, Li) - cq.round2_gram_f32_reference(A, Li)).abs().max()
+    assert float(err / (aQ.transpose(1, 2) @ aQ).abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("n", [193, 241])
+def test_sne_solve_in_a_wide_class(emu, n):
+    """sne_solve stages a node's triangle in shared memory up to n = 240
+    (at n = 193, 150 KB: one warp a block) and past it (241) reads R from
+    device memory, one block a node: each against sne_solve_reference,
+    residual within 10x the plain version's, on a random b (one node:
+    the emulated 2n steps are slow under load)."""
+    lib = emu["qr"]
+    assert lib.sne_solve_path(n) == (2 if n <= 240 else 1)
+    B = 1
+    rng = np.random.default_rng(n)
+    A = torch.from_numpy(rng.standard_normal((B, n + 8, n)))
+    R = qr.qr_r_reference(A)
+    b = torch.from_numpy(rng.standard_normal((B, n)))
+    y, yp = emu_sne_solve(lib, R, b), qr.sne_solve_reference(R, b)
+    assert qr.sne_residual(R, y, b) <= 10 * qr.sne_residual(R, yp, b)
+
+
 @pytest.mark.parametrize("route", ["shard_geometry", "pallas"])
 def test_route_gives_the_same_weights_in_a_wide_class(emu, route):
     """One node of the Neumann class of a tetra_mesh(3), padded to

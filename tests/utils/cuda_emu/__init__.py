@@ -24,6 +24,8 @@ def to_cpp(text):
     text = re.sub(r"extern __shared__ __align__\(16\) ([\w ]+?) (\w+)\[\];",
                   r"\1* \2 = reinterpret_cast<\1*>(emu_smem);", text)
     text = text.replace("__shared__ ", "static ")
+    # the pipeline primitives are in the emulator's cuda_runtime.h
+    text = text.replace("#include <cuda_pipeline.h>\n", "")
     # kernel<<<...>>>(...), the kernel's template arguments included
     text = re.sub(r"(\w+(?:<[^<>;()]*>)?)<<<(.*?)>>>\((.*?)\);",
                   r"emu_launch(\1, \2, \3);", text, flags=re.S)

@@ -18,6 +18,7 @@
 #include <cstddef>
 #include <cstdio>
 #include <cstdlib>
+#include <cstring>
 #include <functional>
 #include <memory>
 #include <thread>
@@ -32,6 +33,7 @@
 #define __align__(x) alignas(x)
 
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
+struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 typedef int cudaError_t;
@@ -96,6 +98,15 @@ inline bool __any_sync(unsigned, bool pred) {
 }
 
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+
+// <cuda_pipeline.h>'s asynchronous copies, as plain synchronous copies:
+// a copy is complete when the call returns, so a missing wait does not
+// show here
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t bytes, size_t = 0) {
+  std::memcpy(dst, src, bytes);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
 using std::fmaf; using std::fmaxf; using std::sqrt; using std::fmax;
 using std::min; using std::max;
 
