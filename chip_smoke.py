@@ -34,9 +34,12 @@ all three:
      max|X W X^T - I| (<= 10x the plain version's) with the same flagged
      pivots; prints kernel, plain and one library call's times (CUDA
      events), and each kernel's registers, local (spill) bytes, shared
-     memory and blocks per SM per class; round2_gram's two bodies
-     (registers, shared memory) each held to the same bound and timed,
-     and the one its class takes;
+     memory and blocks per SM per class; the two bodies of gram,
+     round2_gram (registers, shared memory) and prec_apply (a warp a
+     node, shared memory) each held to the same bounds (prec_apply's on
+     both vectors) and timed, with each body's occupancy and the one its
+     class takes; the Gram products' two bodies give equal results, to
+     the bit;
      4d. qr_r and sne_solve vs their plain versions on one chunk of every
      class of the solver="pallas" route, on the inputs that route gives
      them: R of Ar = [A; diag(dead)] (qr_r takes A) by backward error
@@ -414,7 +417,7 @@ def cholqr_vs_plain(interp, tp):
         ref = cq.prec_apply_f32_reference(Lc, v_rand)
         prec_random = {"random_v_err_over_result": scaled_err(got, ref, ref),
                        "random_v_max_abs_err": float((got - ref).abs().max())}
-        del got, ref, v_rand
+        del got, ref
 
         def timed(row, kernel, plain, library, flops, nbytes):
             row["ms"] = cuda_ms(kernel, 5)
@@ -430,7 +433,9 @@ def cholqr_vs_plain(interp, tp):
         # residual input cancels: |Lc^T Lc v| << |Lc|^T |Lc| |v|; its
         # random input above is held to the result).  FLOPs count the
         # triangles the route's operands have: Li1 and Lc are lower
-        # triangular, a Gram matrix is symmetric.
+        # triangular, a Gram matrix is symmetric.  prec_apply's bytes count
+        # Lc's triangle, all its kernel reads; the Gram products write the
+        # full symmetric G that their contract returns.
         aAs, aLi1, aLc = As.abs(), Li1.abs(), Lc.abs()
         products = {
             "gram_f32": (lambda: cq.gram_f32(As),
@@ -454,7 +459,14 @@ def cholqr_vs_plain(interp, tp):
                                   torch.bmm(Lc, v[:, :, None])),
                 lambda: torch.bmm(aLc.transpose(1, 2),
                                   torch.bmm(aLc, v.abs()[:, :, None])),
-                2 * B * n * (n + 1), Lc.nbytes + 2 * v.nbytes)}
+                2 * B * n * (n + 1),
+                B * n * (n + 1) // 2 * 4 + 2 * v.nbytes)}
+        # each two-body kernel's inputs, and further inputs held to the
+        # result (prec_apply's random vector)
+        body_args = {"gram_f32": ((As,), ()),
+                     "round2_gram_f32": ((As, Li1), ()),
+                     "prec_apply_f32": ((Lc, v),
+                                        (("random_v", (Lc, v_rand)),))}
         occ = {k: cq.occupancy(k, n) for k in SOLVE_KERNELS}
         for name, (kernel, plain, library, magnitude, flops,
                    nbytes) in products.items():
@@ -471,8 +483,8 @@ def cholqr_vs_plain(interp, tp):
                              occupancy=occ[name], **extra),
                         kernel, plain, library, flops, nbytes)
             del got, ref
-            if name == "round2_gram_f32":
-                round2_bodies(row, As, Li1, magnitude, n)
+            if name in body_args:
+                kernel_bodies(name, row, *body_args[name], magnitude)
             print(f"# {name} " + json.dumps(row), flush=True)
             check(err <= TOL_F32, f"{name} kernel vs plain: error "
                                   f"{err:.3e} of the magnitude product > "
@@ -517,31 +529,52 @@ def cholqr_vs_plain(interp, tp):
                   f"chol_linv backward error {bk:.3e} > "
                   f"{CHOL_BACKWARD_RATIO} x plain {bp:.3e}: {row}")
             rows["chol_linv_f32"].append(row)
-        del pc, As, G1, Li1, G2, Lc, v, prec_random
+        del pc, As, G1, Li1, G2, Lc, v, v_rand, prec_random, body_args
     return classes, rows
 
 
-def round2_bodies(row, As, Li1, magnitude, n):
-    """Phase 4c for round2_gram_f32: the body its class takes, and each
-    body's error (held to TOL_F32 of the magnitude product, as the
-    default), time and launch on an SM."""
+# the bodies of the kernels that have two, by path=: the library's
+# <name>_path(n) gives the one a width takes; body 2 has a width limit
+BODIES = {"gram_f32": ((2, "register"), (1, "shared")),
+          "round2_gram_f32": ((2, "register"), (1, "shared")),
+          "prec_apply_f32": ((2, "warp"), (1, "shared"))}
+
+
+def kernel_bodies(name, row, args, extra_inputs, magnitude):
+    """Phase 4c for a kernel with two bodies: the body its class takes,
+    and each body's error on ``args`` (held to TOL_F32 of the magnitude
+    product, as the default), its error on each of ``extra_inputs`` (held
+    to TOL_F32 of the result), time and launch on an SM.  The Gram
+    products' bodies sum each entry in one order: their results must be
+    equal to the bit."""
     from ninpol_tpu_torch.ops import cholqr as cq
 
-    row["path"] = cq.library.get().round2_gram_f32_path(n)
-    mag = magnitude()
-    ref = cq.round2_gram_f32_reference(As, Li1)
-    for p, label in ((2, "register"), (1, "shared")):
-        if p == 2 and row["path"] != 2:    # no register body at this width
+    kernel, plain = getattr(cq, name), getattr(cq, f"{name}_reference")
+    n = args[0].shape[-1]
+    row["path"] = getattr(cq.library.get(), f"{name}_path")(n)
+    ref = plain(*args)
+    mag = magnitude().reshape(ref.shape)
+    outs = {}
+    for p, label in BODIES[name]:
+        if p == 2 and row["path"] != 2:    # no body 2 at this width
             continue
-        err = scaled_err(cq.round2_gram_f32(As, Li1, path=p), ref,
-                         mag.reshape(ref.shape))
+        outs[p] = kernel(*args, path=p)
+        err = scaled_err(outs[p], ref, mag)
         row[f"{label}_err_over_magnitude"] = err
-        row[f"{label}_ms"] = cuda_ms(lambda: cq.round2_gram_f32(As, Li1,
-                                                                path=p), 5)
-        row[f"{label}_occupancy"] = cq.occupancy("round2_gram_f32", n, p)
-        check(err <= TOL_F32, f"round2_gram_f32 {label} body: error "
-                              f"{err:.3e} of the magnitude product > "
-                              f"{TOL_F32}: {row}")
+        row[f"{label}_ms"] = cuda_ms(lambda: kernel(*args, path=p), 5)
+        row[f"{label}_occupancy"] = cq.occupancy(name, n, p)
+        check(err <= TOL_F32, f"{name} {label} body: error {err:.3e} of "
+                              f"the magnitude product > {TOL_F32}: {row}")
+        for key, inputs in extra_inputs:
+            r = plain(*inputs)
+            e = scaled_err(kernel(*inputs, path=p), r, r)
+            row[f"{label}_{key}_err_over_result"] = e
+            check(e <= TOL_F32, f"{name} {label} body on {key}: error "
+                                f"{e:.3e} of the result > {TOL_F32}: {row}")
+    if name != "prec_apply_f32" and len(outs) == 2:
+        row["bodies_equal"] = bool(torch.equal(outs[1], outs[2]))
+        check(row["bodies_equal"], f"{name}: the register and shared "
+                                   f"bodies differ: {row}")
 
 
 def qr_work(Ar):
@@ -832,7 +865,7 @@ def profile_main_path(interp, tp, label):
     stats = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
              "idle_share": 1.0 - busy_ms / (wall * 1e3),
              "top": [{"name": k[0][:80], "ms": k[1], "calls": k[2]}
-                     for k in kernels[:8]]}
+                     for k in kernels[:16]]}
     print(f"# profile {label} " + json.dumps(stats), flush=True)
     return stats
 

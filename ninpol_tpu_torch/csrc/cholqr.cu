@@ -6,16 +6,29 @@
  * float32 FMAs on the CUDA cores: no TF32 tensor-core path, because the
  * preconditioner relies on Gram products accurate to ~eps32.
  *
- * gram_kernel replaces ninpol_tpu/ops/pallas_chol.py::gram_f32
- *   (_gram_kernel): G = A^T A.  Bound by memory on an H100: an interior
- *   node (m = 132, n = 73) reads 38.5 KB and writes 21.3 KB for 0.71 MFLOP
- *   (12 FLOP/byte, under the ~20 FLOP/byte at which FP32 FMAs would
- *   bound it).  A is streamed through shared memory kRows rows at a time
- *   with coalesced loads, at a row stride padded to 4 floats; each thread
- *   owns 4 x 4 tiles of the upper triangle and accumulates a tile over a
- *   chunk in registers (8 shared-memory loads per 16 FMAs; one load per
- *   FMA would make shared memory the limit); the mirrored matrix is
- *   written once.
+ * gram_reg_kernel and gram_kernel replace
+ *   ninpol_tpu/ops/pallas_chol.py::gram_f32 (_gram_kernel): G = A^T A.
+ *   Bound by memory on an H100: an interior node (m = 132, n = 73) reads
+ *   38.5 KB and writes 21.3 KB for 0.71 MFLOP (12 FLOP/byte, under the
+ *   ~20 FLOP/byte at which FP32 FMAs would bound it).  Each thread owns
+ *   4 x 4 tiles of the upper triangle and sums a tile in registers (8
+ *   shared-memory loads per 16 FMAs; one load per FMA would make shared
+ *   memory the limit).
+ *   Up to n = 76 (the tet classes) gram_reg_kernel, round2_gram_reg_kernel's
+ *   Gram stage alone: one thread per upper tile (190 at n = 73, so 192
+ *   threads; 55 at n = 37, so 64), its 16 sums in registers for all of m,
+ *   so no Gram round trip through shared memory and nothing to zero; A
+ *   staged row-major at a row stride padded to 4 floats, kRows rows at a
+ *   time, by asynchronous copies into two buffers, so that chunk c + 1
+ *   arrives while chunk c is folded (one barrier a chunk); G leaves
+ *   through a symmetric tile in shared memory, row by row.  The limit is
+ *   the block: its launch bounds fit 192 threads, 19 x 19 tiles.  Each
+ *   entry sums its rows in order with FMAs, as gram_kernel does across
+ *   its chunks, so the two bodies' G are equal bit for bit.
+ *   Wider nodes (and the workspace) take gram_kernel: the Gram
+ *   accumulators in shared memory, A streamed through it kRows rows at a
+ *   time and folded by gram_accumulate; the mirrored matrix is written
+ *   once.
  *
  * round2_gram_reg_kernel and round2_gram_kernel replace
  *   pallas_chol.py::round2_gram_f32 (_round2_kernel): G = (A Li^T)^T
@@ -38,8 +51,8 @@
  *   Gram, so a thread reads its two rows of a column as one float2.  One
  *   buffer each for A^T and Q (two barriers a chunk) keeps the block at
  *   46.2 KB, four blocks an SM; G leaves through a symmetric tile in shared
- *   memory, row by row.  The sums run in the shared body's order, so G
- *   equals its G bit for bit.
+ *   memory, row by row (as gram_reg_kernel).  The sums run in the shared
+ *   body's order, so G equals its G bit for bit.
  *   Wider nodes take round2_gram_kernel: Li^T and the Gram accumulators in
  *   shared memory (or the workspace), kRows rows of Q at a time in 4 x 4
  *   register tiles over all of j, folded by gram_accumulate.
@@ -64,12 +77,23 @@
  *   the workspace), every thread a slice of one column's rows at each
  *   pivot: an FMA there costs two loads and a store.
  *
- * prec_apply_kernel replaces pallas_chol.py::prec_apply_f32
- *   (_prec_apply_kernel): o = Lc^T (Lc v).  Bound by memory (the factor
- *   is read once: 21.3 KB per node at n = 73 for 21.3 kFLOP).  Lc is
- *   staged in shared memory with coalesced loads, u = Lc v runs one warp
- *   per row with a shuffle reduction, and o = Lc^T u one thread per column
- *   over conflict-free shared-memory rows.
+ * prec_apply_warp_kernel and prec_apply_kernel replace
+ *   pallas_chol.py::prec_apply_f32 (_prec_apply_kernel): o = Lc^T (Lc v),
+ *   Lc lower triangular (the route's L2^-1 L1^-1): its upper triangle is
+ *   not read.  Bound by memory: the triangle is read once, 10.8 KB per
+ *   node at n = 73, for 10.8 kFMA.
+ *   Up to n = 128 prec_apply_warp_kernel: one warp a node, kApplyWarps a
+ *   block, no block barrier.  The warp stages its node's triangle, packed
+ *   row by row, and v in its slice of shared memory by asynchronous copies
+ *   issued back to back and waited once (at n = 73, 11.1 KB a node, so 20
+ *   nodes in flight an SM).  Lane l owns rows and columns l + 32 s.  u =
+ *   Lc v sums each lane's rows column by column: the lanes of a slot read
+ *   32 consecutive rows at one column, at offsets i (i + 1) / 2 + j,
+ *   which fall in 32 distinct banks.  o = Lc^T u hands u_i out by a
+ *   shuffle and sums each lane's columns of row i, consecutive entries.
+ *   Wider nodes (and the workspace) take prec_apply_kernel: the triangle
+ *   staged in shared memory (at stride n) by the block, u = Lc v one warp
+ *   a row with a shuffle reduction, o = Lc^T u one thread a column.
  *
  * The device code of these stages lives in cholqr_device.cuh, which the
  * fused solve (gls_solve.cu) runs too.  A node whose matrices do not fit
@@ -215,34 +239,42 @@ round2_gram_kernel(const float* __restrict__ A, const float* __restrict__ Li,
   store_symmetric(g, G + node * n * n, n, np);
 }
 
-// ---- round2_gram's register body (path 2)
+// ---- the register bodies of round2_gram and gram (path 2)
 //
 // One block a node, one thread per upper kTile x kTile tile of the Gram,
 // whose sums stay in that thread's registers across all of m.  Rows of A
-// arrive a chunk at a time, transposed (A^T, so a thread reads its two
-// rows of a column as one float2), by asynchronous copies that overlap
-// the Gram of the chunk before.  Q = A Li^T is formed a chunk at a time
-// on the triangle only: a Q tile at columns k0..k0+3 sums j <= k0 + 3,
-// since Li^T[j][k] = 0 for j > k; tile u is paired with tile nt - 1 - u,
-// so every thread's pair costs the same.  A^T and Q have one buffer each
-// (two barriers a chunk), so that four blocks share an SM.
-constexpr int kR2Threads = 192;   // the block's most threads: 190 upper tiles
-constexpr int kR2RegMax = 76;     // the widest n: 19 x 19 tiles
+// arrive a chunk at a time by asynchronous copies.  round2_gram's body
+// stages them transposed (A^T, so a thread reads its two rows of a column
+// as one float2) and overlaps them with the Gram of the chunk before.  Q =
+// A Li^T is formed a chunk at a time on the triangle only: a Q tile at
+// columns k0..k0+3 sums j <= k0 + 3, since Li^T[j][k] = 0 for j > k; tile
+// u is paired with tile nt - 1 - u, so every thread's pair costs the
+// same.  A^T and Q have one buffer each (two barriers a chunk), so that
+// four blocks share an SM.  gram's body folds rows of A as they are,
+// double-buffered.
+constexpr int kRegThreads = 192;   // the block's most threads: 190 upper tiles
+constexpr int kRegMax = 76;     // the widest n: 19 x 19 tiles
 
-__host__ __device__ inline int r2_tiles(int n) {
+__host__ __device__ inline int reg_tiles(int n) {
   const int nt = padded(n) / kTile;
   return nt * (nt + 1) / 2;
 }
-__host__ __device__ inline int r2_threads(int n) { return (r2_tiles(n) + 31) / 32 * 32; }
+__host__ __device__ inline int reg_threads(int n) { return (reg_tiles(n) + 31) / 32 * 32; }
 // Q's column units: tile u with tile nt - 1 - u (the middle tile alone
 // when nt is odd)
 __host__ __device__ inline int r2_units(int n) { return (padded(n) / kTile + 1) / 2; }
 // rows of A a chunk holds: a row pair a thread for every unit
-__host__ __device__ inline int r2_rows(int n) { return 2 * (r2_threads(n) / r2_units(n)); }
+__host__ __device__ inline int r2_rows(int n) { return 2 * (reg_threads(n) / r2_units(n)); }
 // Li^T (np x np), a chunk of A^T (np x rows) and one of Q (rows x np)
 __host__ __device__ inline long long r2_reg_floats(int n) {
   const long long np = padded(n);
   return np * np + 2 * np * r2_rows(n);
+}
+// gram's two buffers of kRows rows of A (np wide), or the Gram's
+// symmetric tile (np x np) that takes their place at the end
+__host__ __device__ inline long long gram_reg_floats(int n) {
+  const long long np = padded(n);
+  return 2 * kRows * np > np * np ? 2 * kRows * np : np * np;
 }
 
 // The (row, column) of a thread's elements idx = start, start + step, ...
@@ -260,6 +292,37 @@ struct Walk {
     }
   }
 };
+
+// Thread t < reg_tiles(n)'s Gram tile (ti, tj), ti <= tj, counted row by
+// row: its first row i0 and column j0.
+__device__ inline void upper_tile(int t, int nt, int& i0, int& j0) {
+  int ti = 0, rest = t;
+  while (rest >= nt - ti) {
+    rest -= nt - ti;
+    ++ti;
+  }
+  i0 = ti * kTile;
+  j0 = (ti + rest) * kTile;
+}
+
+// A thread's Gram tile (i0, j0) and its mirror into s (np x np; a
+// diagonal tile is symmetric to the bit: its two products take the same
+// operands), then, after a barrier, G (n x n) row by row.
+__device__ inline void store_gram(float* s, const float (&g)[kTile][kTile], bool owner, int i0,
+                                  int j0, int n, int np, float* Gb) {
+  if (owner) {
+#pragma unroll
+    for (int a = 0; a < kTile; ++a) {
+      *reinterpret_cast<float4*>(s + (i0 + a) * np + j0) =
+          make_float4(g[a][0], g[a][1], g[a][2], g[a][3]);
+      *reinterpret_cast<float4*>(s + (j0 + a) * np + i0) =
+          make_float4(g[0][a], g[1][a], g[2][a], g[3][a]);
+    }
+  }
+  __syncthreads();
+  Walk w(threadIdx.x, blockDim.x, n);
+  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x, w.next()) Gb[idx] = s[w.r * np + w.c];
+}
 
 // Rows [r0, r0 + rows) of the node's A into at as A^T (at[j * ld + r]),
 // one asynchronous 4-byte copy an element, reading A in order.
@@ -302,10 +365,10 @@ __device__ inline void r2_q_chunk(const float* at, const float* lit, float* q, i
   }
 }
 
-// g += the chunk's rows of Q^T Q on this thread's tile (i0, j0), rows in
-// order.
-__device__ inline void r2_gram_chunk(const float* q, int rows, int np, int i0, int j0,
-                                     float (&g)[kTile][kTile]) {
+// g += the chunk's rows of Q^T Q (Q: rows of A or of A Li^T, stride np)
+// on this thread's tile (i0, j0), rows in order.
+__device__ inline void gram_chunk(const float* q, int rows, int np, int i0, int j0,
+                                  float (&g)[kTile][kTile]) {
 #pragma unroll 4
   for (int r = 0; r < rows; ++r) {
     const float4 x4 = load4(q + r * np + i0), y4 = load4(q + r * np + j0);
@@ -318,7 +381,7 @@ __device__ inline void r2_gram_chunk(const float* q, int rows, int np, int i0, i
   }
 }
 
-__global__ void __launch_bounds__(kR2Threads, 4)
+__global__ void __launch_bounds__(kRegThreads, 4)
 round2_gram_reg_kernel(const float* __restrict__ A, const float* __restrict__ Li,
                        float* __restrict__ G, int m, int n) {
   extern __shared__ __align__(16) float smem[];
@@ -341,14 +404,9 @@ round2_gram_reg_kernel(const float* __restrict__ A, const float* __restrict__ Li
   }
   copy_rows_transposed(Ab, at, 0, min(ld, m), n, ld);
   __pipeline_commit();
-  // this thread's Gram tile (ti, tj), ti <= tj, row by row
-  const bool owner = t < r2_tiles(n);
-  int ti = 0, rest = t;
-  while (owner && rest >= nt - ti) {
-    rest -= nt - ti;
-    ++ti;
-  }
-  const int i0 = ti * kTile, j0 = (ti + rest) * kTile;
+  const bool owner = t < reg_tiles(n);
+  int i0 = 0, j0 = 0;
+  if (owner) upper_tile(t, nt, i0, j0);
   float g[kTile][kTile] = {};
   for (int r0 = 0; r0 < m; r0 += ld) {
     const int rows = min(ld, m - r0);
@@ -360,24 +418,53 @@ round2_gram_reg_kernel(const float* __restrict__ A, const float* __restrict__ Li
       copy_rows_transposed(Ab, at, r0 + ld, min(ld, m - r0 - ld), n, ld);
       __pipeline_commit();
     }
-    if (owner) r2_gram_chunk(q, rows, np, i0, j0, g);
+    if (owner) gram_chunk(q, rows, np, i0, j0, g);
   }
-  // the Gram's tile and its mirror into Li^T's place (a diagonal tile is
-  // symmetric to the bit: its two products take the same operands), then
-  // G row by row
-  if (owner) {
-#pragma unroll
-    for (int a = 0; a < kTile; ++a) {
-      *reinterpret_cast<float4*>(lit + (i0 + a) * np + j0) =
-          make_float4(g[a][0], g[a][1], g[a][2], g[a][3]);
-      *reinterpret_cast<float4*>(lit + (j0 + a) * np + i0) =
-          make_float4(g[0][a], g[1][a], g[2][a], g[3][a]);
+  // the Gram's tile and its mirror into Li^T's place, then G
+  store_gram(lit, g, owner, i0, j0, n, np, G + node * n * n);
+}
+
+// Rows [r0, r0 + rows) of the node's A into a (stride np), one
+// asynchronous 4-byte copy an element, reading A in order.
+__device__ inline void copy_rows(const float* Ab, float* a, int r0, int rows, int n, int np) {
+  const float* src = Ab + (long long)r0 * n;
+  Walk w(threadIdx.x, blockDim.x, n);
+  for (int idx = threadIdx.x; idx < rows * n; idx += blockDim.x, w.next())
+    __pipeline_memcpy_async(a + w.r * np + w.c, src + idx, sizeof(float));
+}
+
+// gram's register body: chunk c of kRows rows in buffer c % 2.  At the
+// top of chunk c one barrier both publishes its copies and frees the
+// other buffer, which then takes chunk c + 1 while c is folded.
+__global__ void __launch_bounds__(kRegThreads, 6)
+gram_reg_kernel(const float* __restrict__ A, float* __restrict__ G, int m, int n) {
+  extern __shared__ __align__(16) float smem[];
+  const int np = padded(n), nt = np / kTile, pad = np - n;
+  const int t = threadIdx.x;
+  const long long node = blockIdx.x;
+  const float* Ab = A + node * m * n;
+  // the buffers' pad columns, zero throughout (the copies never write them)
+  for (int idx = t; idx < 2 * kRows * pad; idx += blockDim.x)
+    smem[idx / pad * np + n + idx % pad] = 0.f;
+  copy_rows(Ab, smem, 0, min(kRows, m), n, np);
+  __pipeline_commit();
+  const bool owner = t < reg_tiles(n);
+  int i0 = 0, j0 = 0;
+  if (owner) upper_tile(t, nt, i0, j0);
+  float g[kTile][kTile] = {};
+  for (int r0 = 0, c = 0; r0 < m; r0 += kRows, ++c) {
+    float* a = smem + (c & 1) * kRows * np;
+    __pipeline_wait_prior(0);
+    __syncthreads();   // chunk c staged, chunk c - 1 folded
+    if (r0 + kRows < m) {
+      copy_rows(Ab, smem + ((c + 1) & 1) * kRows * np, r0 + kRows, min(kRows, m - r0 - kRows),
+                n, np);
+      __pipeline_commit();
     }
+    if (owner) gram_chunk(a, min(kRows, m - r0), np, i0, j0, g);
   }
-  __syncthreads();
-  float* Gb = G + node * n * n;
-  Walk w(t, blockDim.x, n);
-  for (int idx = t; idx < n * n; idx += blockDim.x, w.next()) Gb[idx] = lit[w.r * np + w.c];
+  __syncthreads();   // every chunk folded: the buffers take the Gram's tile
+  store_gram(smem, g, owner, i0, j0, n, np, G + node * n * n);
 }
 
 template <bool kWs>
@@ -499,6 +586,9 @@ chol_linv_reg_kernel(const float* __restrict__ G, const float* __restrict__ P,
     }
 }
 
+// prec_apply's shared body: Lc's lower triangle (at stride n; the upper
+// triangle is neither read nor written) and v, then u = Lc v and Lc^T u
+// on the triangle.
 template <bool kWs>
 __global__ void __launch_bounds__(kApplyThreads)
 prec_apply_kernel(const float* __restrict__ Lc, const float* __restrict__ v,
@@ -508,17 +598,122 @@ prec_apply_kernel(const float* __restrict__ Lc, const float* __restrict__ v,
   float* vs = l + n * n;      // n
   float* u = vs + n;          // n
   const long long node = blockIdx.x;
-  load(Lc + node * n * n, l, n * n);
+  const float* Lb = Lc + node * n * n;
+  Walk w(threadIdx.x, blockDim.x, n);
+  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x, w.next())
+    if (w.c <= w.r) l[idx] = Lb[idx];
   load(v + node * n, vs, n);
   __syncthreads();
-  rows_times(l, n, vs, u, n, false);
+  rows_times(l, n, vs, u, n, true);
   __syncthreads();
   for (int j = threadIdx.x; j < n; j += kApplyThreads)
-    out[node * n + j] = col_times(l, n, u, j, n, false);
+    out[node * n + j] = col_times(l, n, u, j, n, true);
+}
+
+// ---- prec_apply's warp body (path 2)
+//
+// One warp a node, kApplyWarps nodes a block, and no block barrier.  The
+// warp's slice of shared memory holds its node's lower triangle, row i's
+// first i + 1 entries packed from i (i + 1) / 2 on, then v; both arrive by
+// asynchronous copies, issued back to back and waited once.  The lanes
+// walk the packed entries in order, 32 a copy (coalesced; row by row,
+// the short rows' copies were partly idle and measured slower).  Lane l
+// owns rows (for u) and columns (for o) l + 32 s, s < kS, in registers
+// whose slot is known at compile time: the loops over slots are
+// unrolled, and only the step within a slot's 32 rows or columns is a
+// runtime loop.
+constexpr int kApplyWarps = 4;
+constexpr int kApplyMaxSlots = 4;   // the widest n: 128, 33.5 KB a warp
+
+__host__ __device__ inline long long tri_floats(int n) { return (long long)n * (n + 1) / 2; }
+// a warp's slice: the packed triangle and v, rounded up to whole tiles
+__host__ __device__ inline long long apply_warp_floats(int n) {
+  return round_tile(tri_floats(n) + n);
+}
+
+template <int kS>
+__global__ void __launch_bounds__(32 * kApplyWarps)
+prec_apply_warp_kernel(const float* __restrict__ Lc, const float* __restrict__ v,
+                       float* __restrict__ out, int B, int n) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const long long node = (long long)blockIdx.x * (blockDim.x / 32) + warp;
+  if (node >= B) return;   // the ragged last block: no block barrier follows
+  float* tri = smem + warp * apply_warp_floats(n);
+  float* vs = tri + tri_floats(n);
+  const float* Lb = Lc + node * n * n;
+  {
+    const int count = (int)tri_floats(n);
+    int i = 0, j = lane;   // entry p = lane of the packed triangle
+    while (j > i) j -= ++i;
+    for (int p = lane; p < count; p += 32) {
+      __pipeline_memcpy_async(tri + p, Lb + (long long)i * n + j, sizeof(float));
+      j += 32;
+      while (j > i) j -= ++i;
+    }
+  }
+  for (int j = lane; j < n; j += 32) __pipeline_memcpy_async(vs + j, v + node * n + j, sizeof(float));
+  __pipeline_commit();
+  int roff[kS];   // where this lane's row i = lane + 32 s starts
+#pragma unroll
+  for (int s = 0; s < kS; ++s) {
+    const int i = lane + 32 * s;
+    roff[s] = i * (i + 1) / 2;
+  }
+  __pipeline_wait_prior(0);
+  __syncwarp();
+  // u = Lc v, each lane's rows, j in order: at column j the lanes of slot
+  // s read rows 32 s .. 32 s + 31, whose offsets i (i + 1) / 2 + j are
+  // distinct mod 32 (so are the triangular numbers of any 32 consecutive
+  // rows from a multiple of 32): no bank conflict
+  float u[kS] = {};
+#pragma unroll
+  for (int r = 0; r < kS; ++r) {
+    const int jend = min(32, n - 32 * r);
+    for (int jj = 0; jj < jend; ++jj) {
+      const int j = 32 * r + jj;
+      const float vj = vs[j];
+#pragma unroll
+      for (int s = r; s < kS; ++s)
+        if (lane + 32 * s < n && (s > r || lane >= jj))
+          u[s] = fmaf(tri[roff[s] + j], vj, u[s]);
+    }
+  }
+  // o = Lc^T u: u_i from its owner by a shuffle, each lane's columns of
+  // row i (consecutive entries across the lanes), i in order
+  float o[kS] = {};
+#pragma unroll
+  for (int r = 0; r < kS; ++r) {
+    const int iend = min(32, n - 32 * r);
+    for (int ii = 0; ii < iend; ++ii) {
+      const int i = 32 * r + ii;
+      const float ui = __shfl_sync(0xffffffffu, u[r], ii);
+      const float* row = tri + i * (i + 1) / 2;
+#pragma unroll
+      for (int s = 0; s <= r; ++s)
+        if (s < r || lane <= ii) o[s] = fmaf(row[lane + 32 * s], ui, o[s]);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kS; ++s)
+    if (lane + 32 * s < n) out[node * n + lane + 32 * s] = o[s];
+}
+
+using ApplyWarpKernel = void (*)(const float*, const float*, float*, int, int);
+
+// The warp body's instance for n: kS = ceil(n / 32) slots a lane.
+ApplyWarpKernel apply_warp_kernel(int n) {
+  switch ((n + 31) / 32) {
+    case 1: return prec_apply_warp_kernel<1>;
+    case 2: return prec_apply_warp_kernel<2>;
+    case 3: return prec_apply_warp_kernel<3>;
+    case 4: return prec_apply_warp_kernel<4>;
+    default: return nullptr;
+  }
 }
 
 // The four kernels, by their ids in cholqr_occupancy: a kernel's threads
-// and its node's floats.
+// and its node's floats (a block's, for prec_apply's warp body).
 enum Kernel { kGram = 0, kRound2 = 1, kCholLinv = 2, kApply = 3 };
 
 struct Launch {
@@ -527,40 +722,49 @@ struct Launch {
   long long floats;
 };
 
-// round2_gram's bodies: 2, the register body, up to n = kR2RegMax; else
-// 1, the shared-memory body (on the workspace when `ws`).
-int round2_path(int n) { return n <= kR2RegMax ? 2 : 1; }
-
-Launch round2_launch(int n, int path, bool ws) {
-  if (path == 2) {
-    if (ws || n > kR2RegMax) return {nullptr, 0, 0};
-    return {(const void*)round2_gram_reg_kernel, r2_threads(n), r2_reg_floats(n)};
-  }
-  return {ws ? (const void*)round2_gram_kernel<true> : (const void*)round2_gram_kernel<false>,
-          kThreads, round2_floats(n)};
+// The body gram, round2_gram or prec_apply takes by default at width n:
+// 2, the register (gram, round2_gram: n <= kRegMax) or warp
+// (prec_apply: n <= 32 kApplyMaxSlots) body; else 1, the shared-memory
+// body (on the workspace when the node does not fit).
+int default_path(int kernel, int n) {
+  const int widest = kernel == kApply ? 32 * kApplyMaxSlots : kRegMax;
+  return n <= widest ? 2 : 1;
 }
 
-// The kernel of a launch: chol_linv's and round2_gram's register bodies
-// where they hold the node, else the shared-memory body, on the
-// workspace when `ws`.
-Launch launch_of(int kernel, int n, bool ws) {
+// Body `path` (1 or 2) of gram, round2_gram or prec_apply at width n;
+// path 2 has no workspace instance.
+Launch body_launch(int kernel, int n, int path, bool ws) {
+  if (path == 2 && (ws || default_path(kernel, n) != 2)) return {nullptr, 0, 0};
   switch (kernel) {
     case kGram:
+      if (path == 2) return {(const void*)gram_reg_kernel, reg_threads(n), gram_reg_floats(n)};
       return {ws ? (const void*)gram_kernel<true> : (const void*)gram_kernel<false>, kThreads,
               gram_floats(n)};
-    case kRound2: return round2_launch(n, round2_path(n), ws);
-    case kCholLinv:
-      if (!ws && n <= kCholRegMax)
-        return {n <= 3 * kGrid ? (const void*)chol_linv_reg_kernel<3>
-                               : (const void*)chol_linv_reg_kernel<5>,
-                kGrid * kGrid, 0};
-      return {ws ? (const void*)chol_linv_kernel<true> : (const void*)chol_linv_kernel<false>,
-              kThreads, chol_floats(n)};
+    case kRound2:
+      if (path == 2)
+        return {(const void*)round2_gram_reg_kernel, reg_threads(n), r2_reg_floats(n)};
+      return {ws ? (const void*)round2_gram_kernel<true> : (const void*)round2_gram_kernel<false>,
+              kThreads, round2_floats(n)};
     case kApply:
+      if (path == 2)
+        return {(const void*)apply_warp_kernel(n), 32 * kApplyWarps,
+                kApplyWarps * apply_warp_floats(n)};
       return {ws ? (const void*)prec_apply_kernel<true> : (const void*)prec_apply_kernel<false>,
               kApplyThreads, apply_floats(n)};
     default: return {nullptr, 0, 0};
   }
+}
+
+// The kernel of a launch: each kernel's default body (chol_linv's
+// register body up to n = kCholRegMax), on the workspace when `ws`.
+Launch launch_of(int kernel, int n, bool ws) {
+  if (kernel != kCholLinv) return body_launch(kernel, n, ws ? 1 : default_path(kernel, n), ws);
+  if (!ws && n <= kCholRegMax)
+    return {n <= 3 * kGrid ? (const void*)chol_linv_reg_kernel<3>
+                           : (const void*)chol_linv_reg_kernel<5>,
+            kGrid * kGrid, 0};
+  return {ws ? (const void*)chol_linv_kernel<true> : (const void*)chol_linv_kernel<false>,
+          kThreads, chol_floats(n)};
 }
 
 bool fits(long long floats) {
@@ -604,6 +808,17 @@ int occupancy_of(const Launch& l, bool ws, long long* smem_bytes, int* threads,
                                                             l.threads, bytes);
 }
 
+// As cholqr_occupancy, for body `path` (0: the default) of gram,
+// round2_gram or prec_apply at width n.
+int path_occupancy(int kernel, int n, int path, long long* smem_bytes, int* threads,
+                   int* blocks_per_sm, int* regs, long long* local_bytes) {
+  if (n <= 0 || path < 0 || path > 2) return (int)cudaErrorInvalidValue;
+  if (path == 0) path = default_path(kernel, n);
+  const bool ws = path == 1 && workspace_floats(kernel, n) > 0;
+  return occupancy_of(body_launch(kernel, n, path, ws), ws, smem_bytes, threads, blocks_per_sm,
+                      regs, local_bytes);
+}
+
 }  // namespace
 
 extern "C" long long gram_f32_workspace_floats(int n) { return workspace_floats(kGram, n); }
@@ -628,55 +843,72 @@ extern "C" int cholqr_occupancy(int kernel, int n, long long* smem_bytes, int* t
                       local_bytes);
 }
 
+// The body gram, round2_gram or prec_apply (kernel id 0, 1, 3) takes by
+// default at width n: 2, the register or warp body (n <= 76 for gram and
+// round2_gram, n <= 128 for prec_apply); else 1, the shared-memory body.
+extern "C" int gram_f32_path(int n) { return default_path(kGram, n); }
+extern "C" int round2_gram_f32_path(int n) { return default_path(kRound2, n); }
+extern "C" int prec_apply_f32_path(int n) { return default_path(kApply, n); }
+
+extern "C" int gram_f32_occupancy(int n, int path, long long* smem_bytes, int* threads,
+                                  int* blocks_per_sm, int* regs, long long* local_bytes) {
+  return path_occupancy(kGram, n, path, smem_bytes, threads, blocks_per_sm, regs, local_bytes);
+}
+extern "C" int round2_gram_f32_occupancy(int n, int path, long long* smem_bytes,
+                                         int* threads, int* blocks_per_sm, int* regs,
+                                         long long* local_bytes) {
+  return path_occupancy(kRound2, n, path, smem_bytes, threads, blocks_per_sm, regs,
+                        local_bytes);
+}
+extern "C" int prec_apply_f32_occupancy(int n, int path, long long* smem_bytes, int* threads,
+                                        int* blocks_per_sm, int* regs, long long* local_bytes) {
+  return path_occupancy(kApply, n, path, smem_bytes, threads, blocks_per_sm, regs, local_bytes);
+}
+
 // Each launch takes ws, a workspace of its kernel's *_workspace_floats(n)
-// floats a node, or null to keep the node in shared memory.
-extern "C" int gram_f32_launch(const float* A, float* G, float* ws, int B, int m, int n,
-                               void* stream) {
-  if (B <= 0 || m <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+// floats a node, or null to keep the node in shared memory.  A *_path_launch
+// takes body `path`: 0 the default (1 when ws is not null), 1 shared memory
+// (on ws when not null), 2 the register or warp body (ws null).
+
+// G = A^T A.
+extern "C" int gram_f32_path_launch(const float* A, float* G, float* ws, int B, int m, int n,
+                                    int path, void* stream) {
+  if (B <= 0 || m <= 0 || n <= 0 || path < 0 || path > 2) return (int)cudaErrorInvalidValue;
+  if (path == 0) path = ws ? 1 : default_path(kGram, n);
+  const Launch l = body_launch(kGram, n, path, ws != nullptr);
   size_t bytes = 0;
-  cudaError_t err = prepare(launch_of(kGram, n, ws != nullptr), ws != nullptr, &bytes);
+  cudaError_t err = prepare(l, ws != nullptr, &bytes);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (ws) gram_kernel<true><<<B, kThreads, bytes, s>>>(A, G, ws, m, n);
+  if (path == 2) gram_reg_kernel<<<B, l.threads, bytes, s>>>(A, G, m, n);
+  else if (ws) gram_kernel<true><<<B, kThreads, bytes, s>>>(A, G, ws, m, n);
   else gram_kernel<false><<<B, kThreads, bytes, s>>>(A, G, ws, m, n);
   return (int)cudaGetLastError();
 }
 
-// The body round2_gram takes by default at width n: 2, the register
-// body (n <= 76); else 1, the shared-memory body.
-extern "C" int round2_gram_f32_path(int n) { return round2_path(n); }
-
-// As cholqr_occupancy, for round2_gram's body `path` (0: the default) at
-// width n.
-extern "C" int round2_gram_f32_occupancy(int n, int path, long long* smem_bytes,
-                                         int* threads, int* blocks_per_sm, int* regs,
-                                         long long* local_bytes) {
-  if (n <= 0 || path < 0 || path > 2) return (int)cudaErrorInvalidValue;
-  if (path == 0) path = round2_path(n);
-  const bool ws = path == 1 && workspace_floats(kRound2, n) > 0;
-  return occupancy_of(round2_launch(n, path, ws), ws, smem_bytes, threads, blocks_per_sm,
-                      regs, local_bytes);
+extern "C" int gram_f32_launch(const float* A, float* G, float* ws, int B, int m, int n,
+                               void* stream) {
+  return gram_f32_path_launch(A, G, ws, B, m, n, 0, stream);
 }
 
-// G = (A Li^T)^T (A Li^T) by body `path` (0: the default, 1: shared
-// memory, on ws when not null, 2: registers, ws null).  Li is read as
-// lower triangular: the register body does not read its upper triangle.
+// G = (A Li^T)^T (A Li^T).  Li is read as lower triangular: the register
+// body does not read its upper triangle.
 extern "C" int round2_gram_f32_path_launch(const float* A, const float* Li, float* G,
                                            float* ws, int B, int m, int n, int path,
                                            void* stream) {
   if (B <= 0 || m <= 0 || n <= 0 || path < 0 || path > 2) return (int)cudaErrorInvalidValue;
-  if (path == 0) path = ws ? 1 : round2_path(n);
+  if (path == 0) path = ws ? 1 : default_path(kRound2, n);
+  const Launch l = body_launch(kRound2, n, path, ws != nullptr);
   size_t bytes = 0;
-  cudaError_t err = prepare(round2_launch(n, path, ws != nullptr), ws != nullptr, &bytes);
+  cudaError_t err = prepare(l, ws != nullptr, &bytes);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (path == 2) round2_gram_reg_kernel<<<B, r2_threads(n), bytes, s>>>(A, Li, G, m, n);
+  if (path == 2) round2_gram_reg_kernel<<<B, l.threads, bytes, s>>>(A, Li, G, m, n);
   else if (ws) round2_gram_kernel<true><<<B, kThreads, bytes, s>>>(A, Li, G, ws, m, n);
   else round2_gram_kernel<false><<<B, kThreads, bytes, s>>>(A, Li, G, ws, m, n);
   return (int)cudaGetLastError();
 }
 
-// round2_gram by its default body.
 extern "C" int round2_gram_f32_launch(const float* A, const float* Li, float* G,
                                       float* ws, int B, int m, int n, void* stream) {
   return round2_gram_f32_path_launch(A, Li, G, ws, B, m, n, 0, stream);
@@ -700,14 +932,30 @@ extern "C" int chol_linv_f32_launch(const float* G, const float* P, float* out,
   return (int)cudaGetLastError();
 }
 
-extern "C" int prec_apply_f32_launch(const float* Lc, const float* v, float* out,
-                                     float* ws, int B, int n, void* stream) {
-  if (B <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+// o = Lc^T (Lc v).  Lc is read as lower triangular: no body reads its
+// upper triangle.
+extern "C" int prec_apply_f32_path_launch(const float* Lc, const float* v, float* out,
+                                          float* ws, int B, int n, int path, void* stream) {
+  if (B <= 0 || n <= 0 || path < 0 || path > 2) return (int)cudaErrorInvalidValue;
+  if (path == 0) path = ws ? 1 : default_path(kApply, n);
+  const Launch l = body_launch(kApply, n, path, ws != nullptr);
   size_t bytes = 0;
-  cudaError_t err = prepare(launch_of(kApply, n, ws != nullptr), ws != nullptr, &bytes);
+  cudaError_t err = prepare(l, ws != nullptr, &bytes);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (ws) prec_apply_kernel<true><<<B, kApplyThreads, bytes, s>>>(Lc, v, out, ws, n);
-  else prec_apply_kernel<false><<<B, kApplyThreads, bytes, s>>>(Lc, v, out, ws, n);
+  if (path == 2) {
+    const int warps = l.threads / 32;
+    const ApplyWarpKernel kernel = apply_warp_kernel(n);
+    kernel<<<(B + warps - 1) / warps, l.threads, bytes, s>>>(Lc, v, out, B, n);
+  } else if (ws) {
+    prec_apply_kernel<true><<<B, kApplyThreads, bytes, s>>>(Lc, v, out, ws, n);
+  } else {
+    prec_apply_kernel<false><<<B, kApplyThreads, bytes, s>>>(Lc, v, out, ws, n);
+  }
   return (int)cudaGetLastError();
+}
+
+extern "C" int prec_apply_f32_launch(const float* Lc, const float* v, float* out,
+                                     float* ws, int B, int n, void* stream) {
+  return prec_apply_f32_path_launch(Lc, v, out, ws, B, n, 0, stream);
 }

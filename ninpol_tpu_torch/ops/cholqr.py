@@ -13,20 +13,28 @@ ninpol_tpu's unfused GLS route composes (its gls.py:602-658):
   round2_gram_f32(A, Li)            (B,m,n), (B,n,n) -> (B,n,n)
         (A Li^T)^T (A Li^T), without Q = A Li^T leaving the kernel
   prec_apply_f32(Lc, v)             (B,n,n), (B,n) -> (B,n)   Lc^T (Lc v)
+        Lc lower triangular (the route's L2^-1 L1^-1)
 
 All float32 (FP32 FMAs, never TF32: the preconditioner relies on Gram
 products accurate to ~eps32), natural (node, row, column) layout, any B.
 Each wrapper runs its plain version for CPU tensors and launches its
 kernel in ``csrc/cholqr.cu`` (built with nvcc on first use) for CUDA
 tensors, or raises; ``<wrapper>.launches`` counts kernel launches.  The
-kernels stage a node's matrices in shared memory (round2_gram_f32 and
-chol_linv_f32 keep them in registers up to n = 76 and 80); past n ~152
-(round2_gram_f32), ~170 (chol_linv_f32), ~226 (gram_f32) or ~240
-(prec_apply_f32) the same code runs on a per-node workspace in device
-memory, which the wrapper allocates (``<name>_workspace_floats(n)`` in
-the library gives its size, 0 where the node fits).  chol_linv_f32 reads
-``mul_right`` and round2_gram_f32 reads ``Li`` as lower triangular, as
-the route's (L1^-1) is.
+kernels stage a node's matrices in shared memory; gram_f32,
+round2_gram_f32 and chol_linv_f32 keep their sums in registers up to
+n = 76, 76 and 80, and prec_apply_f32 runs a warp a node up to n = 128.
+gram_f32, round2_gram_f32 and prec_apply_f32 take ``path=`` to pick a
+body (0 the default, which ``<name>_path(n)`` in the library gives; 1
+shared memory; 2 the register or warp body), and ``occupancy(name, n,
+path)`` gives a body's launch on an SM.  Past n ~152 (round2_gram_f32),
+~170 (chol_linv_f32), ~226 (gram_f32) or ~240 (prec_apply_f32) the
+shared-memory body runs on a per-node workspace in device memory, which
+the wrapper allocates (``<name>_workspace_floats(n)`` in the library
+gives its size, 0 where the node fits).  chol_linv_f32 reads
+``mul_right``, round2_gram_f32 ``Li`` and prec_apply_f32 ``Lc`` as lower
+triangular, as the route's (L1^-1, L2^-1 L1^-1) are: no body of
+prec_apply_f32 reads Lc's upper triangle, while the plain version reads
+all of it, so the two agree wherever Lc is lower triangular.
 
 ``cholqr_factors`` composes the four into the preconditioner, from the
 wrappers (``KERNELS``) or from the plain versions (``PLAIN``).
@@ -91,6 +99,10 @@ def prec_apply_f32_reference(Lc, v):
 # ---------------------------------------------------------------------------
 # CUDA kernels: build, bind, launch
 # ---------------------------------------------------------------------------
+# the kernels with two bodies, chosen by ``path=``
+_PATHS = ("gram_f32", "round2_gram_f32", "prec_apply_f32")
+
+
 def _bind(lib):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.c_longlong
@@ -107,15 +119,20 @@ def _bind(lib):
         ci, ci, ctypes.POINTER(ll), ctypes.POINTER(ci), ctypes.POINTER(ci),
         ctypes.POINTER(ci), ctypes.POINTER(ll)]
     lib.cholqr_occupancy.restype = ci
-    lib.round2_gram_f32_path.argtypes = [ci]
-    lib.round2_gram_f32_path.restype = ci
-    lib.round2_gram_f32_occupancy.argtypes = [
-        ci, ci, ctypes.POINTER(ll), ctypes.POINTER(ci), ctypes.POINTER(ci),
-        ctypes.POINTER(ci), ctypes.POINTER(ll)]
-    lib.round2_gram_f32_occupancy.restype = ci
+    lib.gram_f32_path_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
     lib.round2_gram_f32_path_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci,
                                                 ci, vp]
-    lib.round2_gram_f32_path_launch.restype = ci
+    lib.prec_apply_f32_path_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci,
+                                               vp]
+    for name in _PATHS:
+        getattr(lib, f"{name}_path_launch").restype = ci
+        f = getattr(lib, f"{name}_path")
+        f.argtypes, f.restype = [ci], ci
+        f = getattr(lib, f"{name}_occupancy")
+        f.argtypes = [ci, ci, ctypes.POINTER(ll), ctypes.POINTER(ci),
+                      ctypes.POINTER(ci), ctypes.POINTER(ci),
+                      ctypes.POINTER(ll)]
+        f.restype = ci
 
 
 library = CudaLibrary("cholqr", _bind)
@@ -145,27 +162,26 @@ def _workspace(lib, name, B, n, device):
         else None
 
 
-# the kernels' ids in the library's cholqr_occupancy
-_KERNEL_IDS = {"gram_f32": 0, "round2_gram_f32": 1, "chol_linv_f32": 2,
-               "prec_apply_f32": 3}
-
-
 def occupancy(name, n, path=0):
     """The launch of kernel ``name`` at width n on the current card
-    (``cuda_lib.occupancy``); for round2_gram_f32, of its body ``path``
-    (0: the default)."""
+    (``cuda_lib.occupancy``); for gram_f32, round2_gram_f32 and
+    prec_apply_f32, of their body ``path`` (0: the default)."""
     lib = library.get()
-    if name == "round2_gram_f32":
-        return cuda_lib.occupancy(lib.round2_gram_f32_occupancy,
+    if name in _PATHS:
+        return cuda_lib.occupancy(getattr(lib, f"{name}_occupancy"),
                                   f"{name} occupancy query (n={n}, "
                                   f"path={path})", n, path)
+    if name != "chol_linv_f32":
+        raise ValueError(f"no cholqr kernel named {name!r}")
+    # chol_linv's id in the library's cholqr_occupancy is 2
     return cuda_lib.occupancy(lib.cholqr_occupancy,
-                              f"{name} occupancy query (n={n})",
-                              _KERNEL_IDS[name], n)
+                              f"{name} occupancy query (n={n})", 2, n)
 
 
-def gram_f32(A):
-    """(B, m, n) float32 -> (B, n, n) Gram matrices A_b^T A_b."""
+def gram_f32(A, path=0):
+    """(B, m, n) float32 -> (B, n, n) Gram matrices A_b^T A_b.  ``path``
+    picks the kernel's body: 0 the default, 1 shared memory (or the
+    workspace), 2 registers (raises past n = 76)."""
     B, m, n = _shape("A", A, 3)
     check_tensor("A", A, (B, m, n), _F32, A.device)
     if not on_card(A, "gram_f32"):
@@ -173,9 +189,11 @@ def gram_f32(A):
     out = torch.empty((B, n, n), dtype=_F32, device=A.device)
     if B:
         lib = library.get()
-        _launch(gram_f32, f"gram_f32 (B={B}, m={m}, n={n})",
-                lib.gram_f32_launch, A, out,
-                _workspace(lib, "gram_f32", B, n, A.device), B, m, n)
+        path = path or lib.gram_f32_path(n)
+        ws = _workspace(lib, "gram_f32", B, n, A.device) if path == 1 \
+            else None
+        _launch(gram_f32, f"gram_f32 (B={B}, m={m}, n={n}, path={path})",
+                lib.gram_f32_path_launch, A, out, ws, B, m, n, path)
     return out
 
 
@@ -223,8 +241,11 @@ def round2_gram_f32(A, Li, path=0):
     return out
 
 
-def prec_apply_f32(Lc, v):
-    """(B, n, n), (B, n) float32 -> Lc^T (Lc v), (B, n)."""
+def prec_apply_f32(Lc, v, path=0):
+    """(B, n, n) lower-triangular, (B, n) float32 -> Lc^T (Lc v), (B, n);
+    the kernel does not read Lc's upper triangle.  ``path`` picks the
+    kernel's body: 0 the default, 1 a block a node in shared memory (or
+    the workspace), 2 a warp a node (raises past n = 128)."""
     B, n, _ = _shape("Lc", Lc, 3)
     check_tensor("Lc", Lc, (B, n, n), _F32, Lc.device)
     check_tensor("v", v, (B, n), _F32, Lc.device)
@@ -233,9 +254,12 @@ def prec_apply_f32(Lc, v):
     out = torch.empty((B, n), dtype=_F32, device=Lc.device)
     if B:
         lib = library.get()
-        _launch(prec_apply_f32, f"prec_apply_f32 (B={B}, n={n})",
-                lib.prec_apply_f32_launch, Lc, v, out,
-                _workspace(lib, "prec_apply_f32", B, n, Lc.device), B, n)
+        path = path or lib.prec_apply_f32_path(n)
+        ws = _workspace(lib, "prec_apply_f32", B, n, Lc.device) \
+            if path == 1 else None
+        _launch(prec_apply_f32, f"prec_apply_f32 (B={B}, n={n}, "
+                                f"path={path})",
+                lib.prec_apply_f32_path_launch, Lc, v, out, ws, B, n, path)
     return out
 
 

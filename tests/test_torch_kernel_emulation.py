@@ -45,16 +45,21 @@ def _scaled(got, ref, scale):
     pytest.param(k, 48, 29, id=k)
     for k in ("gram_f32", "chol_linv_f32", "chol_linv_f32_mul_right",
               "round2_gram_f32", "prec_apply_f32")] + [
-    # round2_gram_f32 at the tet classes' (m, n): (12, 24) and (24, 36)
-    pytest.param("round2_gram_f32", 108, 37, id="round2_gram_f32-108x37"),
-    pytest.param("round2_gram_f32", 132, 73, id="round2_gram_f32-132x73")])
+    # the Gram products and prec_apply at the tet classes' (m, n):
+    # (12, 24) and (24, 36)
+    pytest.param(k, m, n, id=f"{k}-{m}x{n}")
+    for k in ("gram_f32", "round2_gram_f32", "prec_apply_f32")
+    for m, n in ((108, 37), (132, 73))])
 def test_cholqr_kernel_matches_plain_version(emu, kernel, m, n):
     """Each unfused preconditioner kernel on a random, well-conditioned
-    chunk (n = 29: a row stride padded to 32; round2_gram_f32 also at the
-    route's classes), against its plain version: the products to TOL_F32
-    of the operands' magnitude product, the inverse factors to 1e-4 of
-    the factor.  round2_gram_f32's default body (registers, to n = 76)
-    gives the shared-memory body's G bit for bit: both sum in one order."""
+    chunk (n = 29: a row stride padded to 32; the Gram products and
+    prec_apply also at the route's classes), against its plain version:
+    the products to TOL_F32 of the operands' magnitude product, the
+    inverse factors to 1e-4 of the factor.  The default bodies of
+    gram_f32 and round2_gram_f32 (registers, to n = 76) give the
+    shared-memory bodies' G bit for bit: both sum in one order.  Both
+    bodies of prec_apply_f32 (a warp a node, to n = 128; a block a node)
+    are held to the plain version."""
     lib = emu["cholqr"]
     B = 3
     rng = np.random.default_rng(0)
@@ -68,6 +73,10 @@ def test_cholqr_kernel_matches_plain_version(emu, kernel, m, n):
     if kernel == "gram_f32":
         _call(lib.gram_f32_launch, A, out, None, B, m, n)
         assert _scaled(out, G, A.abs().transpose(1, 2) @ A.abs()) < TOL_F32
+        assert lib.gram_f32_path(n) == 2
+        shared = torch.empty_like(out)
+        _call(lib.gram_f32_path_launch, A, shared, None, B, m, n, 1)
+        assert torch.equal(out, shared)
     elif kernel == "chol_linv_f32":
         _call(lib.chol_linv_f32_launch, G, None, out, None, B, n, 1e-12)
         assert _scaled(out, Li, Li) < 1e-4
@@ -84,12 +93,40 @@ def test_cholqr_kernel_matches_plain_version(emu, kernel, m, n):
               1)
         assert torch.equal(out, shared)
     else:
-        o = torch.empty((B, n), dtype=torch.float32)
-        _call(lib.prec_apply_f32_launch, Lc, v, o, None, B, n)
+        assert lib.prec_apply_f32_path(n) == 2
         ref = cq.prec_apply_f32_reference(Lc, v)
         mag = torch.einsum("bij,bi->bj", Lc.abs(),
                            torch.einsum("bij,bj->bi", Lc.abs(), v.abs()))
-        assert _scaled(o, ref, mag) < TOL_F32
+        for path in (0, 1, 2):
+            o = torch.empty((B, n), dtype=torch.float32)
+            _call(lib.prec_apply_f32_path_launch, Lc, v, o, None, B, n, path)
+            assert _scaled(o, ref, mag) < TOL_F32
+
+
+@pytest.mark.parametrize("path", [1, 2])
+def test_prec_apply_does_not_read_the_upper_triangle(emu, path):
+    """prec_apply_f32 reads Lc as lower triangular, as the route's Lc =
+    L2^-1 L1^-1 is: garbage above the diagonal (a NaN among it) gives
+    the output of tril(Lc), bit for bit, on either body (n = 73, the
+    interior class; B = 3, so the warp body's last block is ragged)."""
+    lib = emu["cholqr"]
+    B, n = 3, 73
+    rng = np.random.default_rng(1)
+    L = torch.as_tensor(rng.standard_normal((B, n, n)), dtype=torch.float32)
+    v = torch.as_tensor(rng.standard_normal((B, n)), dtype=torch.float32)
+    junk = L.clone()
+    junk[0, 0, n - 1] = float("nan")
+    low = torch.tril(L)
+    outs = []
+    for Lc in (junk, low):
+        outs.append(torch.empty((B, n), dtype=torch.float32))
+        _call(lib.prec_apply_f32_path_launch, Lc, v, outs[-1], None, B, n,
+              path)
+    assert torch.equal(outs[0], outs[1])
+    mag = torch.einsum("bij,bi->bj", low.abs(),
+                       torch.einsum("bij,bj->bi", low.abs(), v.abs()))
+    assert _scaled(outs[1], cq.prec_apply_f32_reference(low, v), mag) \
+        < TOL_F32
 
 
 def _solve(lib, inp, ws_floats=0):

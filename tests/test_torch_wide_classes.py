@@ -192,6 +192,107 @@ def test_round2_gram_body_per_width(emu, n):
     assert float(err / (aQ.transpose(1, 2) @ aQ).abs().max()) < 1e-5
 
 
+def _occupancy(fn, n, path):
+    out = [ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int(),
+           ctypes.c_int(), ctypes.c_longlong()]
+    assert fn(n, path, *[ctypes.byref(x) for x in out]) == 0
+    return dict(zip(("smem_bytes", "threads", "blocks_per_sm"),
+                    (x.value for x in out[:3])))
+
+
+@pytest.mark.parametrize("n", [37, 73, 77])
+def test_gram_body_per_width(emu, n):
+    """gram_f32 keeps the Gram in registers up to n = 76 (the tet
+    classes' 37 and 73: one thread per upper 4 x 4 tile, so 64 and 192
+    threads; A in two buffers of 32 rows, or the Gram's symmetric tile)
+    and accumulates it in shared memory past it (77: 256 threads); the
+    register body gives the shared body's G bit for bit, and both the
+    plain version's to 1e-5 of the operands' magnitude product."""
+    lib = emu["cholqr"]
+    occ = _occupancy(lib.gram_f32_occupancy, n, 0)
+    path = lib.gram_f32_path(n)
+    assert path == (2 if n <= 76 else 1)
+    np_ = (n + 3) // 4 * 4
+    assert occ["threads"] == {37: 64, 73: 192, 77: 256}[n]
+    assert occ["smem_bytes"] == 4 * (max(2 * 32 * np_, np_ * np_)
+                                     if path == 2 else np_ * np_ + 32 * np_)
+    B, m = 2, n + 40
+    rng = np.random.default_rng(n)
+    A = torch.as_tensor(rng.standard_normal((B, m, n)), dtype=torch.float32)
+    G = {}
+    for p in (1, 2):
+        G[p] = torch.empty((B, n, n), dtype=torch.float32)
+        err = lib.gram_f32_path_launch(A.data_ptr(), G[p].data_ptr(), None,
+                                       B, m, n, p, None)
+        assert (err == 0) == (p == 1 or n <= 76)
+    ref = cq.gram_f32_reference(A)
+    mag = (A.abs().transpose(1, 2) @ A.abs()).abs().max()
+    assert float((G[1] - ref).abs().max() / mag) < 1e-5
+    if path == 2:
+        assert torch.equal(G[1], G[2])
+
+
+@pytest.mark.parametrize("n", [37, 73, 129])
+def test_prec_apply_body_per_width(emu, n):
+    """prec_apply_f32 runs a warp a node, four a block, on Lc's packed
+    triangle and v up to n = 128 (the tet classes' 37 and 73) and a
+    block of 128 threads a node past it (129): the warp body's shared
+    memory is four nodes' triangles and v, the block body's one node's
+    n x n and two vectors, each rounded to 4 floats; both
+    bodies against the plain version to 1e-5 of the magnitude product
+    (B = 5: the warp body's second block is ragged)."""
+    lib = emu["cholqr"]
+    occ = _occupancy(lib.prec_apply_f32_occupancy, n, 0)
+    path = lib.prec_apply_f32_path(n)
+    assert path == (2 if n <= 128 else 1)
+    tiles = (n * (n + 1) // 2 + n if path == 2 else n * n + 2 * n) + 3
+    assert occ["threads"] == 128
+    assert occ["smem_bytes"] == 4 * (4 if path == 2 else 1) * (tiles // 4 * 4)
+    B = 5
+    rng = np.random.default_rng(n)
+    Lc = torch.tril(torch.as_tensor(rng.standard_normal((B, n, n)),
+                                    dtype=torch.float32))
+    v = torch.as_tensor(rng.standard_normal((B, n)), dtype=torch.float32)
+    ref = cq.prec_apply_f32_reference(Lc, v)
+    mag = torch.einsum("bij,bi->bj", Lc.abs(),
+                       torch.einsum("bij,bj->bi", Lc.abs(), v.abs()))
+    for p in (1, 2):
+        o = torch.empty((B, n), dtype=torch.float32)
+        err = lib.prec_apply_f32_path_launch(Lc.data_ptr(), v.data_ptr(),
+                                             o.data_ptr(), None, B, n, p,
+                                             None)
+        assert (err == 0) == (p == 1 or n <= 128)
+        if err == 0:
+            assert float((o - ref).abs().max() / mag.abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("kernel,n", [("gram_f32", 229),
+                                      ("prec_apply_f32", 241)])
+def test_workspace_takes_the_shared_body(emu, kernel, n):
+    """A node past shared memory runs the shared body on its workspace:
+    the default body with a workspace is body 1, and the register or
+    warp body, which has no workspace instance, refuses one (and refuses
+    a width past its limit)."""
+    lib = emu["cholqr"]
+    floats = getattr(lib, f"{kernel}_workspace_floats")(n)
+    assert floats > 0 and getattr(lib, f"{kernel}_path")(n) == 1
+    ws = torch.empty(floats, dtype=torch.float32)
+    fn = getattr(lib, f"{kernel}_path_launch")
+    if kernel == "gram_f32":
+        A, out = torch.zeros((1, n + 1, n)), torch.empty((1, n, n))
+        args = [A.data_ptr(), out.data_ptr(), ws.data_ptr(), 1, n + 1, n]
+        ref = torch.zeros((1, n, n))
+    else:
+        Lc, v = torch.eye(n)[None], torch.ones((1, n))
+        out = torch.empty((1, n))
+        args = [Lc.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                1, n]
+        ref = torch.ones((1, n))
+    assert fn(*args, 2, None) != 0
+    assert fn(*args, 0, None) == 0
+    assert torch.equal(out, ref)
+
+
 @pytest.mark.parametrize("n", [193, 241])
 def test_sne_solve_in_a_wide_class(emu, n):
     """sne_solve stages a node's triangle in shared memory up to n = 240
