@@ -3,9 +3,11 @@
 Drives the port's GLS main path — the path bench.py times for ninpol_tpu:
 GLS weights with Neumann nodes, on the 1,886,592-cell tetrahedral mesh,
 through the public Interpolator API — its shard_geometry=True route
-(ninpol_tpu's unfused CholeskyQR2 composition) and its solver="pallas"
-route (Householder R and corrected semi-normal equations), and checks
-all three:
+(ninpol_tpu's unfused CholeskyQR2 composition), its solver="pallas"
+route (Householder R and corrected semi-normal equations) and its
+"refined" route, the fused route's single-round preconditioner
+(precond_rounds = 1), and IDW and LS on that mesh and on a 2,097,152-cell
+hexahedral one, and checks them all:
 
   1. prints the card (nvidia-smi name, power limit); requires CUDA;
   2. builds the three kernel libraries with nvcc, in parallel:
@@ -58,6 +60,12 @@ all three:
      route padded to (E, F) = (64, 96), where chol_linv, round2_gram and
      qr_r run from device workspaces: the unpadded weights (<= 1e-10
      scaled), the same rnorm > 1e-11 set;
+     4f. the solve kernel's single-round instance (precond_rounds = 1)
+     vs its plain version by phase 4's rule at the route's five sweeps
+     (both times), and again at the first of 10, 20, ..., 640 sweeps at
+     which the kernel converges every node of the chunk (five leave
+     them all above 1e-11 on this mesh), where the plain version must
+     converge them all too;
   5. the main path: a warm-up prepare_interpolator, 3 timed device_out
      runs (torch.cuda.synchronize), interpolate() -> CSR; prints seconds,
      Mnodes/s, n_bad (which must be 0) and the kernel launch count, which
@@ -71,15 +79,35 @@ all three:
      5c. the same for solver="pallas": per chunk per run exactly 1 qr_r
      and 2 sne_solve launches and no other kernel's, no plain-version
      call; a profiled run;
-  6. the delivered weights of the three routes against the scipy dgels
+     5d. solver="refined" (torch ops, no kernel: ninpol_tpu has no Pallas
+     kernel for it): a warm-up and 3 timed runs, no kernel launch and no
+     plain-version call; n_bad printed, not bounded; then the solver
+     itself on up to 8192 nodes of every class: its converged share at
+     the route's two sweeps, and at the first of 3, 4, 8, 16 sweeps that
+     converges every node, weights within 1e-10 scaled of the fused
+     kernel's;
+  6. the delivered weights of the four routes against the scipy dgels
      oracle on 256 sampled nodes (128 interior, 128 Neumann; cond < 1e7):
      max scaled error <= 1e-10, interior rows sum to 1; and the other
-     routes' weights against the fused route's, <= 1e-10 scaled.
+     routes' weights against the fused route's, <= 1e-10 scaled;
+  7. the fused route at precond_rounds = 1 on tetra_mesh(20): one solve
+     launch per chunk, n_bad and seconds printed, the weights within
+     1e-10 scaled of rounds = 2's;
+  8. IDW and LS on tetra_mesh(68) and on hexa_mesh(128) (the same K and
+     a seeded Neumann split): a warm-up, 3 timed device_out runs,
+     interpolate() to CSR and a profiled run each; the card's weights on
+     every node against the port's own run on the CPU (IDW <= 1e-13
+     absolute; LS <= 1e-11 where |denom| > 1e-8, test_methods.py:50-57),
+     and on 2048 sampled nodes against idw_oracle / ls_oracle, same
+     bounds; the Neumann vector all zeros.
 
-Any failing phase raises (non-zero exit).  The last three lines are the
-card, the kernels JSON line and {"ok": true, "device": {...}}.
+Each phase prints its seconds.  Any failing phase raises (non-zero
+exit).  The last three lines are the card, the kernels JSON line (kernel
+1's entry also holds its single-round instance's rows and times) and
+{"ok": true, "device": {...}}.
 
-Run: python3 chip_smoke.py            (options: --n N, the mesh size)
+Run: python3 chip_smoke.py     (options: --n N, the tet mesh size;
+--hexa N, phase 8's hexa mesh; --n-round1 N, phase 7's tet mesh)
 """
 import argparse
 import json
@@ -113,13 +141,20 @@ MAX_BAD = 0
 PEAK_FP32 = 67e12
 PEAK_FP64 = 67e12
 PEAK_BYTES = 3.35e12
+# the sweep counts tried, in turn, until every node of a chunk
+# converges: phase 4f's for the solve kernel's single-round instance,
+# phase 5d's (refinement sweeps) for the "refined" solver
+ROUND1_CHECK_SWEEPS = (10, 20, 40, 80, 160, 320, 640)
+REFINED_CHECK_SWEEPS = (3, 4, 8, 16)
 SOLVE_KERNELS = ("gram_f32", "chol_linv_f32", "round2_gram_f32",
                  "prec_apply_f32")
 # kernel launches per solve chunk of each route
 PER_CHUNK = {"fused": {"gls_solve": 1},
              "shard_geometry": {"gram_f32": 1, "chol_linv_f32": 2,
                                 "round2_gram_f32": 1, "prec_apply_f32": 4},
-             "pallas": {"qr_r": 1, "sne_solve": 2}}
+             "pallas": {"qr_r": 1, "sne_solve": 2},
+             # torch ops only: ninpol_tpu has no Pallas kernel for it
+             "refined": {}}
 
 
 def check(cond, msg):
@@ -144,15 +179,16 @@ def bound(flops, nbytes, peak=PEAK_FP32):
             "operations" if t_ops > t_bytes else "bytes")
 
 
-def build_problem(n, shard_geometry=False):
+def build_problem(n, shard_geometry=False, family="tetra"):
     """bench.py:33-101 with the port's meshgen and Interpolator: a
-    ~6n^3-cell tet mesh, ALH-style varying full-tensor K, u = x^2+y^2+z^2,
-    seeded Dirichlet/Neumann split, Neumann flux -(K grad u).n at
-    boundary-face centers averaged onto the points."""
+    ~6n^3-cell tet mesh (``family`` "hexa": n^3 hexahedra), ALH-style
+    varying full-tensor K, u = x^2+y^2+z^2, seeded Dirichlet/Neumann
+    split, Neumann flux -(K grad u).n at boundary-face centers averaged
+    onto the points."""
     from ninpol_tpu_torch import Interpolator
     from ninpol_tpu_torch.utils import meshgen
 
-    mesh = meshgen.tetra_mesh(n)
+    mesh = getattr(meshgen, f"{family}_mesh")(n)
     pts = mesh.points
     cells = mesh.cells[0].data
     cents = pts[cells].mean(axis=1)
@@ -218,11 +254,71 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def kernel_vs_plain(interp, tp):
-    """Phase 4: one chunk of every class through the kernel and through
-    the plain version, on the card."""
+def hold_solve(inp, sweeps, rounds):
+    """The solve kernel's ``rounds`` instance and its plain version on one
+    chunk at ``sweeps``: w and wn to <= TOL_KERNEL scaled on the nodes
+    both call converged (rnorm <= RNORM_TOL), and the same rnorm >
+    RNORM_TOL sets.  Returns the comparison's numbers."""
+    from ninpol_tpu_torch.ops import gls_solve as gs
+
+    kw = dict(sweeps=sweeps, rounds=rounds)
+    wk, wnk, rk = gs.gls_solve(**inp, **kw)
+    wp, wnp, rp = gs.gls_solve_reference(**inp, **kw)
+    torch.cuda.synchronize()
+    conv = (rk <= RNORM_TOL) & (rp <= RNORM_TOL)
+    scale = max(float(wp.abs().max()), 1.0)
+    err = max(float((wk - wp)[conv].abs().max()),
+              float((wnk - wnp)[conv].abs().max())) if conv.any() else 0.0
+    out = {"sweeps": sweeps, "max_abs_err": err,
+           "max_scaled_err": err / scale, "n_converged_both": int(conv.sum()),
+           "n_unconverged_kernel": int((rk > RNORM_TOL).sum()),
+           "n_unconverged_plain": int((rp > RNORM_TOL).sum()),
+           "same_fallback_set": bool(torch.equal(rk > RNORM_TOL,
+                                                 rp > RNORM_TOL))}
+    check(err / scale <= TOL_KERNEL,
+          f"kernel vs plain: scaled error {err / scale:.3e} > {TOL_KERNEL} "
+          f"at rounds={rounds}: {out}")
+    check(out["same_fallback_set"], f"kernel and plain rnorm > {RNORM_TOL} "
+                                    f"sets differ at rounds={rounds}: {out}")
+    return out
+
+
+def round1_converged(inp, B):
+    """Phase 4f: the route's 5 sweeps leave a (24, 36) or (12, 24) chunk
+    of tetra_mesh(68) unconverged at rounds = 1, so no weight would be
+    compared there, and part way to convergence the kernel's and the
+    plain version's rnorm straddle RNORM_TOL on some nodes.  So the
+    first of ROUND1_CHECK_SWEEPS at which the kernel converges every
+    node of the chunk, held to the plain version there by phase 4's rule;
+    fails if none does."""
+    from ninpol_tpu_torch.ops import gls_solve as gs
+
+    shares = {}
+    for sweeps in ROUND1_CHECK_SWEEPS:
+        _, _, rk = gs.gls_solve(**inp, sweeps=sweeps, rounds=1)
+        shares[sweeps] = float((rk <= RNORM_TOL).sum()) / B
+        if shares[sweeps] == 1.0:
+            break
+    check(shares[sweeps] == 1.0, f"rounds=1: the kernel leaves nodes "
+                                 f"unconverged at every sweep count tried: "
+                                 f"{shares}")
+    out = hold_solve(inp, sweeps, rounds=1)
+    check(out["n_converged_both"] == B,
+          f"rounds=1: the plain version leaves nodes unconverged: {out}")
+    return dict(out, converged_share_by_sweeps=shares)
+
+
+def kernel_vs_plain(interp, tp, rounds=2):
+    """Phase 4 (4f with ``rounds`` = 1): one chunk of every class through
+    the kernel's ``rounds`` instance and through the plain version, on
+    the card, with the route's sweeps for those rounds; at rounds = 1
+    also at the sweeps where most of the chunk converges
+    (``round1_converged``).  Times are the route's sweeps'."""
     from ninpol_tpu_torch._methods.gls import gls_gather
     from ninpol_tpu_torch.ops import gls_solve as gs
+
+    sweeps = (max(interp.gls.n_refine + 1, 2)
+              + (2 if rounds == 1 else 0))
 
     dgrid = interp.device_grid
     classes, face_table, nflag = interp.gls.plan(
@@ -234,43 +330,36 @@ def kernel_vs_plain(interp, tp):
         nodes = torch.as_tensor(c["nodes"][:B], device=dgrid.device)
         inp, n_elem = gls_gather(dgrid, face_table, nflag, nodes, c["E"],
                                  c["F"], c["with_neumann"])
-        wk, wnk, rk = gs.gls_solve(**inp)
-        wp, wnp, rp = gs.gls_solve_reference(**inp)
-        torch.cuda.synchronize()
-        conv = (rk <= RNORM_TOL) & (rp <= RNORM_TOL)
-        scale = max(float(wp.abs().max()), 1.0)
-        err = max(float((wk - wp)[conv].abs().max()),
-                  float((wnk - wnp)[conv].abs().max())) if conv.any() else 0.0
-        same_set = bool(torch.equal(rk > RNORM_TOL, rp > RNORM_TOL))
-        ms = cuda_ms(lambda: gs.gls_solve(**inp), 3)
-        plain_ms = cuda_ms(lambda: gs.gls_solve_reference(**inp), 2)
-        # three m n^2/2-FMA products (Gram1, Q, Gram2), two clamped
-        # Cholesky factorizations and two triangular inverses (n^3/3 FLOP
-        # each); the float64 sweeps are O(m n) per node and left out
+        kw = dict(sweeps=sweeps, rounds=rounds)
+        held = hold_solve(inp, sweeps, rounds)
+        ms = cuda_ms(lambda: gs.gls_solve(**inp, **kw), 3)
+        plain_ms = cuda_ms(lambda: gs.gls_solve_reference(**inp, **kw), 2)
+        # per round an m n^2/2-FMA Gram product, a clamped Cholesky
+        # factorization and a triangular inverse (n^3/3 FLOP each), and
+        # between the rounds Q (m n^2/2 FMAs); the float64 sweeps are
+        # O(m n) per node and left out
         E, F = c["E"], c["F"]
         m, n = E + (4 if c["with_neumann"] else 3) * F, 3 * E + 1
         nbytes = (sum(x.nbytes for x in inp.values() if x is not None)
                   + B * (E + 2) * 8)
-        bound_ms, bound_by = bound(B * (3 * m * n * n + 4 * n ** 3 / 3),
-                                   nbytes)
-        smem, blocks = gs.occupancy(E, F, c["with_neumann"])
-        row = {"E": E, "F": F, "with_neumann": c["with_neumann"],
+        flops = (3 * m * n * n + 4 * n ** 3 / 3 if rounds == 2
+                 else m * n * n + 2 * n ** 3 / 3)
+        bound_ms, bound_by = bound(B * flops, nbytes)
+        smem, blocks = gs.occupancy(E, F, c["with_neumann"], rounds)
+        row = {"rounds": rounds, "E": E, "F": F,
+               "with_neumann": c["with_neumann"],
                "nodes_in_class": len(c["nodes"]), "chunk": B,
-               "smem_bytes": smem, "blocks_per_sm": blocks,
-               "max_abs_err": err, "max_scaled_err": err / scale,
-               "n_unconverged_kernel": int((rk > RNORM_TOL).sum()),
-               "n_unconverged_plain": int((rp > RNORM_TOL).sum()),
-               "same_fallback_set": same_set, "ms": ms, "plain_ms": plain_ms,
+               "smem_bytes": smem, "blocks_per_sm": blocks, **held,
+               "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None}
+        if rounds == 1:
+            row["converged"] = round1_converged(inp, B)
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     row["converged"]["max_abs_err"])
         if c is max(classes, key=lambda c: len(c["nodes"])):
             row["library_ms"] = lstsq_ms(inp, n_elem)
-        print("# class " + json.dumps(row), flush=True)
-        check(err / scale <= TOL_KERNEL,
-              f"kernel vs plain: scaled error {err / scale:.3e} > "
-              f"{TOL_KERNEL} in class {row}")
-        check(same_set, f"kernel and plain rnorm > {RNORM_TOL} sets differ "
-                        f"in class {row}")
+        print(f"# class rounds={rounds} " + json.dumps(row), flush=True)
         rows.append(row)
     return classes, rows
 
@@ -766,9 +855,60 @@ def wide_routes(interp, tp, classes):
         del w, wn, rn, w2, wn2, rn2
 
 
-def main_path(interp, tp, classes, label):
-    """Phase 5 (5b, 5c): the public entry points of one route, counting
-    every kernel's launches and every plain version's calls."""
+def refined_vs_fused(interp, tp):
+    """Phase 5d: the "refined" solver itself on the card, on up to 8192
+    nodes of every class: its converged share at the route's n_refine
+    sweeps (the route sends the rest to the exact fallback), then the
+    first of REFINED_CHECK_SWEEPS at which it converges every node, where
+    its weights must be within TOL_KERNEL scaled of the fused kernel's."""
+    from ninpol_tpu_torch._methods.gls import gls_gather, gls_solve_refined
+    from ninpol_tpu_torch.ops import gls_solve as gs
+
+    dgrid = interp.device_grid
+    classes, face_table, nflag = interp.gls.plan(
+        dgrid, interp.cells_data, interp.points_data,
+        interp.variable_to_index, "u", tp)
+    rows = []
+    for c in classes:
+        nodes = torch.as_tensor(c["nodes"][:8192], device=dgrid.device)
+        B = len(nodes)
+        args = (dgrid, face_table, nflag, nodes, c["E"], c["F"],
+                c["with_neumann"])
+        inp, _ = gls_gather(*args, tau_guard="norm")
+        wf, wnf, rf = gs.gls_solve(**gls_gather(*args)[0])
+        shares = {}
+        for n_refine in (interp.gls.n_refine,) + REFINED_CHECK_SWEEPS:
+            w, wn, r = gls_solve_refined(**inp, n_refine=n_refine)
+            shares[n_refine] = float((r <= RNORM_TOL).sum()) / B
+            if n_refine != interp.gls.n_refine and shares[n_refine] == 1.0:
+                break
+        torch.cuda.synchronize()
+        conv = (r <= RNORM_TOL) & (rf <= RNORM_TOL)
+        scale = max(float(wf.abs().max()), 1.0)
+        err = max(float((w - wf)[conv].abs().max()),
+                  float((wn - wnf)[conv].abs().max())) / scale \
+            if conv.any() else 0.0
+        row = {"E": c["E"], "F": c["F"], "with_neumann": c["with_neumann"],
+               "nodes": B, "converged_share_by_n_refine": shares,
+               "n_refine_held": n_refine,
+               "n_converged_both": int(conv.sum()),
+               "max_scaled_err_vs_fused": err}
+        print("# refined solver " + json.dumps(row), flush=True)
+        check(int(conv.sum()) == B,
+              f"refined: nodes left unconverged at every sweep count "
+              f"tried, or by the fused kernel: {row}")
+        check(err <= TOL_KERNEL, f"refined vs fused kernel: {row}")
+        rows.append(row)
+        del inp, w, wn, r, wf, wnf, rf
+    return rows
+
+
+def main_path(interp, tp, classes, label, max_bad=MAX_BAD, with_csr=True):
+    """Phase 5 (5b, 5c, 5d): the public entry points of one route,
+    counting every kernel's launches and every plain version's calls:
+    a warm-up, 3 timed device_out runs and, ``with_csr``, interpolate().
+    More than ``max_bad`` nodes sent to the exact fallback fail it (None:
+    any number)."""
     from ninpol_tpu_torch.ops import cholqr as cq
     from ninpol_tpu_torch.ops import gls_solve as gs
     from ninpol_tpu_torch.ops import qr
@@ -806,14 +946,15 @@ def main_path(interp, tp, classes, label):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         n_bad = interp.gls.last_n_bad
-        t0 = time.perf_counter()
-        csr, _ = interp.interpolate("u", "gls")
-        csr_s = time.perf_counter() - t0
+        if with_csr:
+            t0 = time.perf_counter()
+            csr, _ = interp.interpolate("u", "gls")
+            csr_s = time.perf_counter() - t0
         launches = {k: w.launches for k, w in wrappers.items()}
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
-    runs = 5            # warm-up, 3 timed, interpolate
+    runs = 5 if with_csr else 4     # warm-up, 3 timed[, interpolate]
     want = {k: runs * chunks * PER_CHUNK[label].get(k, 0) for k in wrappers}
     check(launches == want,
           f"{label}: kernel launches {launches} != {want} ({runs} runs x "
@@ -822,8 +963,9 @@ def main_path(interp, tp, classes, label):
                            f"path: {sorted(set(plain_calls))}")
     # a wrong preconditioner only stops nodes converging, and the exact
     # fallback would then hide it behind right weights
-    check(n_bad <= MAX_BAD, f"{label}: {n_bad} nodes fell back to the "
-                            f"exact solve (limit {MAX_BAD})")
+    check(max_bad is None or n_bad <= max_bad,
+          f"{label}: {n_bad} nodes fell back to the exact solve (limit "
+          f"{max_bad})")
     check(torch.isfinite(wdev).all().item(), f"{label}: non-finite weights")
     check(tuple(wdev.shape) == (len(tp), W.shape[1] + 1),
           f"{label}: device_out shape {tuple(wdev.shape)}")
@@ -831,17 +973,19 @@ def main_path(interp, tp, classes, label):
     gap = max(np.abs(host[:, :-1] - W).max(), np.abs(host[:, -1] - NW).max())
     check(gap <= 1e-12 * max(np.abs(W).max(), 1.0),
           f"{label}: device_out differs from host delivery by {gap:.3e}")
-    check(csr.shape == (len(tp), interp.grid.n_elems), f"{label}: CSR shape")
     t = min(times)
     stats = {"warmup_s": warm_s, "device_out_s": times, "best_s": t,
              "mnodes_per_s": len(tp) / t / 1e6, "n_bad": n_bad,
-             "interpolate_s": csr_s, "csr_nnz": int(csr.nnz),
              "launches": launches, "chunks_per_run": chunks}
+    if with_csr:
+        check(csr.shape == (len(tp), interp.grid.n_elems),
+              f"{label}: CSR shape")
+        stats.update(interpolate_s=csr_s, csr_nnz=int(csr.nnz))
     print(f"# main path {label} " + json.dumps(stats), flush=True)
     return W, NW, stats
 
 
-def profile_main_path(interp, tp, label):
+def profile_main_path(interp, tp, label, method="gls"):
     """One more device_out run under torch.profiler: device busy share
     and the kernels that take the device time (after the launch count
     was read, so these launches are not counted)."""
@@ -851,7 +995,7 @@ def profile_main_path(interp, tp, label):
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        interp.prepare_interpolator("gls", "u", tp, device_out=True)
+        interp.prepare_interpolator(method, "u", tp, device_out=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only: a CPU op's self device time repeats the
@@ -912,6 +1056,159 @@ def oracle_check(interp, routes):
     return out
 
 
+def one_round_route(n):
+    """Phase 7: the fused route at precond_rounds = 1 (the kernel's
+    single-round instance, two more sweeps, the exact fallback) on
+    tetra_mesh(n), against the same route at rounds = 2: weights within
+    1e-10 scaled.  ninpol_tpu measured an exact-fallback storm at
+    rounds = 1 on a 1M-cell tet mesh; n_bad is printed, not bounded."""
+    from ninpol_tpu_torch.ops import gls_solve as gs
+
+    interp, _ = build_problem(n)
+    tp = np.arange(interp.grid.n_points)
+    W2, NW2 = interp.prepare_interpolator("gls", "u", tp)
+    bad2 = interp.gls.last_n_bad
+    interp.gls.precond_rounds = 1
+    classes, _, _ = interp.gls.plan(
+        interp.device_grid, interp.cells_data, interp.points_data,
+        interp.variable_to_index, "u", tp)
+    chunks = sum(-(-len(c["nodes"]) // c["chunk"]) for c in classes)
+    gs.gls_solve.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    W1, NW1 = interp.prepare_interpolator("gls", "u", tp)
+    seconds = time.perf_counter() - t0
+    launches = gs.gls_solve.launches
+    interp.gls.precond_rounds = 2
+    scale = max(np.abs(W2).max(), 1.0)
+    gap = max(np.abs(W1 - W2).max(), np.abs(NW1 - NW2).max()) / scale
+    stats = {"cells": interp.grid.n_elems, "points": len(tp),
+             "n_bad_rounds1": interp.gls.last_n_bad, "n_bad_rounds2": bad2,
+             "seconds_rounds1": seconds, "launches": launches,
+             "chunks": chunks, "max_scaled_diff": float(gap)}
+    print("# rounds=1 route " + json.dumps(stats), flush=True)
+    check(launches == chunks, f"rounds=1: {launches} solve-kernel launches "
+                              f"for {chunks} chunks")
+    check(gap <= TOL_ORACLE, f"rounds=1 weights differ from rounds=2 by "
+                             f"{gap:.3e} scaled")
+    return stats
+
+
+def ls_denominators(dgrid, tp, chunk=262144):
+    """LS's denominator over the cell count at the nodes ``tp`` (1 where
+    the system is degenerate), on ``dgrid``'s device: ls_oracle's
+    normalisation, whose |denom| > 1e-8 picks the nodes held to a bound
+    (test_methods.py:50-57)."""
+    from ninpol_tpu_torch._methods.idw import simple_gather
+    from ninpol_tpu_torch._methods.ls import ls_math
+
+    E = int(dgrid.esup_cnt_h[tp].max())
+    out = []
+    for lo in range(0, len(tp), chunk):
+        nodes = torch.as_tensor(tp[lo:lo + chunk], device=dgrid.device)
+        xv, xc, cv, n_elem = simple_gather(dgrid, nodes, E)
+        _, denom, degen = ls_math(xv, xc, cv, n_elem)
+        norm = denom / torch.clamp_min(n_elem, 1).to(denom.dtype)
+        out.append(torch.where(degen, 1.0, norm).cpu().numpy())
+    return np.concatenate(out)
+
+
+def simple_methods(interp, label):
+    """Phase 8: IDW and LS through the public entry points on one mesh: a
+    warm-up, 3 timed device_out runs, interpolate() to CSR and a
+    profiled run each; the card's weights held on every node to the
+    port's own run on the CPU (IDW <= 1e-13 absolute, LS <= 1e-11 where
+    |denom| > 1e-8), and on 2048 sampled nodes to idw_oracle /
+    ls_oracle (same bounds); the Neumann vector all zeros."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from utils.oracle import idw_oracle, ls_oracle
+    from ninpol_tpu_torch._methods.device_grid import DeviceGrid
+
+    grid = interp.grid
+    tp = np.arange(grid.n_points)
+    v2i = interp.variable_to_index
+    nflag = interp.points_data[v2i["points"]["neumann_flag_u"]].astype(int)
+    t0 = time.perf_counter()
+    cpu_grid = DeviceGrid(grid, device="cpu")
+    cpu_grid_s = time.perf_counter() - t0
+    sample = np.sort(np.random.default_rng(2).choice(
+        tp, min(2048, len(tp)), replace=False))
+    out = {}
+    for method, tol in (("idw", 1e-13), ("ls", 1e-11)):
+        t0 = time.perf_counter()
+        W, NW = interp.prepare_interpolator(method, "u", tp)
+        warm_s = time.perf_counter() - t0
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wdev = interp.prepare_interpolator(method, "u", tp,
+                                               device_out=True)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        csr, neu = interp.interpolate("u", method)
+        csr_s = time.perf_counter() - t0
+        prof = profile_main_path(interp, tp, f"{method} {label}", method)
+
+        # the port's own run of the method on the CPU, same grid and data
+        t0 = time.perf_counter()
+        Wc, _ = interp.supported_methods[method](
+            cpu_grid, interp.cells_data, interp.points_data,
+            interp.faces_data, v2i, "u", tp, np.zeros_like(W),
+            np.zeros_like(NW))
+        cpu_s = time.perf_counter() - t0
+        host = wdev.cpu().numpy()
+        with np.errstate(all="ignore"):
+            if method == "ls":
+                held = np.abs(ls_denominators(cpu_grid, tp)) > 1e-8
+                Wo, den = ls_oracle(grid, sample, nflag, return_denom=True)
+                held_o = np.abs(den) > 1e-8
+            else:
+                held = np.ones(len(tp), dtype=bool)
+                Wo = idw_oracle(grid, sample, nflag)
+                held_o = np.ones(len(sample), dtype=bool)
+            cpu_err = float(np.abs(W - Wc)[held].max())
+            k = min(W.shape[1], Wo.shape[1])
+            oracle_err = float(np.abs(W[sample][:, :k] - Wo[:, :k])[
+                held_o].max())
+        best = min(times)
+        stats = {"mesh": label, "points": len(tp),
+                 "cells": grid.n_elems, "warmup_s": warm_s,
+                 "device_out_s": times, "best_s": best,
+                 "mnodes_per_s": len(tp) / best / 1e6,
+                 "interpolate_s": csr_s, "csr_nnz": int(csr.nnz),
+                 "cpu_run_s": cpu_s, "cpu_grid_s": cpu_grid_s,
+                 "nodes_held": int(held.sum()),
+                 "max_abs_err_vs_cpu": cpu_err,
+                 "oracle_sampled": len(sample),
+                 "oracle_held": int(held_o.sum()),
+                 "max_abs_err_vs_oracle": oracle_err,
+                 "device_busy_ms": prof["device_busy_ms"],
+                 "idle_share": prof["idle_share"]}
+        print(f"# {method} {label} " + json.dumps(stats), flush=True)
+        check(tuple(wdev.shape) == (len(tp), W.shape[1] + 1),
+              f"{method} {label}: device_out shape {tuple(wdev.shape)}")
+        # LS is 0/0 where its denominator vanishes, in the oracle too
+        check(np.array_equal(host[:, :-1], W, equal_nan=True),
+              f"{method} {label}: device_out differs from host delivery")
+        check(not host[:, -1].any() and not NW.any() and not neu.any(),
+              f"{method} {label}: a Neumann weight is not zero")
+        check(np.isfinite(W[held]).all(), f"{method} {label}: non-finite "
+                                          f"weights")
+        check(csr.shape == (len(tp), grid.n_elems),
+              f"{method} {label}: CSR shape")
+        check(held.sum() > len(tp) // 2 and held_o.sum() > len(sample) // 2,
+              f"{method} {label}: too few nodes held to a bound")
+        check(cpu_err <= tol, f"{method} {label}: card vs CPU {cpu_err:.3e} "
+                              f"> {tol}")
+        check(oracle_err <= tol, f"{method} {label}: card vs oracle "
+                                 f"{oracle_err:.3e} > {tol}")
+        out[method] = stats
+        del W, NW, Wc, wdev, host, csr
+    return out
+
+
 def build_kernels():
     """Phase 2: one nvcc per kernel source, all started together."""
     from ninpol_tpu_torch.ops import cholqr as cq
@@ -935,7 +1232,19 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=68,
                     help="tetra_mesh size (6 n^3 cells); 68 = 1,886,592")
+    ap.add_argument("--hexa", type=int, default=128,
+                    help="hexa_mesh size of phase 8 (n^3 cells); 128 = "
+                         "2,097,152")
+    ap.add_argument("--n-round1", type=int, default=20,
+                    help="tetra_mesh size of phase 7 (precond_rounds = 1)")
     args = ap.parse_args()
+    t_run = time.perf_counter()
+    t_phase = [t_run]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print(f"# phase {name}: {now - t_phase[0]:.2f} s", flush=True)
+        t_phase[0] = now
 
     # ---- 1. the card
     card = card_line()
@@ -946,6 +1255,7 @@ def main():
 
     # ---- 2. build the kernels
     build_kernels()
+    phase_done("2 build")
 
     # ---- 3. the problem, once for each route
     t0 = time.perf_counter()
@@ -955,44 +1265,84 @@ def main():
     print(f"# mesh: {interp.grid.n_elems} cells, {interp.grid.n_points} "
           f"points; grid build {build_s:.2f} s, both problems "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    phase_done("3 problem")
 
     # ---- 4. kernels vs plain versions
     classes, rows = kernel_vs_plain(interp, tp)
+    phase_done("4 gls_solve")
     workspace_path(interp, tp, classes)
+    phase_done("4b workspace")
     classes_u, rows_u = cholqr_vs_plain(unfused, tp)
+    phase_done("4c cholqr")
     rows_q = csne_vs_plain(interp, tp)
+    phase_done("4d csne")
     wide_routes(interp, tp, classes)
+    phase_done("4e wide")
+    _, rows_1 = kernel_vs_plain(interp, tp, rounds=1)
+    phase_done("4f gls_solve rounds=1")
 
-    # ---- 5. main path, the three routes
+    # ---- 5. main path, the three routes, and "refined"
     W, NW, stats = main_path(interp, tp, classes, "fused")
     profile_main_path(interp, tp, "fused")
+    phase_done("5 fused")
     Wu, NWu, stats_u = main_path(unfused, tp, classes_u, "shard_geometry")
     profile_main_path(unfused, tp, "shard_geometry")
+    phase_done("5b shard_geometry")
     interp.gls.solver = "pallas"
     Wc, NWc, stats_c = main_path(interp, tp, classes, "pallas")
     profile_main_path(interp, tp, "pallas")
+    phase_done("5c pallas")
+    interp.gls.solver = "refined"
+    Wr, NWr, stats_r = main_path(interp, tp, classes, "refined",
+                                 max_bad=None, with_csr=False)
     interp.gls.solver = "auto"
+    refined_vs_fused(interp, tp)
+    phase_done("5d refined")
     print("# routes " + json.dumps({
         "fused_best_s": stats["best_s"],
         "shard_geometry_best_s": stats_u["best_s"],
         "pallas_best_s": stats_c["best_s"],
+        "refined_best_s": stats_r["best_s"],
         "shard_geometry_over_fused": stats_u["best_s"] / stats["best_s"],
         "pallas_over_fused": stats_c["best_s"] / stats["best_s"],
+        "refined_over_fused": stats_r["best_s"] / stats["best_s"],
         "n_bad": {"fused": stats["n_bad"],
                   "shard_geometry": stats_u["n_bad"],
-                  "pallas": stats_c["n_bad"]}}), flush=True)
+                  "pallas": stats_c["n_bad"],
+                  "refined": stats_r["n_bad"]}}), flush=True)
 
     # ---- 6. oracle, and the routes against each other
     oracle_check(interp, {"fused": (W, NW), "shard_geometry": (Wu, NWu),
-                          "pallas": (Wc, NWc)})
+                          "pallas": (Wc, NWc), "refined": (Wr, NWr)})
     scale = max(np.abs(W).max(), 1.0)
     for label, (Wx, NWx) in (("shard_geometry", (Wu, NWu)),
-                             ("pallas", (Wc, NWc))):
+                             ("pallas", (Wc, NWc)),
+                             ("refined", (Wr, NWr))):
         gap = max(np.abs(Wx - W).max(), np.abs(NWx - NW).max()) / scale
         print(f"# {label} vs fused " + json.dumps(
             {"max_scaled_diff": float(gap)}), flush=True)
         check(gap <= TOL_ORACLE, f"{label} weights differ from the fused "
                                  f"route's by {gap:.3e} scaled")
+    del unfused, Wu, NWu, Wc, NWc, Wr, NWr
+    phase_done("6 oracle")
+
+    # ---- 7. the single-round preconditioner through the public API
+    one_round_route(min(args.n, args.n_round1))
+    phase_done("7 rounds=1 route")
+
+    # ---- 8. IDW and LS on the tet mesh and on a hexa mesh
+    simple_methods(interp, f"tetra_mesh({args.n})")
+    phase_done("8 idw/ls tetra")
+    del interp
+    t0 = time.perf_counter()
+    hexa, hexa_s = build_problem(args.hexa, family="hexa")
+    print(f"# hexa mesh: {hexa.grid.n_elems} cells, {hexa.grid.n_points} "
+          f"points; grid build {hexa_s:.2f} s, problem "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    simple_methods(hexa, f"hexa_mesh({args.hexa})")
+    del hexa
+    phase_done("8 idw/ls hexa")
+    print(f"# total: {time.perf_counter() - t_run:.2f} s", flush=True)
 
     def entry(name, source, replaces, launches, rows, top,
               tpu_file="pallas_chol.py"):
@@ -1009,7 +1359,13 @@ def main():
 
     top = max(rows, key=lambda r: r["nodes_in_class"])
     kernels = [entry("gls_solve", "gls_solve.cu", 849,
-                     stats["launches"]["gls_solve"], rows, top)]
+                     stats["launches"]["gls_solve"], rows + rows_1, top)]
+    # the single-round instance (precond_rounds = 1), timed on the same
+    # class; its launches are phase 7's, off the main path
+    top_1 = max(rows_1, key=lambda r: r["nodes_in_class"])
+    kernels[0]["rounds1"] = {k: top_1[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "E", "F",
+        "with_neumann", "chunk", "sweeps")}
     for name, line in (("gram_f32", 77), ("chol_linv_f32", 984),
                        ("round2_gram_f32", 118), ("prec_apply_f32", 900)):
         # the largest class's chunk; for chol_linv its first call (G1)

@@ -24,7 +24,10 @@ shifted-CholeskyQR2 algorithm composed from the four kernels of
 ops/cholqr.py and float64 torch ops (ninpol_tpu's unfused route).  With
 ``GLSInterpolation.solver = "pallas"`` it is ``gls_solve_csne``, the
 cross-check route: a Householder R of A and the corrected semi-normal
-equations (the two kernels of ops/qr.py).
+equations (the two kernels of ops/qr.py).  Any other solver name is
+ninpol_tpu's "refined" route, ``gls_solve_refined``: a float32 Householder
+R of the equilibrated A preconditions float64 refinement sweeps (torch
+ops: ninpol_tpu has no Pallas kernel for it).
 Nodes whose convergence estimate rnorm is not provably below
 ``fallback_tol`` are re-solved exactly (float64 Householder, ``gls_exact``).
 
@@ -44,10 +47,7 @@ from ..ops import qr
 from ..ops.cholqr import KERNELS
 from ..ops.gls_solve import (assemble, cholqr2_solve, gls_solve, incidence,
                              mul_G, node_active, solve_outputs)
-from ..ops.solve import householder_lastrow
-
-# GLSInterpolation.solver: ninpol_tpu's names of the routes ported so far
-SOLVERS = ("auto", "cholqr", "pallas")
+from ..ops.solve import householder_lastrow, solve_normal_refined
 
 # Solve-kernel chunks hold at most this many system-matrix elements
 # (B * m * n): it bounds the gathered inputs and the plain version's dense
@@ -176,8 +176,8 @@ def gls_solve_unfused(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu,
 
 
 def csne_system(dk, l1, l2, t1m, tt, lb, pair, ks, cv, fv, isneu, valid):
-    """The dense float64 A (B, m, n) of ``gls_solve_csne`` and the
-    active-node mask."""
+    """The dense float64 A (B, m, n) of ``gls_solve_csne`` and
+    ``gls_solve_refined``, and the active-node mask."""
     S1, S2, Sb = incidence(pair, ks, cv, fv, isneu)
     active = node_active(pair, fv, valid)
     A = assemble(dk, l1, l2, t1m, tt, lb, S1, S2, Sb, cv, active)
@@ -214,6 +214,24 @@ def gls_solve_csne(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu,
     rnorm = torch.linalg.vector_norm(dy, dim=1) / torch.clamp_min(
         torch.linalg.vector_norm(y, dim=1), 1e-300)
     rnorm = torch.where(qr.r_diag_quality(R) < 1e-6, 1.0, rnorm)
+    return solve_outputs(A, y, rnorm, nm, active, E, F)
+
+
+def gls_solve_refined(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu,
+                      valid, *, n_refine=2):
+    """The GLS solve of ninpol_tpu's "refined" route (gls.py:706-710,
+    weights as at :712-733), with ``gls_solve``'s inputs and outputs:
+    ``ops.solve.solve_normal_refined`` on the dense float64 A, whose float32
+    rounding is its preconditioner's input, with ``n_refine`` sweeps (not
+    n_refine + 1, as the CholeskyQR2 routes run) through ``mul_G``."""
+    B, E, _ = dk.shape
+    F = l1.shape[1]
+    n = 3 * E + 1
+    A, active = csne_system(dk, l1, l2, t1m, tt, lb, pair, ks, cv, fv, isneu,
+                            valid)
+    b = torch.zeros((B, n), dtype=torch.float64, device=dk.device)
+    b[:, n - 1] = 1.0
+    y, rnorm = solve_normal_refined(A, b, lambda y: mul_G(A, y), n_refine)
     return solve_outputs(A, y, rnorm, nm, active, E, F)
 
 
@@ -291,12 +309,13 @@ class GLSInterpolation:
         self.fused = True
         # "auto" and "cholqr": the CholeskyQR2 route ``fused`` picks;
         # "pallas": the CSNE cross-check route, gls_solve_csne (ops/qr.py
-        # kernels).  Any other name raises ValueError: ninpol_tpu sends
-        # other names to its "refined" route, which is not ported yet.
+        # kernels); any other name: the "refined" route,
+        # gls_solve_refined (ninpol_tpu gls.py:706-710)
         self.solver = "auto"
-        # rounds of the CholeskyQR preconditioner: ninpol_tpu's setting
-        # (its gls.py:1115), of which only its default, 2, is ported (any
-        # other value raises in prepare)
+        # rounds of the fused kernel's CholeskyQR preconditioner
+        # (ninpol_tpu gls.py:1108-1115): 1 drops round 2 and runs two more
+        # sweeps; ninpol_tpu measured an exact-fallback storm with it on a
+        # 1M-cell tet mesh.  The other routes ignore it, as ninpol_tpu's do.
         self.precond_rounds = 2
         self.neumann_compat = True
         # Nodes whose estimated relative solve error (last refinement
@@ -367,17 +386,19 @@ class GLSInterpolation:
                 classes.append(c)
         return classes, face_table, nflag_dev
 
+    def route(self):
+        """The solve route of the settings, as ninpol_tpu dispatches its
+        solver names (gls.py:602-710): "fused" or "unfused" (the
+        CholeskyQR2 routes), "csne" or "refined"."""
+        if self.solver in ("auto", "cholqr"):
+            return "fused" if self.fused else "unfused"
+        return "csne" if self.solver == "pallas" else "refined"
+
     def prepare(self, dgrid, cells_data, points_data, faces_data,
                 variable_to_index, variable, target_points,
                 weights, neumann_ws, device_out=False):
-        if self.solver not in SOLVERS:
-            raise ValueError(f"GLS solver must be one of {SOLVERS}, got "
-                             f"{self.solver!r}")
-        if self.precond_rounds != 2:
-            raise ValueError(f"GLS precond_rounds must be 2, the only "
-                             f"preconditioner ported, got "
-                             f"{self.precond_rounds!r}")
-        csne = self.solver == "pallas"
+        route = self.route()
+        sweeps = max(self.n_refine + 1, 2)
         classes, face_table, nflag_dev = self.plan(
             dgrid, cells_data, points_data, variable_to_index, variable,
             target_points)
@@ -392,7 +413,7 @@ class GLSInterpolation:
             """Solve the class members ``sel`` in chunks; scatter the rows
             into wdev; return [(positions, rnorm)] per chunk."""
             # only the fused kernel's prologue guards tau on ||T2||^2
-            fused = self.fused and not (exact or csne)
+            fused = route == "fused" and not exact
             nodes_all, pos_all = c["nodes"][sel], c["pos"][sel]
             out = []
             for lo in range(0, len(nodes_all), chunk):
@@ -405,11 +426,19 @@ class GLSInterpolation:
                 if exact:
                     w, wn = gls_exact(inp, n_elem)
                     rn = torch.zeros_like(wn)
-                elif csne:
+                elif route == "csne":
                     w, wn, rn = gls_solve_csne(**inp)
+                elif route == "refined":
+                    w, wn, rn = gls_solve_refined(**inp,
+                                                  n_refine=self.n_refine)
+                elif fused:
+                    # one round runs two more sweeps (ninpol_tpu gls.py:277)
+                    w, wn, rn = gls_solve(
+                        **inp, rounds=self.precond_rounds,
+                        sweeps=sweeps + (2 if self.precond_rounds == 1
+                                         else 0))
                 else:
-                    w, wn, rn = (gls_solve if fused else gls_solve_unfused)(
-                        **inp, sweeps=max(self.n_refine + 1, 2))
+                    w, wn, rn = gls_solve_unfused(**inp, sweeps=sweeps)
                 w, wn, rn = gls_epilogue(w, wn, rn, inp, n_elem,
                                          self.neumann_compat)
                 k = min(c["E"], ncols)

@@ -21,6 +21,12 @@
  *   5. w = cell rows of A y, wn = sum_f nm_f (Neumann row f . y), rnorm =
  *      ||dy|| / ||y|| (1 when a pivot was clamped: dmax > 3e4).
  *
+ * The preconditioner's rounds are a template parameter, as `rounds` is a
+ * static argument of the TPU kernel: kRounds = 2 is the above; kRounds = 1
+ * (ninpol_tpu's precond_rounds = 1, pallas_chol.py:643-669) stops after
+ * L1^-1, so M = D L1^-T L1^-1 D and breakdown reads dinv1 alone.  The
+ * launch takes the instance for its `rounds` (>= 2: two rounds).
+ *
  * What bounds it on an H100: arithmetic on the CUDA cores, not memory.  An
  * interior tetrahedral node (E = 24, F = 36: m = 132, n = 73) reads about
  * 6 KB of inputs but does ~1.3 M float32 FMAs (three m n^2 / 2 products:
@@ -212,6 +218,7 @@ __device__ void residual(const Node& nd, const double* y, double* r) {
 }
 
 // two blocks an SM at the interior class: at most 128 registers a thread
+template <int kRounds>
 __global__ void __launch_bounds__(kThreads, 2) gls_solve_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_flag[2];   // active, sick
@@ -354,44 +361,49 @@ __global__ void __launch_bounds__(kThreads, 2) gls_solve_kernel(Params p) {
   __syncthreads();
   gram(A, X, dead, p.shift, m, n, np);
   chol_linv_rows_inplace(X, np, Y, np, true, n, p.tiny, dinv1);  // Y = L1^-1
-  // X <- L1^-T (G1 is dead): the Q tiles read it as consecutive float4s
-  for (int i = tid; i < np * np; i += kThreads) {
-    const int j = i / np, k = i - j * np;
-    X[i] = j < n && k < n ? Y[k * np + j] : 0.f;
-  }
-  __syncthreads();
-  {
-    // Q = A L1^-T in place over A, `chunk` rows at a time: each thread
-    // holds at most one kTile x kTile tile of the chunk in registers until
-    // every tile has read the chunk's rows of A.  Y (L1^-1, no longer
-    // read) is zeroed for the second Gram meanwhile.
-    const int nt = np / kTile;
-    const int chunk = kTile * (kThreads / nt);
-    for (int r0 = 0; r0 < m; r0 += chunk) {
-      const int tiles = (min(chunk, m - r0) + kTile - 1) / kTile * nt;
-      const int r0t = r0 + tid / nt * kTile, k0 = tid % nt * kTile;
-      float acc[kTile][kTile];
-      if (tid < tiles) q_tile(A, X, r0t, k0, n, np, acc);
-      if (r0 == 0)
-        for (int i = tid; i < np * np; i += kThreads) Y[i] = 0.f;
-      __syncthreads();
-      if (tid < tiles) store_tile(A, r0t, k0, m, np, acc);
-      __syncthreads();
+  // one round: M's factor is L1^-1 itself
+  const float* Lc = Y;
+  if constexpr (kRounds >= 2) {
+    // X <- L1^-T (G1 is dead): the Q tiles read it as consecutive float4s
+    for (int i = tid; i < np * np; i += kThreads) {
+      const int j = i / np, k = i - j * np;
+      X[i] = j < n && k < n ? Y[k * np + j] : 0.f;
     }
+    __syncthreads();
+    {
+      // Q = A L1^-T in place over A, `chunk` rows at a time: each thread
+      // holds at most one kTile x kTile tile of the chunk in registers until
+      // every tile has read the chunk's rows of A.  Y (L1^-1, no longer
+      // read) is zeroed for the second Gram meanwhile.
+      const int nt = np / kTile;
+      const int chunk = kTile * (kThreads / nt);
+      for (int r0 = 0; r0 < m; r0 += chunk) {
+        const int tiles = (min(chunk, m - r0) + kTile - 1) / kTile * nt;
+        const int r0t = r0 + tid / nt * kTile, k0 = tid % nt * kTile;
+        float acc[kTile][kTile];
+        if (tid < tiles) q_tile(A, X, r0t, k0, n, np, acc);
+        if (r0 == 0)
+          for (int i = tid; i < np * np; i += kThreads) Y[i] = 0.f;
+        __syncthreads();
+        if (tid < tiles) store_tile(A, r0t, k0, m, np, acc);
+        __syncthreads();
+      }
+    }
+    gram(A, Y, dead, 0.f, m, n, np);
+    // Lc = L2^-1 L1^-1 in A's storage (Q is no longer read): L1^-1's rows
+    // from X, then the factorization in place over them
+    for (int i = tid; i < n * n; i += kThreads) {
+      const int k = i / n, c = i - k * n;
+      A[k * np + c] = X[c * np + k];
+    }
+    chol_linv_rows_inplace(Y, np, A, np, false, n, p.tiny, dinv2);
+    Lc = A;
   }
-  gram(A, Y, dead, 0.f, m, n, np);
-  // Lc = L2^-1 L1^-1 in A's storage (Q is no longer read): L1^-1's rows
-  // from X, then the factorization in place over them
-  float* Lc = A;
-  for (int i = tid; i < n * n; i += kThreads) {
-    const int k = i / n, c = i - k * n;
-    Lc[k * np + c] = X[c * np + k];
-  }
-  chol_linv_rows_inplace(Y, np, Lc, np, false, n, p.tiny, dinv2);
   if (tid < 32) {
     float dmax = 0.f;
     for (int k = tid; k < n; k += 32)
-      dmax = fmaxf(dmax, fmaxf(dinv1[k], dinv1[k] * dinv2[k]));
+      dmax = fmaxf(dmax, kRounds >= 2 ? fmaxf(dinv1[k], dinv1[k] * dinv2[k])
+                                      : dinv1[k]);
     dmax = warp_max(dmax);
     if (tid == 0) s_flag[1] = dmax > kSickDinv;
   }
@@ -448,6 +460,33 @@ size_t launch_smem(const Layout& lay, bool workspace) {
   return lay.small_bytes + (workspace ? 0 : (size_t)lay.big_floats * sizeof(float));
 }
 
+// The dynamic shared memory bytes of a class's launch and the blocks of
+// the kernel's `rounds` instance an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); returns the cudaError_t
+// (0 on success).
+template <int kRounds>
+int occupancy(const Layout& lay, long long* smem_bytes, int* blocks_per_sm) {
+  const size_t smem = launch_smem(lay, !fits_in_smem(lay));
+  *smem_bytes = (long long)smem;
+  cudaError_t err = cudaFuncSetAttribute(
+      gls_solve_kernel<kRounds>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, gls_solve_kernel<kRounds>, kThreads, smem);
+}
+
+// Launch the `rounds` instance; returns the cudaError_t of the launch.
+template <int kRounds>
+int launch(const Params& p, int B, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gls_solve_kernel<kRounds>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  gls_solve_kernel<kRounds><<<B, kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Floats of device workspace per node when a class does not fit in shared
@@ -458,19 +497,11 @@ extern "C" long long gls_solve_workspace_floats(int E, int F,
   return fits_in_smem(lay) ? 0 : lay.big_floats;
 }
 
-// The dynamic shared memory bytes of a class's launch and the blocks of
-// it an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
-// returns the cudaError_t (0 on success).
-extern "C" int gls_solve_occupancy(int E, int F, int with_neumann,
+extern "C" int gls_solve_occupancy(int E, int F, int with_neumann, int rounds,
                                    long long* smem_bytes, int* blocks_per_sm) {
   const Layout lay = make_layout(E, F, with_neumann);
-  const size_t smem = launch_smem(lay, !fits_in_smem(lay));
-  *smem_bytes = (long long)smem;
-  cudaError_t err = cudaFuncSetAttribute(
-      gls_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, gls_solve_kernel, kThreads, smem);
+  return rounds >= 2 ? occupancy<2>(lay, smem_bytes, blocks_per_sm)
+                     : occupancy<1>(lay, smem_bytes, blocks_per_sm);
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 on success).
@@ -480,7 +511,7 @@ extern "C" int gls_solve_launch(
     const int* ks, const unsigned char* cv, const unsigned char* fv,
     const unsigned char* isneu, const unsigned char* valid, double* w,
     double* wn, double* rnorm, float* ws, long long ws_stride, int B, int E,
-    int F, int with_neumann, int sweeps, double tiny, double shift,
+    int F, int with_neumann, int sweeps, int rounds, double tiny, double shift,
     void* stream) {
   const Layout lay = make_layout(E, F, with_neumann);
   if (B <= 0 || E <= 0 || F <= 0 || sweeps < 0 ||
@@ -492,9 +523,6 @@ extern "C" int gls_solve_launch(
            w, wn, rnorm, ws, ws_stride, E, F, with_neumann, sweeps,
            (float)tiny, (float)shift};
   const size_t smem = launch_smem(lay, ws != nullptr);
-  cudaError_t err = cudaFuncSetAttribute(
-      gls_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  gls_solve_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  return rounds >= 2 ? launch<2>(p, B, smem, (cudaStream_t)stream)
+                     : launch<1>(p, B, smem, (cudaStream_t)stream);
 }

@@ -18,7 +18,7 @@ reference orchestrator (ninpol/_interpolator/interpolator.pyx:35-670):
     ``get_data/get_dict`` — named data-array management
     (interpolator.pyx:372-547).
 
-Methods ported so far: "gls".
+Methods: "gls", "idw" and "ls", as in ninpol_tpu.
 
 Deviation from the reference (documented): for target_points subsets the
 reference indexes the weights buffer with global point ids and leaves
@@ -41,6 +41,8 @@ from ._grid.grid import Grid
 from ._io import mesh as meshio_compat
 from ._methods.device_grid import DeviceGrid
 from ._methods.gls import GLSInterpolation
+from ._methods.idw import IDWInterpolation
+from ._methods.ls import LSInterpolation
 from .defines import (DTYPE_F, DTYPE_I, MAX_POINTS_PER_ELEMENT,
                       TYPES_PER_DIMENSION, TYPE_NAME_TO_INDEX,
                       build_type_tables)
@@ -68,7 +70,13 @@ class Interpolator:
         route of the same name, whatever ``shard_geometry`` says: a
         Householder R per node and the corrected semi-normal equations
         (the qr_r and sne_solve kernels of ops/qr.py), again to 1e-10.
-        "auto" (the default) and "cholqr" keep the CholeskyQR2 routes."""
+        "auto" (the default) and "cholqr" keep the CholeskyQR2 routes;
+        any other name runs ninpol_tpu's "refined" route (a float32
+        Householder R of the equilibrated system as preconditioner and
+        ``n_refine`` float64 refinement sweeps), again to 1e-10.
+        ``interp.gls.precond_rounds = 1`` gives the fused solve kernel a
+        single-round CholeskyQR preconditioner (two more sweeps), as
+        ninpol_tpu's fused kernel has; the other routes ignore it."""
         self.is_grid_initialized = False
         self.build_edges = build_edges
         self.logging = logging
@@ -77,8 +85,12 @@ class Interpolator:
 
         self.gls = GLSInterpolation(logging)
         self.gls.fused = not shard_geometry
+        self.idw = IDWInterpolation(logging)
+        self.ls = LSInterpolation(logging)
         self.supported_methods = {
             "gls": self.gls.prepare,
+            "idw": self.idw.prepare,
+            "ls": self.ls.prepare,
         }
 
         self.variable_to_index = {"points": {}, "cells": {}, "faces": {}}

@@ -276,7 +276,7 @@ PLAIN = (gram_f32_reference, chol_linv_f32_reference,
 # ---------------------------------------------------------------------------
 # The preconditioner they compose
 # ---------------------------------------------------------------------------
-def cholqr_factors(A, pieces, tiny=1e-12, shift=1.5e-5):
+def cholqr_factors(A, pieces, tiny=1e-12, shift=1.5e-5, rounds=2):
     """The float32 shifted-CholeskyQR2 preconditioner of the dense float64
     systems A (B, m, n), built from ``pieces`` (KERNELS or PLAIN) as
     ninpol_tpu's unfused route builds it (gls.py:620-648): column
@@ -284,8 +284,10 @@ def cholqr_factors(A, pieces, tiny=1e-12, shift=1.5e-5):
     G2 = (As Li1^T)^T (As Li1^T) + diag(dead), and the combined factor
     Lc = L2^-1 Li1, so M = D Lc^T Lc D.  ``sick`` flags a clamped pivot in
     either round: max(|diag Li1|, |diag Lc|) > SICK_DINV, or not finite (a
-    clamped pivot can overflow the factor).  Returns every stage, keyed
-    by name."""
+    clamped pivot can overflow the factor).  ``rounds`` < 2 stops after
+    the first round, as ninpol_tpu's fused kernel does
+    (pallas_chol.py:643-669): Lc = Li1 and G2 = None, ``sick`` from Li1
+    alone.  Returns every stage, keyed by name."""
     gram, chol_linv, round2, _ = pieces
     n = A.shape[2]
     A32 = A.to(_F32)
@@ -297,10 +299,13 @@ def cholqr_factors(A, pieces, tiny=1e-12, shift=1.5e-5):
     deadf = dead.to(_F32)
     G1 = gram(As) + eye * (deadf + shift)[:, :, None]
     Li1 = chol_linv(G1, tiny)
-    G2 = round2(As, Li1) + eye * deadf[:, :, None]
-    Lc = chol_linv(G2, tiny, mul_right=Li1)
-    dmax = torch.maximum(
-        Li1.diagonal(dim1=1, dim2=2).abs().amax(dim=1),
-        Lc.diagonal(dim1=1, dim2=2).abs().amax(dim=1))
+    dmax = Li1.diagonal(dim1=1, dim2=2).abs().amax(dim=1)
+    if rounds < 2:
+        G2, Lc = None, Li1
+    else:
+        G2 = round2(As, Li1) + eye * deadf[:, :, None]
+        Lc = chol_linv(G2, tiny, mul_right=Li1)
+        dmax = torch.maximum(dmax,
+                             Lc.diagonal(dim1=1, dim2=2).abs().amax(dim=1))
     return dict(D=D, As=As, G1=G1, Li1=Li1, G2=G2, Lc=Lc,
                 sick=~(dmax <= SICK_DINV))

@@ -35,6 +35,11 @@ the right-hand side, the solution, the structured residual with the
 unscaled A, and all outputs are float64.  Breakdown detection reads both
 rounds: dmax = max_k max(dinv1[k], dinv1[k] * dinv2[k]) > 3e4.
 
+``rounds`` (ninpol_tpu's ``GLSInterpolation.precond_rounds``, 2 by
+default) < 2 stops the preconditioner after its first round, as the TPU
+kernel does (pallas_chol.py:643-669): M = D L1^-T L1^-1 D, breakdown from
+dinv1 alone.  Its caller then runs two more sweeps (ninpol_tpu gls.py:277).
+
 On a CPU tensor ``gls_solve`` runs ``gls_solve_reference``; on a CUDA
 tensor it launches the kernel in ``csrc/gls_solve.cu`` (built with nvcc on
 first use by ``cuda_lib.CudaLibrary``) or raises.  The plain version is
@@ -111,10 +116,12 @@ def assemble(dk, l1, l2, t1m, tt, lb, S1, S2, Sb, cv, active):
 
 
 def cholqr2_solve(pieces, dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv,
-                  isneu, valid, *, sweeps=3, tiny=1e-12, shift=1.5e-5):
+                  isneu, valid, *, sweeps=3, tiny=1e-12, shift=1.5e-5,
+                  rounds=2):
     """The solve as batched dense torch ops around the four preconditioner
     pieces of ops/cholqr.py (``cholqr.KERNELS`` or ``cholqr.PLAIN``): the
-    dense float64 A, the float32 factors of ``cholqr_factors``, then
+    dense float64 A, the float32 factors of ``cholqr_factors`` (of its
+    ``rounds``), then
 
       y = M e_n, then ``sweeps`` times y += M (e_n - A^T A y)
 
@@ -130,7 +137,7 @@ def cholqr2_solve(pieces, dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv,
     S1, S2, Sb = incidence(pair, ks, cv, fv, isneu)
     active = node_active(pair, fv, valid)
     A = assemble(dk, l1, l2, t1m, tt, lb, S1, S2, Sb, cv, active)
-    pc = cholqr_factors(A, pieces, tiny, shift)
+    pc = cholqr_factors(A, pieces, tiny, shift, rounds)
     prec_apply = pieces[3]
     D, Lc = pc["D"].to(f64), pc["Lc"]
 
@@ -175,13 +182,13 @@ def solve_outputs(A, y, rnorm, nm, active, E, F):
 
 def gls_solve_reference(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv,
                         isneu, valid, *, sweeps=3, tiny=1e-12,
-                        shift=1.5e-5):
+                        shift=1.5e-5, rounds=2):
     """Plain PyTorch version of the kernel: the same function, as batched
     dense torch ops (dense A, explicit factors from the plain versions of
     ops/cholqr.py, so it stays plain on a CUDA tensor)."""
     return cholqr2_solve(PLAIN, dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv,
                          fv, isneu, valid, sweeps=sweeps, tiny=tiny,
-                         shift=shift)
+                         shift=shift, rounds=rounds)
 
 
 # ---------------------------------------------------------------------------
@@ -193,22 +200,25 @@ def _bind(lib):
     lib.gls_solve_workspace_floats.restype = ctypes.c_longlong
     lib.gls_solve_launch.argtypes = (
         [vp] * 13 + [vp] * 3 + [vp, ctypes.c_longlong]
-        + [ci] * 5 + [ctypes.c_double] * 2 + [vp])
+        + [ci] * 6 + [ctypes.c_double] * 2 + [vp])
     lib.gls_solve_launch.restype = ci
     lib.gls_solve_occupancy.argtypes = [
-        ci, ci, ci, ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ci)]
+        ci, ci, ci, ci, ctypes.POINTER(ctypes.c_longlong),
+        ctypes.POINTER(ci)]
     lib.gls_solve_occupancy.restype = ci
 
 
 library = CudaLibrary("gls_solve", _bind)
 
 
-def occupancy(E, F, with_neumann):
+def occupancy(E, F, with_neumann, rounds=2):
     """(dynamic shared memory bytes, blocks an SM holds) of the kernel's
-    launch for one (E, F, with_neumann) class, on the current card."""
+    launch for one (E, F, with_neumann) class and preconditioner rounds,
+    on the current card."""
     smem, blocks = ctypes.c_longlong(), ctypes.c_int()
     check_launch(library.get().gls_solve_occupancy(
-        E, F, int(with_neumann), ctypes.byref(smem), ctypes.byref(blocks)),
+        E, F, int(with_neumann), int(rounds), ctypes.byref(smem),
+        ctypes.byref(blocks)),
         f"gls_solve occupancy query (E={E}, F={F})")
     return smem.value, blocks.value
 
@@ -238,7 +248,7 @@ def _check_inputs(t):
 
 
 def gls_solve(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu, valid,
-              *, sweeps=3, tiny=1e-12, shift=1.5e-5):
+              *, sweeps=3, tiny=1e-12, shift=1.5e-5, rounds=2):
     """Solve B GLS node systems; see the module docstring for the
     contract.  CPU tensors run the plain version, CUDA tensors the
     kernel; ``gls_solve.launches`` counts kernel launches."""
@@ -247,7 +257,7 @@ def gls_solve(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu, valid,
     B, E, F = _check_inputs(t)
     if not on_card(dk, "gls_solve"):
         return gls_solve_reference(**t, sweeps=sweeps, tiny=tiny,
-                                   shift=shift)
+                                   shift=shift, rounds=rounds)
     f64 = torch.float64
     w = torch.empty((B, E), dtype=f64, device=dk.device)
     wn = torch.empty(B, dtype=f64, device=dk.device)
@@ -265,8 +275,8 @@ def gls_solve(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu, valid,
             ptr(dk), ptr(l1), ptr(l2), ptr(t1m), ptr(tt), ptr(lb), ptr(nm),
             ptr(pair), ptr(ks), ptr(cv), ptr(fv), ptr(isneu), ptr(valid),
             ptr(w), ptr(wn), ptr(rnorm), ptr(ws), ws_floats,
-            B, E, F, int(with_neumann), int(sweeps), float(tiny),
-            float(shift), stream())
+            B, E, F, int(with_neumann), int(sweeps), int(rounds),
+            float(tiny), float(shift), stream())
     check_launch(err, f"gls_solve (B={B}, E={E}, F={F}, "
                       f"with_neumann={with_neumann})")
     gls_solve.launches += 1

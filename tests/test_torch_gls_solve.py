@@ -75,31 +75,40 @@ def _untile(x):
     return np.transpose(x, (0, 2, 1)).reshape(-1, x.shape[1])
 
 
-def test_plain_matches_pallas_kernel_on_neumann_tile():
-    """One 128-node Neumann tile of an ALH tetra_mesh(2): gls_solve_fused
-    in interpret mode on its df32 planes vs gls_solve_reference on the
-    same planes rebuilt as float64 (interop.tiles_from_reference), at the
-    reference's 1e-10 bar."""
+@pytest.fixture(scope="module")
+def neumann_tile():
+    """One 128-node Neumann tile of an ALH tetra_mesh(2): ninpol_tpu's
+    gathered tiles, the port's float64 solve inputs rebuilt from them,
+    the reference interpolator and its bucket."""
     case, ref = _reference("tetra", 2)
     bucket, args = _ref_bucket(ref, case.name, neumann=True)
     tiles = ref_gls._gls_gather_fused(*args, E=bucket["E"], F=bucket["F"],
                                       wneu=True)
+    inp = tiles_from_reference(tiles)
+    inp = _torch({k: None if v is None else v[:128] for k, v in inp.items()})
+    return case, ref, bucket, tiles, inp
+
+
+def _hold_to_interpret_kernel(neumann_tile, rounds, sweeps):
+    """gls_solve_fused(rounds=) in interpret mode on the tile's df32
+    planes vs the plain version (cholqr2_solve on cholqr.PLAIN) on the
+    same planes rebuilt as float64, at the reference's 1e-10 bar, on the
+    nodes the interpret kernel calls converged; the others to dgels."""
+    case, ref, bucket, tiles, inp = neumann_tile
     tile = [t[:1] for t in tiles[:8]]                 # one 128-node tile
     old = pallas_chol.INTERPRET
     pallas_chol.INTERPRET = True
     try:
         wh, wl, wnh, wnl, rn = pallas_chol.gls_solve_fused(
-            *tile, True, sweeps=3)
+            *tile, True, sweeps=sweeps, rounds=rounds)
     finally:
         pallas_chol.INTERPRET = old
     w_ref = _untile(wh).astype(np.float64) + _untile(wl)
     wn_ref = (_untile(wnh).astype(np.float64) + _untile(wnl))[:, 0]
     rn_ref = _untile(rn)[:, 0].astype(np.float64)
 
-    inp = tiles_from_reference(tiles)
-    inp = _torch({k: None if v is None else v[:128] for k, v in inp.items()})
     assert inp["lb"] is not None and inp["valid"].any()
-    w, wn, rnorm = gls_solve_reference(**inp)
+    w, wn, rnorm = gls_solve_reference(**inp, sweeps=sweeps, rounds=rounds)
     w, wn, rnorm = w.numpy(), wn.numpy(), rnorm.numpy()
     act = np.asarray(tiles[8])[:128]
     assert act.sum() >= 8
@@ -124,6 +133,22 @@ def test_plain_matches_pallas_kernel_on_neumann_tile():
         assert np.abs(wn[flagged] - NWo).max() / scale < TOL
     # inactive rows are exactly zero
     assert not w[~act].any() and not rnorm[~act].any()
+
+
+def test_plain_matches_pallas_kernel_on_neumann_tile(neumann_tile):
+    """One 128-node Neumann tile of an ALH tetra_mesh(2): gls_solve_fused
+    in interpret mode on its df32 planes vs gls_solve_reference on the
+    same planes rebuilt as float64 (interop.tiles_from_reference), at the
+    reference's 1e-10 bar."""
+    _hold_to_interpret_kernel(neumann_tile, rounds=2, sweeps=3)
+
+
+def test_plain_one_round_matches_pallas_kernel_on_neumann_tile(
+        neumann_tile):
+    """precond_rounds = 1 on the same tile: the TPU kernel's single-round
+    preconditioner with its two more sweeps (ninpol_tpu gls.py:277) vs
+    the plain version at rounds = 1, by the same rule."""
+    _hold_to_interpret_kernel(neumann_tile, rounds=1, sweeps=5)
 
 
 @pytest.mark.parametrize("neumann", [False, True])

@@ -129,7 +129,7 @@ def test_prec_apply_does_not_read_the_upper_triangle(emu, path):
         < TOL_F32
 
 
-def _solve(lib, inp, ws_floats=0):
+def _solve(lib, inp, ws_floats=0, sweeps=3, rounds=2):
     """The fused kernel on CPU tensors, as ops/gls_solve.py launches it."""
     B, E, _ = inp["dk"].shape
     F = inp["l1"].shape[1]
@@ -140,7 +140,7 @@ def _solve(lib, inp, ws_floats=0):
     args = [inp[k] for k in ("dk", "l1", "l2", "t1m", "tt", "lb", "nm",
                              "pair", "ks", "cv", "fv", "isneu", "valid")]
     _call(lib.gls_solve_launch, *args, w, wn, rnorm, ws, ws_floats, B, E, F,
-          int(inp["lb"] is not None), 3, 1e-12, 1.5e-5)
+          int(inp["lb"] is not None), sweeps, rounds, 1e-12, 1.5e-5)
     return w, wn, rnorm
 
 
@@ -173,6 +173,28 @@ def test_gls_solve_kernel_matches_plain_version(emu, neumann):
     assert torch.equal(rk > RNORM_TOL, rp > RNORM_TOL)
     inactive = ~inp["valid"]
     assert not wk[inactive].any() and not rk[inactive].any()
+
+
+@pytest.mark.parametrize("neumann", [False, True])
+def test_gls_solve_one_round_matches_plain_version(emu, neumann):
+    """The kernel's rounds = 1 instance (precond_rounds = 1: M from L1^-1
+    alone, five sweeps) against the plain version at rounds = 1, by
+    phase 4's rule: weights to 1e-10 scaled on the nodes both call
+    converged, the same rnorm > 1e-11 sets.  The rank-deficient node
+    does not clamp a pivot in one round: the shift keeps G1 definite.
+    Few nodes: five emulated sweeps of the interior class are slow."""
+    inp, _ = _sick_chunk(neumann, 8 if neumann else 4)
+    wk, wnk, rk = _solve(emu["gls_solve"], inp, sweeps=5, rounds=1)
+    wp, wnp, rp = gs.gls_solve_reference(**inp, sweeps=5, rounds=1)
+    conv = (rk <= RNORM_TOL) & (rp <= RNORM_TOL)
+    assert conv.sum().item() >= 4
+    scale = max(wp[conv].abs().max().item(), 1.0)
+    assert (wk - wp)[conv].abs().max().item() / scale < TOL
+    assert (wnk - wnp)[conv].abs().max().item() / scale < TOL
+    assert torch.equal(rk > RNORM_TOL, rp > RNORM_TOL)
+    # the one-round preconditioner converges more slowly than two rounds
+    _, _, r2 = gs.gls_solve_reference(**inp, sweeps=5, rounds=2)
+    assert (rk[conv] > r2[conv]).any()
 
 
 @pytest.mark.parametrize("neumann", [False, True])
@@ -209,5 +231,6 @@ def test_gls_solve_shared_memory_per_class(emu, E, F, neumann, smem, blocks):
     blocks of every class."""
     got_smem, got_blocks = ctypes.c_longlong(), ctypes.c_int()
     assert emu["gls_solve"].gls_solve_occupancy(
-        E, F, neumann, ctypes.byref(got_smem), ctypes.byref(got_blocks)) == 0
+        E, F, neumann, 2, ctypes.byref(got_smem),
+        ctypes.byref(got_blocks)) == 0
     assert (got_smem.value, got_blocks.value) == (smem, blocks)

@@ -284,15 +284,6 @@ def test_csne_route_calls_each_piece_per_chunk(setups, monkeypatch, fam, n):
                      **dict.fromkeys(others, 0)}
 
 
-def test_unknown_solver_raises(setups):
-    case, _ = setups("hexa", 3)
-    port = ninpol_tpu_torch.Interpolator(device="cpu")
-    port.load_mesh(mesh_obj=case.mesh)
-    port.gls.solver = "refined"
-    with pytest.raises(ValueError, match="GLS solver must be one of"):
-        port.interpolate(case.name, "gls")
-
-
 def test_solver_is_part_of_the_prepared_weights_cache_key(setups,
                                                           monkeypatch):
     """interpolate() caches prepared weights; switching the solver must

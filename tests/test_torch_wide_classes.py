@@ -2,9 +2,8 @@
 (shard_geometry=True) and CSNE (solver="pallas") routes of the PyTorch
 port: each kernel of csrc/cholqr.cu and csrc/qr.cu runs the same code on
 a per-node device workspace, here through the CPU emulator of
-tests/utils/cuda_emu; and the GLS setting ``precond_rounds``, of which
-only the default is ported.  Needs g++ (C++20) for the emulated
-kernels."""
+tests/utils/cuda_emu; and the GLS setting ``precond_rounds`` on each
+route.  Needs g++ (C++20) for the emulated kernels."""
 import ctypes
 
 import numpy as np
@@ -368,18 +367,26 @@ def hexa_case():
 
 
 @pytest.mark.parametrize("route", ["fused", "shard_geometry", "pallas"])
-def test_precond_rounds_other_than_two_raises(hexa_case, route):
-    """ninpol_tpu's GLS setting precond_rounds exists on the port with
-    its default, 2; any other value raises on every route, and is part
-    of the prepared-weights cache key, so a cached result is not served
-    for it either."""
+def test_precond_rounds_one_changes_only_the_fused_route(hexa_case, route):
+    """ninpol_tpu's GLS setting precond_rounds = 1 runs the fused route's
+    single-round preconditioner (a different rounding of the same
+    weights); the unfused and CSNE routes ignore it, as ninpol_tpu's do,
+    and give the same weights bit for bit.  It is part of the
+    prepared-weights cache key, so a cached result is not served for it."""
     port = ninpol_tpu_torch.Interpolator(
         device="cpu", shard_geometry=route == "shard_geometry")
     port.load_mesh(mesh_obj=hexa_case.mesh)
     if route == "pallas":
         port.gls.solver = "pallas"
     assert port.gls.precond_rounds == 2
-    port.interpolate(hexa_case.name, "gls")
+    M2, _ = port.interpolate(hexa_case.name, "gls")
+    keys = set(port._prep_cache)
     port.gls.precond_rounds = 1
-    with pytest.raises(ValueError, match="precond_rounds must be 2"):
-        port.interpolate(hexa_case.name, "gls")
+    M1, _ = port.interpolate(hexa_case.name, "gls")
+    assert set(port._prep_cache) - keys
+    np.testing.assert_array_equal(M1.indices, M2.indices)
+    if route == "fused":
+        assert not np.array_equal(M1.data, M2.data)
+        assert np.abs(M1.data - M2.data).max() < TOL
+    else:
+        np.testing.assert_array_equal(M1.data, M2.data)
