@@ -1,4 +1,5 @@
-"""On-card smoke check of the PyTorch port (ninpol_tpu_torch) on one GPU.
+"""On-card smoke check of the PyTorch port (ninpol_tpu_torch) on one GPU
+(phase 9 spans every card there is).
 
 Drives the port's GLS main path — the path bench.py times for ninpol_tpu:
 GLS weights with Neumann nodes, on the 1,886,592-cell tetrahedral mesh,
@@ -101,10 +102,25 @@ hexahedral one, and checks them all:
      and on 2048 sampled nodes against idw_oracle / ls_oracle, same
      bounds; the Neumann vector all zeros.
 
+  9. multi-device interpolation, Interpolator(mesh=...) on tetra_mesh(n):
+     the mesh is every card (at most 8) where torch finds two or more,
+     else ["cuda:0", "cuda:0"], two logical shards on one card.
+     Replicated geometry on the fused route and on solver="pallas", and
+     partitioned geometry (shard_geometry=True) on the unfused route,
+     each through main_path (launches: one chunk per shard chunk of
+     each class), its weights and Neumann vector within 1e-11 absolute
+     of phase 5's, 5c's and 5b's, the same n_bad, the peak memory of
+     each distinct card over its runs; one profiled run of each
+     geometry mode (busy and idle share of each distinct card, host
+     and device ms of the cross-part gathers and of the device-to-device
+     merges); the geometry bytes each shard holds in both modes; IDW
+     within 1e-13 and LS within 1e-11 (where |denom| > 1e-8) of phase
+     8's weights in both modes.
+
 Each phase prints its seconds.  Any failing phase raises (non-zero
-exit).  The last three lines are the card, the kernels JSON line (kernel
-1's entry also holds its single-round instance's rows and times) and
-{"ok": true, "device": {...}}.
+exit).  The last four lines are the mesh JSON line (phase 9), the card,
+the kernels JSON line (kernel 1's entry also holds its single-round
+instance's rows and times) and {"ok": true, "device": {...}}.
 
 Run: python3 chip_smoke.py     (options: --n N, the tet mesh size;
 --hexa N, phase 8's hexa mesh; --n-round1 N, phase 7's tet mesh)
@@ -135,6 +151,8 @@ QR_RATIO = 10.0
 # nodes any route may send to the exact fallback: every node of this
 # problem converges in the fast solve on the H100 (tetra_mesh(68))
 MAX_BAD = 0
+# phase 9: a mesh's weights against one device's (tests/test_sharding.py)
+MESH_TOL = 1e-11
 # H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 off the tensor cores,
 # FP64 on them (DMMA; 34e12 off them), and HBM3 bandwidth; bound_ms takes
 # the larger of the two times
@@ -179,18 +197,19 @@ def bound(flops, nbytes, peak=PEAK_FP32):
             "operations" if t_ops > t_bytes else "bytes")
 
 
-def build_problem(n, shard_geometry=False, family="tetra"):
+def build_problem(n, shard_geometry=False, family="tetra", mesh=None):
     """bench.py:33-101 with the port's meshgen and Interpolator: a
     ~6n^3-cell tet mesh (``family`` "hexa": n^3 hexahedra), ALH-style
     varying full-tensor K, u = x^2+y^2+z^2, seeded Dirichlet/Neumann
     split, Neumann flux -(K grad u).n at boundary-face centers averaged
-    onto the points."""
+    onto the points.  ``mesh`` and ``shard_geometry`` go to the
+    Interpolator."""
     from ninpol_tpu_torch import Interpolator
     from ninpol_tpu_torch.utils import meshgen
 
-    mesh = getattr(meshgen, f"{family}_mesh")(n)
-    pts = mesh.points
-    cells = mesh.cells[0].data
+    mesh_obj = getattr(meshgen, f"{family}_mesh")(n)
+    pts = mesh_obj.points
+    cells = mesh_obj.cells[0].data
     cents = pts[cells].mean(axis=1)
     x, y, z = cents[:, 0], cents[:, 1], cents[:, 2]
     K = np.zeros((len(cells), 3, 3))
@@ -202,11 +221,11 @@ def build_problem(n, shard_geometry=False, family="tetra"):
     K[:, 2, 2] = x * x + y * y + 1
     sol = x ** 2 + y ** 2 + z ** 2
 
-    interp = Interpolator(shard_geometry=shard_geometry)
-    mesh.cell_data = {"permeability": [K.reshape(-1, 9)], "u": [sol]}
-    mesh.point_data = {}
+    interp = Interpolator(shard_geometry=shard_geometry, mesh=mesh)
+    mesh_obj.cell_data = {"permeability": [K.reshape(-1, 9)], "u": [sol]}
+    mesh_obj.point_data = {}
     t0 = time.perf_counter()
-    interp.load_mesh(mesh_obj=mesh)
+    interp.load_mesh(mesh_obj=mesh_obj)
     build_s = time.perf_counter() - t0
     grid = interp.grid
 
@@ -252,6 +271,23 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def sync_all():
+    """Wait for every card (a mesh may span several)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def route_chunks(classes, mesh=None):
+    """Solve chunks a run of the route's main path: each class's nodes
+    split over the mesh's shards (one shard without a mesh), each shard's
+    part cut at the class's chunk."""
+    from ninpol_tpu_torch.parallel import schedule
+
+    shards = 1 if mesh is None else mesh.size
+    return sum(len(schedule(len(c["nodes"]), shards, c["chunk"]))
+               for c in classes)
 
 
 def hold_solve(inp, sweeps, rounds):
@@ -903,12 +939,14 @@ def refined_vs_fused(interp, tp):
     return rows
 
 
-def main_path(interp, tp, classes, label, max_bad=MAX_BAD, with_csr=True):
-    """Phase 5 (5b, 5c, 5d): the public entry points of one route,
-    counting every kernel's launches and every plain version's calls:
-    a warm-up, 3 timed device_out runs and, ``with_csr``, interpolate().
-    More than ``max_bad`` nodes sent to the exact fallback fail it (None:
-    any number)."""
+def main_path(interp, tp, classes, label, max_bad=MAX_BAD, with_csr=True,
+              route=None):
+    """Phase 5 (5b, 5c, 5d; 9 on a mesh): the public entry points of one
+    route (``route``, default ``label``: a key of PER_CHUNK), counting
+    every kernel's launches and every plain version's calls: a warm-up, 3
+    timed device_out runs and, ``with_csr``, interpolate().  More than
+    ``max_bad`` nodes sent to the exact fallback fail it (None: any
+    number)."""
     from ninpol_tpu_torch.ops import cholqr as cq
     from ninpol_tpu_torch.ops import gls_solve as gs
     from ninpol_tpu_torch.ops import qr
@@ -930,7 +968,7 @@ def main_path(interp, tp, classes, label, max_bad=MAX_BAD, with_csr=True):
 
     for mod, name, fn in saved:
         setattr(mod, name, counting(fn, name))
-    chunks = sum(-(-len(c["nodes"]) // c["chunk"]) for c in classes)
+    chunks = route_chunks(classes, interp.mesh)
     for w in wrappers.values():
         w.launches = 0
     try:
@@ -939,11 +977,11 @@ def main_path(interp, tp, classes, label, max_bad=MAX_BAD, with_csr=True):
         warm_s = time.perf_counter() - t0
         times = []
         for _ in range(3):
-            torch.cuda.synchronize()
+            sync_all()
             t0 = time.perf_counter()
             wdev = interp.prepare_interpolator("gls", "u", tp,
                                                device_out=True)
-            torch.cuda.synchronize()
+            sync_all()
             times.append(time.perf_counter() - t0)
         n_bad = interp.gls.last_n_bad
         if with_csr:
@@ -955,7 +993,8 @@ def main_path(interp, tp, classes, label, max_bad=MAX_BAD, with_csr=True):
         for mod, name, fn in saved:
             setattr(mod, name, fn)
     runs = 5 if with_csr else 4     # warm-up, 3 timed[, interpolate]
-    want = {k: runs * chunks * PER_CHUNK[label].get(k, 0) for k in wrappers}
+    per_chunk = PER_CHUNK[route or label]
+    want = {k: runs * chunks * per_chunk.get(k, 0) for k in wrappers}
     check(launches == want,
           f"{label}: kernel launches {launches} != {want} ({runs} runs x "
           f"{chunks} chunks): some class did not go through the kernels")
@@ -1119,7 +1158,9 @@ def simple_methods(interp, label):
     profiled run each; the card's weights held on every node to the
     port's own run on the CPU (IDW <= 1e-13 absolute, LS <= 1e-11 where
     |denom| > 1e-8), and on 2048 sampled nodes to idw_oracle /
-    ls_oracle (same bounds); the Neumann vector all zeros."""
+    ls_oracle (same bounds); the Neumann vector all zeros.  Returns the
+    stats, and each method's weights with the mask of nodes held to a
+    bound."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from utils.oracle import idw_oracle, ls_oracle
     from ninpol_tpu_torch._methods.device_grid import DeviceGrid
@@ -1133,7 +1174,7 @@ def simple_methods(interp, label):
     cpu_grid_s = time.perf_counter() - t0
     sample = np.sort(np.random.default_rng(2).choice(
         tp, min(2048, len(tp)), replace=False))
-    out = {}
+    out, weights = {}, {}
     for method, tol in (("idw", 1e-13), ("ls", 1e-11)):
         t0 = time.perf_counter()
         W, NW = interp.prepare_interpolator(method, "u", tp)
@@ -1205,7 +1246,177 @@ def simple_methods(interp, label):
         check(oracle_err <= tol, f"{method} {label}: card vs oracle "
                                  f"{oracle_err:.3e} > {tol}")
         out[method] = stats
-        del W, NW, Wc, wdev, host, csr
+        weights[method] = (W, held)
+        del NW, Wc, wdev, host, csr
+    return out, weights
+
+
+def mesh_devices():
+    """Phase 9's mesh: every card (at most 8) where torch finds two or
+    more, else two logical shards on cuda:0."""
+    n = torch.cuda.device_count()
+    return ([f"cuda:{i}" for i in range(min(n, 8))] if n >= 2
+            else ["cuda:0", "cuda:0"])
+
+
+def mesh_profile(interp, tp, label):
+    """One device_out GLS run on a mesh under torch.profiler: device busy
+    ms and idle share of each distinct card (the union of its kernel and
+    copy intervals), and the host and device ms of the cross-part gathers
+    and of the device-to-device merges (their profiler ranges)."""
+    from torch.profiler import ProfilerActivity, profile
+    from ninpol_tpu_torch.parallel.sharding import GATHER_RANGE, MERGE_RANGE
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync_all()
+        t0 = time.perf_counter()
+        interp.prepare_interpolator("gls", "u", tp, device_out=True)
+        sync_all()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges = {GATHER_RANGE: [0, 0.0, 0.0], MERGE_RANGE: [0, 0.0, 0.0]}
+    spans = {}
+    for e in prof.events():
+        if e.name in ranges:
+            if e.device_type != cuda:
+                r = ranges[e.name]
+                r[0] += 1
+                r[1] += e.time_range.elapsed_us() / 1e3
+                r[2] += e.device_time_total / 1e3
+            continue
+        if e.device_type == cuda:
+            spans.setdefault(e.device_index, []).append(
+                (e.time_range.start, e.time_range.end))
+    cards = {}
+    for dev, iv in sorted(spans.items()):
+        busy, end = 0.0, None
+        for a, b in sorted(iv):
+            if end is None or a > end:
+                busy += b - a
+                end = b
+            elif b > end:
+                busy += b - end
+                end = b
+        cards[f"cuda:{dev}"] = {"busy_ms": busy / 1e3,
+                                "idle_share": 1.0 - busy / 1e3 / wall_ms,
+                                "events": len(iv)}
+    stats = {"wall_ms": wall_ms, "cards": cards,
+             **{f"{key}_{name}": ranges[rng][i]
+                for key, rng in (("gather", GATHER_RANGE),
+                                 ("merge", MERGE_RANGE))
+                for i, name in enumerate(("calls", "host_ms", "device_ms"))}}
+    print(f"# profile {label} " + json.dumps(stats), flush=True)
+    check(cards, f"{label}: the profile shows no device event")
+    return stats
+
+
+def mesh_run(interp, tp, classes, label, route, ref, mesh, profiled=False):
+    """One GLS route of phase 9 through ``main_path`` on a mesh (launch
+    counts per shard chunk, n_bad, device_out against host delivery),
+    its weights and Neumann vector within 1e-11 absolute of the
+    single-device ``ref`` = (W, NW, stats), the same n_bad, the peak
+    memory of each distinct card over its runs and, ``profiled``, one
+    profiled run."""
+    for d in mesh.distinct:
+        torch.cuda.reset_peak_memory_stats(d)
+    W, NW, stats = main_path(interp, tp, classes, label, route=route)
+    stats["peak_bytes"] = {str(d): torch.cuda.max_memory_allocated(d)
+                           for d in mesh.distinct}
+    W1, NW1, stats1 = ref
+    gap = float(max(np.abs(W - W1).max(), np.abs(NW - NW1).max()))
+    stats.update(max_abs_diff_vs_single=gap,
+                 single_best_s=stats1["best_s"],
+                 over_single=stats["best_s"] / stats1["best_s"])
+    print(f"# {label} vs single device " + json.dumps(
+        {k: stats[k] for k in ("max_abs_diff_vs_single", "best_s",
+                               "single_best_s", "over_single", "n_bad",
+                               "peak_bytes")}), flush=True)
+    check(gap <= MESH_TOL, f"{label}: {gap:.3e} from the single-device "
+                           f"weights (limit {MESH_TOL})")
+    check(stats["n_bad"] == stats1["n_bad"],
+          f"{label}: n_bad {stats['n_bad']} != single-device "
+          f"{stats1['n_bad']}")
+    if profiled:
+        stats["profile"] = mesh_profile(interp, tp, label)
+    return stats
+
+
+def mesh_simple(interp, tp, label, ref):
+    """IDW and LS on a mesh: one warm-up and one timed device_out run
+    each, within 1e-13 (IDW, every node) and 1e-11 (LS, where |denom| >
+    1e-8) of phase 8's single-device weights ``ref[method]`` = (W,
+    held)."""
+    out = {}
+    for method, tol in (("idw", 1e-13), ("ls", 1e-11)):
+        interp.prepare_interpolator(method, "u", tp, device_out=True)
+        sync_all()
+        t0 = time.perf_counter()
+        wdev = interp.prepare_interpolator(method, "u", tp, device_out=True)
+        sync_all()
+        secs = time.perf_counter() - t0
+        W1, held = ref[method]
+        host = wdev.cpu().numpy()
+        with np.errstate(invalid="ignore"):
+            err = float(np.abs(host[:, :-1] - W1)[held].max())
+        out[method] = {"device_out_s": secs, "max_abs_diff_vs_single": err,
+                       "nodes_held": int(held.sum())}
+        check(err <= tol, f"{method} {label}: {err:.3e} from the "
+                          f"single-device weights (limit {tol})")
+        check(not host[:, -1].any(), f"{method} {label}: a Neumann weight "
+                                     f"is not zero")
+    print(f"# idw/ls {label} " + json.dumps(out), flush=True)
+    return out
+
+
+def mesh_phase(n, ref):
+    """Phase 9: multi-device interpolation (Interpolator(mesh=...)) on
+    tetra_mesh(n), replicated and partitioned geometry, against the
+    single-device results of phases 5, 5b, 5c and 8 (``ref``)."""
+    from ninpol_tpu_torch.parallel import Mesh
+
+    mesh = Mesh(mesh_devices())
+    info = {"devices": [str(d) for d in mesh.devices],
+            "distinct_cards": len(mesh.distinct),
+            "names": [torch.cuda.get_device_name(d) for d in mesh.distinct]}
+    print("# mesh devices " + json.dumps(info), flush=True)
+    out = {"mesh": info}
+
+    rep, _ = build_problem(n, mesh=mesh)
+    tp = np.arange(rep.grid.n_points)
+    dg = rep.device_grid
+    classes, face_table, nflag = rep.gls.plan(
+        dg, rep.cells_data, rep.points_data, rep.variable_to_index, "u", tp)
+    out["chunks_per_run"] = route_chunks(classes, mesh)
+    out["replicated_geometry_bytes"] = dg.geometry_bytes(
+        (face_table, nflag))
+    out["replicated_fused"] = mesh_run(rep, tp, classes, "mesh replicated "
+                                       "fused", "fused", ref["fused"], mesh,
+                                       profiled=True)
+    rep.gls.solver = "pallas"
+    out["replicated_pallas"] = mesh_run(rep, tp, classes, "mesh replicated "
+                                        "pallas", "pallas", ref["pallas"],
+                                        mesh)
+    rep.gls.solver = "auto"
+    out["replicated_idw_ls"] = mesh_simple(rep, tp, "mesh replicated", ref)
+    del rep, dg, face_table, nflag
+
+    part, _ = build_problem(n, shard_geometry=True, mesh=mesh)
+    dg = part.device_grid
+    _, face_table, nflag = part.gls.plan(
+        dg, part.cells_data, part.points_data, part.variable_to_index, "u",
+        tp)
+    out["partitioned_geometry_bytes"] = dg.geometry_bytes(
+        (face_table, nflag))
+    out["partitioned_unfused"] = mesh_run(
+        part, tp, classes, "mesh partitioned unfused", "shard_geometry",
+        ref["shard_geometry"], mesh, profiled=True)
+    out["partitioned_idw_ls"] = mesh_simple(part, tp, "mesh partitioned",
+                                            ref)
+    del part, dg, face_table, nflag
+    print("# mesh geometry bytes " + json.dumps(
+        {k: out[k] for k in ("replicated_geometry_bytes",
+                             "partitioned_geometry_bytes")}), flush=True)
     return out
 
 
@@ -1323,7 +1534,7 @@ def main():
             {"max_scaled_diff": float(gap)}), flush=True)
         check(gap <= TOL_ORACLE, f"{label} weights differ from the fused "
                                  f"route's by {gap:.3e} scaled")
-    del unfused, Wu, NWu, Wc, NWc, Wr, NWr
+    del unfused, Wr, NWr
     phase_done("6 oracle")
 
     # ---- 7. the single-round preconditioner through the public API
@@ -1331,7 +1542,7 @@ def main():
     phase_done("7 rounds=1 route")
 
     # ---- 8. IDW and LS on the tet mesh and on a hexa mesh
-    simple_methods(interp, f"tetra_mesh({args.n})")
+    _, simple_w = simple_methods(interp, f"tetra_mesh({args.n})")
     phase_done("8 idw/ls tetra")
     del interp
     t0 = time.perf_counter()
@@ -1342,6 +1553,13 @@ def main():
     simple_methods(hexa, f"hexa_mesh({args.hexa})")
     del hexa
     phase_done("8 idw/ls hexa")
+
+    # ---- 9. multi-device: replicated and partitioned geometry
+    mesh_stats = mesh_phase(args.n, {
+        "fused": (W, NW, stats), "shard_geometry": (Wu, NWu, stats_u),
+        "pallas": (Wc, NWc, stats_c), **simple_w})
+    del W, NW, Wu, NWu, Wc, NWc, simple_w
+    phase_done("9 mesh")
     print(f"# total: {time.perf_counter() - t_run:.2f} s", flush=True)
 
     def entry(name, source, replaces, launches, rows, top,
@@ -1377,6 +1595,7 @@ def main():
         top_q = max(rows_q[name], key=lambda r: r["chunk"])
         kernels.append(entry(name, "qr.cu", line, stats_c["launches"][name],
                              rows_q[name], top_q, tpu_file="pallas_qr.py"))
+    print("# mesh " + json.dumps(mesh_stats), flush=True)
     print(card, flush=True)            # nvidia-smi name, power.limit
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .._grid.topology import csr_to_padded
+from ..parallel.sharding import PartitionedRows, Replicated, local
 
 
 def _round_up(x, m):
@@ -34,18 +35,39 @@ def _ladder_up(x):
 
 
 class DeviceGrid:
-    """Padded mirrors of the Grid structures the GLS method reads, on
+    """Padded mirrors of the Grid structures the methods read, on
     ``device``: the CUDA card unless the caller names another device
     (``"cpu"`` for the CPU).  Raises when the device is CUDA and there is
-    no card; it never falls back to the CPU."""
+    no card; it never falls back to the CPU.
 
-    def __init__(self, grid, device=None):
-        self.device = torch.device("cuda" if device is None else device)
+    With ``mesh`` (a ``parallel.Mesh``) the arrays are placed over the
+    mesh's shards, ``device`` is the mesh's primary device, and the
+    methods' prepare() splits their nodes over the shards (parallel/sharding.py):
+    replicated, one copy per distinct device (``Replicated``), or with
+    ``shard_geometry`` partitioned on dim 0 (``PartitionedRows``).
+    ``on(shard)`` is the view a shard gathers from.  Without a mesh the
+    arrays are plain tensors and ``shard_geometry`` places nothing (it
+    picks GLS's unfused route, ``Interpolator``).  The host planning
+    (``assembling``, ``buckets``) runs once, on the host, either way."""
+
+    def __init__(self, grid, device=None, mesh=None, shard_geometry=False):
+        if mesh is not None:
+            if device is not None and torch.device(device).type != \
+                    mesh.primary.type:
+                raise ValueError(f"device={device!r} does not match the "
+                                 f"mesh {mesh}")
+            self.device = mesh.primary
+        else:
+            self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "ninpol_tpu_torch runs on the CUDA card by default and "
                 "torch finds no CUDA device; pass device='cpu' to run on "
                 "the CPU")
+        self.mesh = mesh
+        self.shard_geometry = bool(shard_geometry) and mesh is not None
+        # one device per shard (one shard without a mesh)
+        self.shards = mesh.devices if mesh is not None else (self.device,)
         self.grid = grid
         self.dim = grid.dim
         self.n_points = grid.n_points
@@ -68,22 +90,47 @@ class DeviceGrid:
         self.esuf2d_h = csr_to_padded(
             grid.esuf_ptr, grid.esuf, esuf_w).astype(np.int32)
 
-        put = self.put
-        self.esup2d = put(self.esup2d_h)
-        self.esup_cnt = put(self.esup_cnt_h)
-        self.fsup2d = put(self.fsup2d_h)
-        self.fsup_cnt = put(self.fsup_cnt_h)
+        place = self.place
+        self.esup2d = place(self.esup2d_h)
+        self.esup_cnt = place(self.esup_cnt_h)
+        self.fsup2d = place(self.fsup2d_h)
+        self.fsup_cnt = place(self.fsup_cnt_h)
         # the esuf cell pair of every face (second < 0: boundary face)
-        self.esuf_pair = put(np.ascontiguousarray(self.esuf2d_h[:, :2]))
-        self.point_coords = put(np.asarray(grid.point_coords, np.float64))
-        self.centroids = put(np.asarray(grid.centroids, np.float64))
-        # [normal | center] per face, float64
-        self.face_geo = put(np.concatenate(
-            [np.asarray(grid.normal_faces, np.float64),
-             np.asarray(grid.faces_centers, np.float64)], axis=1))
+        self.esuf_pair = place(self.esuf2d_h[:, :2])
+        self.point_coords = place(np.asarray(grid.point_coords, np.float64))
+        self.centroids = place(np.asarray(grid.centroids, np.float64))
 
-    def put(self, a):
-        return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
+    def place(self, a):
+        """A host array placed as this grid's arrays are: a tensor on the
+        device, a ``Replicated`` or a ``PartitionedRows``."""
+        a = np.ascontiguousarray(a)
+        if self.mesh is None:
+            return torch.as_tensor(a).to(self.device)
+        if self.shard_geometry:
+            return PartitionedRows(a, self.mesh)
+        return Replicated(a, self.mesh)
+
+    def on(self, shard):
+        """The arrays shard ``shard`` gathers from, on its device."""
+        return GridView(self, shard)
+
+    def geometry_bytes(self, extra=()):
+        """Bytes of the grid arrays (and of the placed ``extra`` arrays)
+        each shard holds on its device: a replicated copy is counted for
+        every shard on its device, a partitioned array's part for its
+        own shard."""
+        out = []
+        for k, dev in enumerate(self.shards):
+            total = 0
+            for x in [getattr(self, n) for n in GridView.ARRAYS] + list(
+                    extra):
+                if isinstance(x, PartitionedRows):
+                    x = x.parts[k]
+                elif isinstance(x, Replicated):
+                    x = x.on(dev)
+                total += x.element_size() * x.numel()
+            out.append(total)
+        return out
 
     def assembling(self, target_points):
         """Host mask of target nodes whose GLS system has a face that is
@@ -139,3 +186,17 @@ class DeviceGrid:
                         "E": _ladder_up(ne[sel].max()),
                         "F": _ladder_up(nf[sel].max())})
         return out
+
+
+class GridView:
+    """The grid arrays one shard gathers from (``DeviceGrid.on``): the
+    copies on the shard's device, or the partitioned arrays themselves."""
+
+    ARRAYS = ("esup2d", "esup_cnt", "fsup2d", "fsup_cnt", "esuf_pair",
+              "point_coords", "centroids")
+
+    def __init__(self, dgrid, shard):
+        self.shard = shard
+        self.device = dgrid.shards[shard]
+        for name in self.ARRAYS:
+            setattr(self, name, local(getattr(dgrid, name), self.device))

@@ -27,7 +27,9 @@ cross-check route: a Householder R of A and the corrected semi-normal
 equations (the two kernels of ops/qr.py).  Any other solver name is
 ninpol_tpu's "refined" route, ``gls_solve_refined``: a float32 Householder
 R of the equilibrated A preconditions float64 refinement sweeps (torch
-ops: ninpol_tpu has no Pallas kernel for it).
+ops: ninpol_tpu has no Pallas kernel for it).  On a mesh
+(parallel/sharding.py) each class's nodes are split over the shards and
+every chunk runs on its shard's device (``solve_class``).
 Nodes whose convergence estimate rnorm is not provably below
 ``fallback_tol`` are re-solved exactly (float64 Householder, ``gls_exact``).
 
@@ -48,6 +50,7 @@ from ..ops.cholqr import KERNELS
 from ..ops.gls_solve import (assemble, cholqr2_solve, gls_solve, incidence,
                              mul_G, node_active, solve_outputs)
 from ..ops.solve import householder_lastrow, solve_normal_refined
+from ..parallel.sharding import as_mesh, local, schedule, to_device
 
 # Solve-kernel chunks hold at most this many system-matrix elements
 # (B * m * n): it bounds the gathered inputs and the plain version's dense
@@ -94,11 +97,14 @@ def build_flux_block(grid, perm, diff_mag, neumann_val):
 
 
 def build_face_table(dgrid, perm, diff_mag, neumann_val):
-    """(n_faces, 14) float64 on the grid's device, one row per face:
-    [0:3] normal, [3:6] center, [6:14] the flux block."""
-    flux = dgrid.put(build_flux_block(dgrid.grid, perm, diff_mag,
-                                      neumann_val))
-    return torch.cat([dgrid.face_geo, flux], dim=1)
+    """(n_faces, 14) float64, one row per face: [0:3] normal, [3:6]
+    center, [6:14] the flux block; placed as the grid's arrays are
+    (``DeviceGrid.place``)."""
+    grid = dgrid.grid
+    return dgrid.place(np.concatenate(
+        [np.asarray(grid.normal_faces, np.float64),
+         np.asarray(grid.faces_centers, np.float64),
+         build_flux_block(grid, perm, diff_mag, neumann_val)], axis=1))
 
 
 def gls_gather(dgrid, face_table, neumann_flag, nodes, E, F, with_neumann,
@@ -294,6 +300,91 @@ def gls_exact(inp, n_elem):
     return last[:, :E], last[:, E]
 
 
+def class_chunk(E, F, chunk_nodes=32768):
+    """Nodes per solve-kernel launch of an (E, F) class: ``chunk_nodes``,
+    capped so that a chunk holds at most CHUNK_ELEMS system elements."""
+    return max(1, min(chunk_nodes, CHUNK_ELEMS // ((E + 4 * F) * (3 * E + 1))))
+
+
+def solve_class(dgrid, face_table, nflag, c, sel, chunk, route, exact, *,
+                sweeps=3, rounds=2, n_refine=2, neumann_compat=True):
+    """Solve the members ``sel`` of stencil class ``c`` on ``route``, or on
+    the exact path: their nodes split over the grid's shards and chunked
+    at ``chunk`` (``parallel.schedule``), each chunk gathered and solved on
+    its shard's device.  Yields, per chunk, the slice [a, b) of the
+    selected members and its masked (w, wn, rnorm) on the grid's primary
+    device (``dgrid.device``)."""
+    # only the fused kernel's prologue guards tau on ||T2||^2
+    fused = route == "fused" and not exact
+    nodes_all = c["nodes"][sel]
+    for k, a, b in schedule(len(nodes_all), len(dgrid.shards), chunk):
+        view = dgrid.on(k)
+        nodes = torch.as_tensor(nodes_all[a:b], device=view.device)
+        inp, n_elem = gls_gather(
+            view, local(face_table, view.device), local(nflag, view.device),
+            nodes, c["E"], c["F"], c["with_neumann"],
+            tau_guard="squared" if fused else "norm")
+        if exact:
+            w, wn = gls_exact(inp, n_elem)
+            rn = torch.zeros_like(wn)
+        elif route == "csne":
+            w, wn, rn = gls_solve_csne(**inp)
+        elif route == "refined":
+            w, wn, rn = gls_solve_refined(**inp, n_refine=n_refine)
+        elif fused:
+            # one round runs two more sweeps (ninpol_tpu gls.py:277)
+            w, wn, rn = gls_solve(
+                **inp, rounds=rounds,
+                sweeps=sweeps + (2 if rounds == 1 else 0))
+        else:
+            w, wn, rn = gls_solve_unfused(**inp, sweeps=sweeps)
+        out = gls_epilogue(w, wn, rn, inp, n_elem, neumann_compat)
+        if view.device != dgrid.device:
+            out = to_device(dgrid.device, *out)
+        yield a, b, out
+
+
+def sharded_gls(dgrid, mesh, shard_geometry=False):
+    """A function running one GLS stencil class (a dict of
+    ``DeviceGrid.buckets``) over ``mesh`` (counterpart of ninpol_tpu's
+    ``parallel.sharding.sharded_gls``): the class's nodes split over the
+    shards of ``dgrid``, which must already be placed on ``mesh`` with
+    this ``shard_geometry`` (else ValueError).  The fused solve kernel
+    runs with replicated geometry, the unfused route with partitioned
+    geometry, as in ninpol_tpu; ``exact`` the float64 Householder path.
+
+    ``run(bucket, perm, diff_mag, neumann_flag, neumann_val, n_refine=2,
+    exact=False, neumann_compat=True, with_neumann=True)`` returns (w, wn,
+    rnorm) in the bucket's node order on the mesh's primary device."""
+    mesh = as_mesh(mesh)
+    if dgrid.mesh != mesh or dgrid.shard_geometry != bool(shard_geometry):
+        raise ValueError(
+            f"the DeviceGrid is placed on {dgrid.mesh} with shard_geometry="
+            f"{dgrid.shard_geometry}, not on {mesh} with shard_geometry="
+            f"{bool(shard_geometry)}")
+    route = "unfused" if shard_geometry else "fused"
+
+    def run(bucket, perm, diff_mag, neumann_flag, neumann_val, n_refine=2,
+            exact=False, neumann_compat=True, with_neumann=True):
+        face_table = build_face_table(dgrid, perm, diff_mag, neumann_val)
+        nflag = dgrid.place(np.asarray(neumann_flag) != 0)
+        c = dict(bucket, with_neumann=with_neumann)
+        B, E = len(c["nodes"]), c["E"]
+        f64, dev = torch.float64, dgrid.device
+        w = torch.zeros((B, E), dtype=f64, device=dev)
+        wn = torch.zeros(B, dtype=f64, device=dev)
+        rn = torch.zeros(B, dtype=f64, device=dev)
+        chunk = EXACT_CHUNK if exact else class_chunk(E, c["F"])
+        for a, b, (wc, wnc, rnc) in solve_class(
+                dgrid, face_table, nflag, c, slice(None), chunk, route,
+                exact, sweeps=max(n_refine + 1, 2), n_refine=n_refine,
+                neumann_compat=neumann_compat):
+            w[a:b], wn[a:b], rn[a:b] = wc, wnc, rnc
+        return w, wn, rn
+
+    return run
+
+
 class GLSInterpolation:
     """Driver matching the reference's prepare() contract
     (gls.pyx:38-72)."""
@@ -349,7 +440,7 @@ class GLSInterpolation:
                 variable_to_index["points"]["neumann_" + variable]]
             self._face_cache = (
                 build_face_table(dgrid, perm, diff_mag, nval),
-                dgrid.put(neumann_flag != 0))
+                dgrid.place(neumann_flag != 0))
             self._face_cache_key = ckey
         return self._face_cache
 
@@ -378,11 +469,8 @@ class GLSInterpolation:
         for mask, wneu in ((active & ~is_neu_t, False),
                            (active & is_neu_t, True)):
             for c in dgrid.buckets(tp, mask):
-                E, F = c["E"], c["F"]
-                elems = (E + 4 * F) * (3 * E + 1)
                 c["with_neumann"] = wneu
-                c["chunk"] = max(1, min(self.chunk_nodes,
-                                        CHUNK_ELEMS // elems))
+                c["chunk"] = class_chunk(c["E"], c["F"], self.chunk_nodes)
                 classes.append(c)
         return classes, face_table, nflag_dev
 
@@ -410,37 +498,16 @@ class GLSInterpolation:
                            device=dev)
 
         def solve(c, sel, chunk, exact):
-            """Solve the class members ``sel`` in chunks; scatter the rows
-            into wdev; return [(positions, rnorm)] per chunk."""
-            # only the fused kernel's prologue guards tau on ||T2||^2
-            fused = route == "fused" and not exact
-            nodes_all, pos_all = c["nodes"][sel], c["pos"][sel]
+            """Solve the class members ``sel``; scatter their rows into
+            wdev; return [(positions, rnorm)] per chunk."""
+            pos_all = c["pos"][sel]
             out = []
-            for lo in range(0, len(nodes_all), chunk):
-                nodes = torch.as_tensor(nodes_all[lo:lo + chunk], device=dev)
-                pos = torch.as_tensor(pos_all[lo:lo + chunk], device=dev)
-                inp, n_elem = gls_gather(
-                    dgrid, face_table, nflag_dev, nodes, c["E"], c["F"],
-                    c["with_neumann"],
-                    tau_guard="squared" if fused else "norm")
-                if exact:
-                    w, wn = gls_exact(inp, n_elem)
-                    rn = torch.zeros_like(wn)
-                elif route == "csne":
-                    w, wn, rn = gls_solve_csne(**inp)
-                elif route == "refined":
-                    w, wn, rn = gls_solve_refined(**inp,
-                                                  n_refine=self.n_refine)
-                elif fused:
-                    # one round runs two more sweeps (ninpol_tpu gls.py:277)
-                    w, wn, rn = gls_solve(
-                        **inp, rounds=self.precond_rounds,
-                        sweeps=sweeps + (2 if self.precond_rounds == 1
-                                         else 0))
-                else:
-                    w, wn, rn = gls_solve_unfused(**inp, sweeps=sweeps)
-                w, wn, rn = gls_epilogue(w, wn, rn, inp, n_elem,
-                                         self.neumann_compat)
+            for a, b, (w, wn, rn) in solve_class(
+                    dgrid, face_table, nflag_dev, c, sel, chunk, route,
+                    exact, sweeps=sweeps, rounds=self.precond_rounds,
+                    n_refine=self.n_refine,
+                    neumann_compat=self.neumann_compat):
+                pos = torch.as_tensor(pos_all[a:b], device=dev)
                 k = min(c["E"], ncols)
                 wdev[pos, :k] = w[:, :k]
                 wdev[pos, ncols] = wn

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.sharding import schedule, to_device
+
 EXACT_EPS = float(np.float32(1e-15))  # idw.pyx:53 (C float of 1e-15)
 
 
@@ -58,8 +60,10 @@ def idw_math(xv, xc, cell_valid, n_elem, *, dim):
 def simple_prepare(math, chunk_nodes, dgrid, points_data, variable_to_index,
                    variable, target_points, weights, neumann_ws, device_out):
     """The IDW/LS prepare(): ``math(*simple_gather(...))`` on every chunk of
-    every stencil class of the active target nodes (not Dirichlet),
-    scattered into (n_target, ncols + 1) float64 on the device, whose
+    every stencil class of the active target nodes (not Dirichlet), each
+    class's nodes split over the grid's shards (``parallel.schedule``) and
+    gathered on their shard's device; the rows are copied to the primary
+    device and scattered into (n_target, ncols + 1) float64 there, whose
     Neumann column stays zero.  Returns that tensor with ``device_out``,
     else fills and returns the host (weights, neumann_ws)."""
     grid = dgrid.grid
@@ -76,11 +80,14 @@ def simple_prepare(math, chunk_nodes, dgrid, points_data, variable_to_index,
     for c in dgrid.buckets(tp, active):
         E = c["E"]
         k = min(E, ncols)
-        for lo in range(0, len(c["nodes"]), chunk_nodes):
-            nodes = torch.as_tensor(c["nodes"][lo:lo + chunk_nodes],
-                                    device=dev)
-            pos = torch.as_tensor(c["pos"][lo:lo + chunk_nodes], device=dev)
-            w = math(*simple_gather(dgrid, nodes, E))
+        for s, lo, hi in schedule(len(c["nodes"]), len(dgrid.shards),
+                                  chunk_nodes):
+            view = dgrid.on(s)
+            nodes = torch.as_tensor(c["nodes"][lo:hi], device=view.device)
+            pos = torch.as_tensor(c["pos"][lo:hi], device=dev)
+            w = math(*simple_gather(view, nodes, E))
+            if view.device != dev:
+                w, = to_device(dev, w)
             wdev[pos, :k] = w[:, :k]
     if device_out:
         return wdev

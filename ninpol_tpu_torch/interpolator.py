@@ -9,7 +9,8 @@ reference orchestrator (ninpol/_interpolator/interpolator.pyx:35-670):
     loading, transparent pickle cache in the system tempdir keyed on
     filename + file size (interpolator.pyx:93-166, 244-252).
   * ``interpolate(variable, method, target_points)`` — runs the method on
-    the interpolator's torch device and assembles the scipy CSR weight
+    the interpolator's torch device, or over a mesh of devices
+    (parallel/sharding.py), and assembles the scipy CSR weight
     matrix of shape (n_target, n_elems) plus the Neumann vector
     (interpolator.pyx:549-629).  Matching the reference, the node's
     Neumann weight is ADDED to every CSR entry of its row
@@ -46,25 +47,41 @@ from ._methods.ls import LSInterpolation
 from .defines import (DTYPE_F, DTYPE_I, MAX_POINTS_PER_ELEMENT,
                       TYPES_PER_DIMENSION, TYPE_NAME_TO_INDEX,
                       build_type_tables)
+from .parallel.sharding import as_mesh
 from .utils.logger import Logger
 
 
 class Interpolator:
 
     def __init__(self, name="interpolator", logging=False, build_edges=False,
-                 device=None, shard_geometry=False):
+                 device=None, shard_geometry=False, mesh=None):
         """``device``: the torch device the methods run on.  The default is
         the CUDA card; without one the first interpolation raises.  Pass
         ``device="cpu"`` to run on the CPU.
 
-        ``shard_geometry=True`` is the one-device counterpart of
-        ``ninpol_tpu.Interpolator(mesh=N, shard_geometry=True)``: GLS runs
-        ninpol_tpu's unfused shifted-CholeskyQR2 route (the gram,
-        chol_linv, round2_gram and prec_apply kernels of ops/cholqr.py
-        with float64 refinement sweeps) instead of the fused solve kernel.
-        The weights agree to the same 1e-10 bar.  On one device nothing is
-        partitioned: splitting the grid across several cards is not
-        ported yet.
+        ``mesh``: run every interpolation over several devices, as
+        ``ninpol_tpu.Interpolator(mesh=...)`` does: an int (that many CUDA
+        cards, ``parallel.make_mesh(mesh, device=device)``; raises when
+        fewer exist; with ``device="cpu"`` that many CPU shards), a
+        sequence of devices (taken as given: ``["cuda:0", "cuda:0"]`` is
+        two shards on one card) or a ``parallel.Mesh``.  One process
+        drives every device: each stencil class's nodes are split evenly
+        over the shards, each shard's chunks run on its device, and the
+        results are copied to the mesh's first (primary) device, where
+        ``prepare_interpolator(..., device_out=True)`` returns them.  The
+        grid arrays are replicated on every device; with
+        ``shard_geometry=True`` they are partitioned instead (row ranges
+        on dim 0, padded to the mesh size; a stencil gather reads the
+        parts on their owners' devices), for meshes whose geometry exceeds
+        one device's memory.  The weights are those of one device, to
+        1e-11.
+
+        ``shard_geometry=True`` also picks ninpol_tpu's unfused
+        shifted-CholeskyQR2 route for GLS, with or without a mesh (the
+        route ``ninpol_tpu.Interpolator(mesh=N, shard_geometry=True)``
+        takes): the gram, chol_linv, round2_gram and prec_apply kernels of
+        ops/cholqr.py with float64 refinement sweeps, instead of the fused
+        solve kernel.  The weights agree to the same 1e-10 bar.
 
         ``interp.gls.solver = "pallas"`` selects ninpol_tpu's cross-check
         route of the same name, whatever ``shard_geometry`` says: a
@@ -81,7 +98,9 @@ class Interpolator:
         self.build_edges = build_edges
         self.logging = logging
         self.logger = Logger(name, logging=logging)
-        self.device = device
+        self.mesh = as_mesh(mesh, device)
+        self.device = device if self.mesh is None else self.mesh.primary
+        self.shard_geometry = bool(shard_geometry)
 
         self.gls = GLSInterpolation(logging)
         self.gls.fused = not shard_geometry
@@ -396,7 +415,9 @@ class Interpolator:
     @property
     def device_grid(self):
         if self._device_grid is None:
-            self._device_grid = DeviceGrid(self.grid, device=self.device)
+            self._device_grid = DeviceGrid(
+                self.grid, device=self.device, mesh=self.mesh,
+                shard_geometry=self.shard_geometry)
         return self._device_grid
 
     def interpolate(self, variable, method, target_points=None):
@@ -482,8 +503,8 @@ class Interpolator:
         the reference contract (interpolator.pyx:631-670).
 
         device_out=True: returns the (n_target, n_cols+1) float64 torch
-        tensor [weights | neumann_w] on the interpolator's device, without
-        the device->host copy.
+        tensor [weights | neumann_w] on the interpolator's device (a
+        mesh's primary device), without the device->host copy.
         """
         if method not in self.supported_methods:
             raise ValueError(

@@ -147,9 +147,12 @@ def _shape(name, x, ndim):
 
 
 def _launch(wrapper, what, fn, *args):
-    with torch.cuda.device(args[0].device):
-        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
-                   for a in args], stream())
+    """Launch on the stream of the first argument's device; the caller
+    holds that device current (``torch.cuda.device``) around this call and
+    around every library query that sizes the launch, since the library
+    reads the current device."""
+    err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+               for a in args], stream(args[0].device))
     check_launch(err, what)
     wrapper.launches += 1
 
@@ -188,12 +191,13 @@ def gram_f32(A, path=0):
         return gram_f32_reference(A)
     out = torch.empty((B, n, n), dtype=_F32, device=A.device)
     if B:
-        lib = library.get()
-        path = path or lib.gram_f32_path(n)
-        ws = _workspace(lib, "gram_f32", B, n, A.device) if path == 1 \
-            else None
-        _launch(gram_f32, f"gram_f32 (B={B}, m={m}, n={n}, path={path})",
-                lib.gram_f32_path_launch, A, out, ws, B, m, n, path)
+        with torch.cuda.device(A.device):
+            lib = library.get()
+            path = path or lib.gram_f32_path(n)
+            ws = _workspace(lib, "gram_f32", B, n, A.device) if path == 1 \
+                else None
+            _launch(gram_f32, f"gram_f32 (B={B}, m={m}, n={n}, path={path})",
+                    lib.gram_f32_path_launch, A, out, ws, B, m, n, path)
     return out
 
 
@@ -209,12 +213,13 @@ def chol_linv_f32(G, tiny=1e-12, mul_right=None):
         return chol_linv_f32_reference(G, tiny, mul_right)
     out = torch.empty((B, n, n), dtype=_F32, device=G.device)
     if B:
-        lib = library.get()
-        _launch(chol_linv_f32, f"chol_linv_f32 (B={B}, n={n}, "
-                               f"mul_right={mul_right is not None})",
-                lib.chol_linv_f32_launch, G, mul_right, out,
-                _workspace(lib, "chol_linv_f32", B, n, G.device), B, n,
-                float(tiny))
+        with torch.cuda.device(G.device):
+            lib = library.get()
+            _launch(chol_linv_f32, f"chol_linv_f32 (B={B}, n={n}, "
+                                   f"mul_right={mul_right is not None})",
+                    lib.chol_linv_f32_launch, G, mul_right, out,
+                    _workspace(lib, "chol_linv_f32", B, n, G.device), B, n,
+                    float(tiny))
     return out
 
 
@@ -230,14 +235,15 @@ def round2_gram_f32(A, Li, path=0):
         return round2_gram_f32_reference(A, Li)
     out = torch.empty((B, n, n), dtype=_F32, device=A.device)
     if B:
-        lib = library.get()
-        path = path or lib.round2_gram_f32_path(n)
-        ws = _workspace(lib, "round2_gram_f32", B, n, A.device) \
-            if path == 1 else None
-        _launch(round2_gram_f32, f"round2_gram_f32 (B={B}, m={m}, n={n}, "
-                                 f"path={path})",
-                lib.round2_gram_f32_path_launch, A, Li, out, ws, B, m, n,
-                path)
+        with torch.cuda.device(A.device):
+            lib = library.get()
+            path = path or lib.round2_gram_f32_path(n)
+            ws = _workspace(lib, "round2_gram_f32", B, n, A.device) \
+                if path == 1 else None
+            _launch(round2_gram_f32, f"round2_gram_f32 (B={B}, m={m}, n={n}, "
+                                     f"path={path})",
+                    lib.round2_gram_f32_path_launch, A, Li, out, ws, B, m, n,
+                    path)
     return out
 
 
@@ -253,13 +259,14 @@ def prec_apply_f32(Lc, v, path=0):
         return prec_apply_f32_reference(Lc, v)
     out = torch.empty((B, n), dtype=_F32, device=Lc.device)
     if B:
-        lib = library.get()
-        path = path or lib.prec_apply_f32_path(n)
-        ws = _workspace(lib, "prec_apply_f32", B, n, Lc.device) \
-            if path == 1 else None
-        _launch(prec_apply_f32, f"prec_apply_f32 (B={B}, n={n}, "
-                                f"path={path})",
-                lib.prec_apply_f32_path_launch, Lc, v, out, ws, B, n, path)
+        with torch.cuda.device(Lc.device):
+            lib = library.get()
+            path = path or lib.prec_apply_f32_path(n)
+            ws = _workspace(lib, "prec_apply_f32", B, n, Lc.device) \
+                if path == 1 else None
+            _launch(prec_apply_f32, f"prec_apply_f32 (B={B}, n={n}, "
+                                    f"path={path})",
+                    lib.prec_apply_f32_path_launch, Lc, v, out, ws, B, n, path)
     return out
 
 

@@ -111,9 +111,10 @@ def on_card(x, name):
     return True
 
 
-def stream():
-    """PyTorch's current CUDA stream, as the C interfaces take it."""
-    return torch.cuda.current_stream().cuda_stream
+def stream(device):
+    """PyTorch's current CUDA stream on ``device``, as the C interfaces
+    take it."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def occupancy(fn, what, *args):

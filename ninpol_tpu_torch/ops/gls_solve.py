@@ -276,7 +276,7 @@ def gls_solve(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu, valid,
             ptr(pair), ptr(ks), ptr(cv), ptr(fv), ptr(isneu), ptr(valid),
             ptr(w), ptr(wn), ptr(rnorm), ptr(ws), ws_floats,
             B, E, F, int(with_neumann), int(sweeps), int(rounds),
-            float(tiny), float(shift), stream())
+            float(tiny), float(shift), stream(dk.device))
     check_launch(err, f"gls_solve (B={B}, E={E}, F={F}, "
                       f"with_neumann={with_neumann})")
     gls_solve.launches += 1

@@ -139,9 +139,12 @@ library = CudaLibrary("qr", _bind)
 
 
 def _launch(wrapper, what, fn, *args):
-    with torch.cuda.device(args[0].device):
-        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
-                   for a in args], stream())
+    """Launch on the stream of the first argument's device; the caller
+    holds that device current (``torch.cuda.device``) around this call and
+    around every library query that sizes the launch, since the library
+    reads the current device."""
+    err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+               for a in args], stream(args[0].device))
     check_launch(err, what)
     wrapper.launches += 1
 
@@ -161,12 +164,14 @@ def qr_r(A, path=0):
         return qr_r_reference(A)
     out = torch.empty((B, n, n), dtype=_F64, device=A.device)
     if B:
-        lib = library.get()
-        path = path or lib.qr_r_path(m, n)
-        ws = lib.qr_r_workspace_doubles(m, n) if path == 1 else 0
-        ws = torch.empty(B * ws, dtype=_F64, device=A.device) if ws else None
-        _launch(qr_r, f"qr_r (B={B}, m={m}, n={n}, path={path})",
-                lib.qr_r_launch, A, out, ws, B, m, n, path)
+        with torch.cuda.device(A.device):
+            lib = library.get()
+            path = path or lib.qr_r_path(m, n)
+            ws = lib.qr_r_workspace_doubles(m, n) if path == 1 else 0
+            ws = torch.empty(B * ws, dtype=_F64, device=A.device) if ws \
+                else None
+            _launch(qr_r, f"qr_r (B={B}, m={m}, n={n}, path={path})",
+                    lib.qr_r_launch, A, out, ws, B, m, n, path)
     return out
 
 
@@ -201,9 +206,10 @@ def sne_solve(R, b, tiny=1e-7, path=0):
         return sne_solve_reference(R, b, tiny)
     out = torch.empty((B, n), dtype=_F64, device=R.device)
     if B:
-        _launch(sne_solve, f"sne_solve (B={B}, n={n}, path={path})",
-                library.get().sne_solve_path_launch, R, b, out, B, n,
-                float(tiny), path)
+        with torch.cuda.device(R.device):
+            _launch(sne_solve, f"sne_solve (B={B}, n={n}, path={path})",
+                    library.get().sne_solve_path_launch, R, b, out, B, n,
+                    float(tiny), path)
     return out
 
 
