@@ -3,8 +3,9 @@
 
 Drives the port's GLS main path — the path bench.py times for ninpol_tpu:
 GLS weights with Neumann nodes, on the 1,886,592-cell tetrahedral mesh,
-through the public Interpolator API — its shard_geometry=True route
-(ninpol_tpu's unfused CholeskyQR2 composition), its solver="pallas"
+through the public Interpolator API — its unfused route (gls.fused =
+False: ninpol_tpu's unfused CholeskyQR2 composition, which
+shard_geometry=True takes on a mesh), its solver="pallas"
 route (Householder R and corrected semi-normal equations) and its
 "refined" route, the fused route's single-round preconditioner
 (precond_rounds = 1), and IDW and LS on that mesh and on a 2,097,152-cell
@@ -15,14 +16,16 @@ hexahedral one, and checks them all:
      csrc/gls_solve.cu (the fused solve), csrc/cholqr.cu (gram,
      chol_linv, round2_gram, prec_apply) and csrc/qr.cu (qr_r,
      sne_solve);
-  3. builds bench.py's problem with the port's own meshgen: tetra_mesh(68),
-     an ALH-style full-tensor K, u = x^2 + y^2 + z^2, a seeded (rng 0)
-     Dirichlet/Neumann boundary split; once for the CholeskyQR2 routes
-     (the solver="pallas" route runs on the fused route's problem);
+  3. builds bench.py's problem with the port's own meshgen
+     (tools/problem.py): tetra_mesh(68), an ALH-style full-tensor K,
+     u = x^2 + y^2 + z^2, a seeded (rng 0) Dirichlet/Neumann boundary
+     split; once for each CholeskyQR2 route (the solver="pallas" route
+     runs on the fused route's problem);
   4. the solve kernel vs its plain PyTorch version on one chunk of every
      (E, F, with_neumann) class of the plan: w and wn agree to <= 1e-10
      scaled on the nodes both call converged, and the rnorm > 1e-11 sets
-     agree; prints both times, the kernel's dynamic shared memory and
+     agree; prints both times (the kernel's the least of 5 single
+     launches, as phase 10 times), the kernel's dynamic shared memory and
      blocks per SM, and the time of torch.linalg.lstsq on the largest
      class's dense float64 system;
      4b. one chunk padded to (E, F) = (64, 96), too wide for shared
@@ -73,7 +76,7 @@ hexahedral one, and checks them all:
      must equal one launch per chunk per run (so every class went through
      the kernel), with no plain-version call; then one more run under
      torch.profiler (device busy share, top kernels);
-     5b. the same for the shard_geometry=True route: per chunk per run
+     5b. the same for the unfused route ("shard_geometry"): per chunk per run
      exactly 1 gram, 2 chol_linv, 1 round2_gram and 4 prec_apply launches,
      no plain-version call and no solve-kernel launch; device-complete
      seconds beside the fused route's; a profiled run;
@@ -115,7 +118,18 @@ hexahedral one, and checks them all:
      and device ms of the cross-part gathers and of the device-to-device
      merges); the geometry bytes each shard holds in both modes; IDW
      within 1e-13 and LS within 1e-11 (where |denom| > 1e-8) of phase
-     8's weights in both modes.
+     8's weights in both modes;
+ 10. kernel 1's stage probe (tools/kernel_stages.py) on phase 4's chunks:
+     the solve kernel's stage-cut instances (ops/gls_solve.py::
+     gls_solve_stage) at both rounds, each cut's cumulative and stage ms,
+     bound and share, beside the unfused route's kernels for the same
+     stages on the same inputs; every other cut held to its plain
+     version, gls_solve_reference(..., stop=...), on the same tensors
+     (zero w and wn, each node's checksum within kernel_stages.CUT_TOL,
+     the largest error of each cut in the JSON line); the "all" cut
+     equal to gls_solve to the bit, the cumulative times rising with the
+     cuts and the "all" cut within 3% of phase 4's kernel time; one
+     {"kernel_stages": ...} JSON line.
 
 Each phase prints its seconds.  Any failing phase raises (non-zero
 exit).  The last four lines are the mesh JSON line (phase 9), the card,
@@ -136,6 +150,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+# bench.py's problem through the port, the card's bound (H100 peaks) and
+# kernel 1's stage probe
+from ninpol_tpu_torch.tools import kernel_stages
+from ninpol_tpu_torch.tools.problem import PEAK_FP64, bound, build_problem
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL_KERNEL = 1e-10     # kernel vs plain version, scaled by max |w|
 TOL_ORACLE = 1e-10     # delivered weights vs dgels, scaled (bench.py)
@@ -153,12 +172,11 @@ QR_RATIO = 10.0
 MAX_BAD = 0
 # phase 9: a mesh's weights against one device's (tests/test_sharding.py)
 MESH_TOL = 1e-11
-# H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 off the tensor cores,
-# FP64 on them (DMMA; 34e12 off them), and HBM3 bandwidth; bound_ms takes
-# the larger of the two times
-PEAK_FP32 = 67e12
-PEAK_FP64 = 67e12
-PEAK_BYTES = 3.35e12
+# phase 10: how far a later stage cut may time below the one before, and
+# the "all" cut from phase 4's kernel time (relative; and in ms, for the
+# smallest cuts)
+STAGE_NOISE = 0.03
+STAGE_NOISE_MS = 0.002
 # the sweep counts tried, in turn, until every node of a chunk
 # converges: phase 4f's for the solve kernel's single-round instance,
 # phase 5d's (refinement sweeps) for the "refined" solver
@@ -186,78 +204,6 @@ def card_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def bound(flops, nbytes, peak=PEAK_FP32):
-    """The least time (ms) the card could take: the larger of the
-    operations over their type's peak (FP32 unless stated) and the bytes
-    over the memory rate."""
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (max(t_ops, t_bytes),
-            "operations" if t_ops > t_bytes else "bytes")
-
-
-def build_problem(n, shard_geometry=False, family="tetra", mesh=None):
-    """bench.py:33-101 with the port's meshgen and Interpolator: a
-    ~6n^3-cell tet mesh (``family`` "hexa": n^3 hexahedra), ALH-style
-    varying full-tensor K, u = x^2+y^2+z^2, seeded Dirichlet/Neumann
-    split, Neumann flux -(K grad u).n at boundary-face centers averaged
-    onto the points.  ``mesh`` and ``shard_geometry`` go to the
-    Interpolator."""
-    from ninpol_tpu_torch import Interpolator
-    from ninpol_tpu_torch.utils import meshgen
-
-    mesh_obj = getattr(meshgen, f"{family}_mesh")(n)
-    pts = mesh_obj.points
-    cells = mesh_obj.cells[0].data
-    cents = pts[cells].mean(axis=1)
-    x, y, z = cents[:, 0], cents[:, 1], cents[:, 2]
-    K = np.zeros((len(cells), 3, 3))
-    K[:, 0, 0] = y * y + z * z + 1
-    K[:, 0, 1] = K[:, 1, 0] = -x * y
-    K[:, 0, 2] = K[:, 2, 0] = -x * z
-    K[:, 1, 1] = x * x + z * z + 1
-    K[:, 1, 2] = K[:, 2, 1] = -y * z
-    K[:, 2, 2] = x * x + y * y + 1
-    sol = x ** 2 + y ** 2 + z ** 2
-
-    interp = Interpolator(shard_geometry=shard_geometry, mesh=mesh)
-    mesh_obj.cell_data = {"permeability": [K.reshape(-1, 9)], "u": [sol]}
-    mesh_obj.point_data = {}
-    t0 = time.perf_counter()
-    interp.load_mesh(mesh_obj=mesh_obj)
-    build_s = time.perf_counter() - t0
-    grid = interp.grid
-
-    rng = np.random.default_rng(0)
-    boundary = np.nonzero(grid.boundary_faces)[0]
-    ridx = rng.choice(len(boundary), len(boundary) // 2, replace=False)
-    neumann_faces = np.setdiff1d(boundary, boundary[ridx])
-    pv = np.zeros(grid.n_points)
-    dpts = grid.inpofa[boundary[ridx]].ravel()
-    np.add.at(pv, dpts[dpts != -1], 1)
-    npts = grid.inpofa[neumann_faces].ravel()
-    np.add.at(pv, npts[npts != -1], -1)
-    bpts = np.nonzero(grid.boundary_points)[0]
-    neumann_points = bpts[pv[bpts] < 0]
-
-    owners = grid.esuf[grid.esuf_ptr[boundary]]
-    fc = grid.faces_centers[boundary]
-    flux = -np.einsum("fij,fj->fi", K[owners], 2 * fc)
-    nval_faces = np.zeros(grid.n_faces)
-    nval_faces[boundary] = np.einsum(
-        "fi,fi->f", flux, grid.normal_faces[boundary])
-    counts = np.diff(grid.fsup_ptr)
-    owner_pt = np.repeat(np.arange(grid.n_points), counts)
-    sums = np.bincount(owner_pt, weights=nval_faces[grid.fsup],
-                       minlength=grid.n_points)
-    neumann = np.zeros(grid.n_points)
-    neumann[neumann_points] = (sums / np.maximum(counts, 1))[neumann_points]
-    nflag = np.zeros(grid.n_points)
-    nflag[neumann_points] = 1
-    interp.load_data({"neumann_u": neumann, "neumann_flag_u": nflag,
-                      "dirichlet_flag_u": 1 - nflag}, "points")
-    return interp, build_s
 
 
 def cuda_ms(fn, reps):
@@ -344,31 +290,27 @@ def round1_converged(inp, B):
     return dict(out, converged_share_by_sweeps=shares)
 
 
-def kernel_vs_plain(interp, tp, rounds=2):
-    """Phase 4 (4f with ``rounds`` = 1): one chunk of every class through
-    the kernel's ``rounds`` instance and through the plain version, on
-    the card, with the route's sweeps for those rounds; at rounds = 1
-    also at the sweeps where most of the chunk converges
-    (``round1_converged``).  Times are the route's sweeps'."""
-    from ninpol_tpu_torch._methods.gls import gls_gather
+def kernel_vs_plain(interp, chunks, rounds=2):
+    """Phase 4 (4f with ``rounds`` = 1): one chunk of every class
+    (``chunks``: kernel_stages.chunk_inputs) through the kernel's
+    ``rounds`` instance and through the plain version, on the card, with
+    the route's sweeps for those rounds; at rounds = 1 also at the sweeps
+    where most of the chunk converges (``round1_converged``).  Times are
+    the route's sweeps': the kernel's the least of kernel_stages.REPS
+    single launches (kernel_stages.best_ms, as phase 10 times the cuts
+    it is held to), so that a host stall between two launches, which
+    leaves the card idle, does not enter it; the plain version's the
+    mean of 2 runs."""
     from ninpol_tpu_torch.ops import gls_solve as gs
 
-    sweeps = (max(interp.gls.n_refine + 1, 2)
-              + (2 if rounds == 1 else 0))
-
-    dgrid = interp.device_grid
-    classes, face_table, nflag = interp.gls.plan(
-        dgrid, interp.cells_data, interp.points_data,
-        interp.variable_to_index, "u", tp)
+    sweeps = kernel_stages.route_sweeps(interp.gls.n_refine, rounds)
+    classes = [c for c, _, _ in chunks]
     rows = []
-    for c in classes:
-        B = min(c["chunk"], len(c["nodes"]))
-        nodes = torch.as_tensor(c["nodes"][:B], device=dgrid.device)
-        inp, n_elem = gls_gather(dgrid, face_table, nflag, nodes, c["E"],
-                                 c["F"], c["with_neumann"])
+    for c, inp, n_elem in chunks:
+        B = inp["dk"].shape[0]
         kw = dict(sweeps=sweeps, rounds=rounds)
         held = hold_solve(inp, sweeps, rounds)
-        ms = cuda_ms(lambda: gs.gls_solve(**inp, **kw), 3)
+        ms = kernel_stages.best_ms(lambda: gs.gls_solve(**inp, **kw))
         plain_ms = cuda_ms(lambda: gs.gls_solve_reference(**inp, **kw), 2)
         # per round an m n^2/2-FMA Gram product, a clamped Cholesky
         # factorization and a triangular inverse (n^3/3 FLOP each), and
@@ -1420,20 +1362,73 @@ def mesh_phase(n, ref):
     return out
 
 
+def stage_phase(chunks, rows, n_refine):
+    """Phase 10: kernel 1's stage probe (tools/kernel_stages.py) on phase
+    4's chunks, each cut held to its plain version (the probe's
+    cut_errors, within kernel_stages.CUT_TOL) and to the production
+    kernel: the "all" cut equals gls_solve to the bit at both rounds, the
+    cumulative times rise with the cuts (within STAGE_NOISE), and the
+    "all" cut's time is within STAGE_NOISE of phase 4's (``rows``) for
+    its class."""
+    from ninpol_tpu_torch.ops import gls_solve as gs
+
+    ks = kernel_stages
+    chunks = [(c, {k: None if v is None else v.cuda()
+                   for k, v in inp.items()}, n_elem)
+              for c, inp, n_elem in chunks]
+    gs.gls_solve_stage.launches = 0
+    for c, inp, _ in chunks:
+        for rounds in (2, 1):
+            kw = dict(sweeps=ks.route_sweeps(n_refine, rounds),
+                      rounds=rounds)
+            cut, prod = gs.gls_solve_stage("all", **inp, **kw), \
+                gs.gls_solve(**inp, **kw)
+            check(all(torch.equal(a, b) for a, b in zip(cut, prod)),
+                  f"stage cut 'all' differs from gls_solve at rounds="
+                  f"{rounds}, class ({c['E']}, {c['F']})")
+    table = ks.probe(chunks, n_refine)
+    ks.report(table)
+    checks = []
+    for row in table:
+        label = f"({row['E']}, {row['F']})"
+        for rounds, r in row["rounds"].items():
+            ms = [cut["ms"] for cut in r["cuts"]]
+            for a, b, cut in zip(ms, ms[1:], r["cuts"][1:]):
+                checks.append((
+                    b >= a - max(STAGE_NOISE * a, STAGE_NOISE_MS),
+                    f"{label} rounds={rounds}: cut {cut['stop']} "
+                    f"{b:.4f} ms < the cut before, {a:.4f} ms"))
+        whole = row["rounds"]["2"]["cuts"][-1]["ms"]
+        phase4 = [r["ms"] for r in rows if (r["E"], r["F"], r[
+            "with_neumann"]) == (row["E"], row["F"], row["with_neumann"])]
+        row["phase4_ms"] = phase4[0]
+        checks.append((abs(whole - phase4[0]) <= STAGE_NOISE * phase4[0],
+                       f"{label}: the 'all' cut takes {whole:.4f} ms, "
+                       f"phase 4's kernel {phase4[0]:.4f} ms"))
+    print(json.dumps({"kernel_stages": {
+        "card": card_line(), "reps": ks.REPS,
+        "launches": gs.gls_solve_stage.launches, "classes": table}}),
+        flush=True)
+    checks += [(False, msg) for msg in ks.failed_cuts(table)]
+    for ok, msg in checks:
+        check(ok, msg)
+    return table
+
+
 def build_kernels():
     """Phase 2: one nvcc per kernel source, all started together."""
     from ninpol_tpu_torch.ops import cholqr as cq
     from ninpol_tpu_torch.ops import gls_solve as gs
     from ninpol_tpu_torch.ops import qr
 
-    libs = (gs.library, cq.library, qr.library)
+    libs = (gs.library, gs.stage_library, cq.library, qr.library)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
         for f in [ex.submit(lib.get) for lib in libs]:
             f.result()
     print(f"# kernel build: {time.perf_counter() - t0:.2f} s", flush=True)
     for lib in libs:
-        print(f"# {lib.name}.cu: {lib.build_seconds:.2f} s", flush=True)
+        print(f"# {lib.label}: {lib.build_seconds:.2f} s", flush=True)
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"#   {line.strip()}", flush=True)
@@ -1471,7 +1466,8 @@ def main():
     # ---- 3. the problem, once for each route
     t0 = time.perf_counter()
     interp, build_s = build_problem(args.n)
-    unfused, _ = build_problem(args.n, shard_geometry=True)
+    unfused, _ = build_problem(args.n)
+    unfused.gls.fused = False     # the unfused route on one device
     tp = np.arange(interp.grid.n_points)
     print(f"# mesh: {interp.grid.n_elems} cells, {interp.grid.n_points} "
           f"points; grid build {build_s:.2f} s, both problems "
@@ -1479,7 +1475,8 @@ def main():
     phase_done("3 problem")
 
     # ---- 4. kernels vs plain versions
-    classes, rows = kernel_vs_plain(interp, tp)
+    chunks = kernel_stages.chunk_inputs(interp, tp)
+    classes, rows = kernel_vs_plain(interp, chunks)
     phase_done("4 gls_solve")
     workspace_path(interp, tp, classes)
     phase_done("4b workspace")
@@ -1489,7 +1486,12 @@ def main():
     phase_done("4d csne")
     wide_routes(interp, tp, classes)
     phase_done("4e wide")
-    _, rows_1 = kernel_vs_plain(interp, tp, rounds=1)
+    _, rows_1 = kernel_vs_plain(interp, chunks, rounds=1)
+    # phase 10's inputs wait on the host
+    chunks = [(c, {k: None if v is None else v.cpu()
+                   for k, v in inp.items()}, n_elem)
+              for c, inp, n_elem in chunks]
+    n_refine = interp.gls.n_refine
     phase_done("4f gls_solve rounds=1")
 
     # ---- 5. main path, the three routes, and "refined"
@@ -1560,6 +1562,10 @@ def main():
         "pallas": (Wc, NWc, stats_c), **simple_w})
     del W, NW, Wu, NWu, Wc, NWc, simple_w
     phase_done("9 mesh")
+
+    # ---- 10. kernel 1's stage probe
+    stage_phase(chunks, rows, n_refine)
+    phase_done("10 kernel stages")
     print(f"# total: {time.perf_counter() - t_run:.2f} s", flush=True)
 
     def entry(name, source, replaces, launches, rows, top,

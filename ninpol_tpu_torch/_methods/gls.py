@@ -422,6 +422,9 @@ class GLSInterpolation:
         self._face_cache = None
         # nodes sent to the exact path by the last prepare()
         self.last_n_bad = None
+        # host delivery in float32 (ninpol_tpu gls.py:1597-1603; the
+        # Interpolator sets it before each call)
+        self.delivery_f32 = False
 
     def _face_table(self, dgrid, cells_data, points_data,
                     variable_to_index, variable, neumann_flag):
@@ -541,7 +544,8 @@ class GLSInterpolation:
             # (n_target, ncols + 1) float64 [weights | neumann_w] on the
             # device, for on-device consumers
             return wdev
-        host = wdev.cpu().numpy()
+        # cast on the device: half the bytes to the host
+        host = (wdev.float() if self.delivery_f32 else wdev).cpu().numpy()
         weights[:] = host[:, :ncols]
         neumann_ws[:] = host[:, ncols]
         return weights, neumann_ws

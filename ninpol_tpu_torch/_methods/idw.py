@@ -58,14 +58,17 @@ def idw_math(xv, xc, cell_valid, n_elem, *, dim):
 
 
 def simple_prepare(math, chunk_nodes, dgrid, points_data, variable_to_index,
-                   variable, target_points, weights, neumann_ws, device_out):
+                   variable, target_points, weights, neumann_ws, device_out,
+                   delivery_f32=False):
     """The IDW/LS prepare(): ``math(*simple_gather(...))`` on every chunk of
     every stencil class of the active target nodes (not Dirichlet), each
     class's nodes split over the grid's shards (``parallel.schedule``) and
     gathered on their shard's device; the rows are copied to the primary
     device and scattered into (n_target, ncols + 1) float64 there, whose
     Neumann column stays zero.  Returns that tensor with ``device_out``,
-    else fills and returns the host (weights, neumann_ws)."""
+    else fills and returns the host (weights, neumann_ws), the rows cast
+    to float32 on the device first with ``delivery_f32`` (ninpol_tpu
+    device_grid.py:573-611)."""
     grid = dgrid.grid
     nf_idx = variable_to_index["points"]["neumann_flag_" + variable]
     neumann_flag = points_data[nf_idx]
@@ -91,7 +94,8 @@ def simple_prepare(math, chunk_nodes, dgrid, points_data, variable_to_index,
             wdev[pos, :k] = w[:, :k]
     if device_out:
         return wdev
-    weights[:] = wdev[:, :ncols].cpu().numpy()
+    rows = wdev[:, :ncols]
+    weights[:] = (rows.float() if delivery_f32 else rows).cpu().numpy()
     return weights, neumann_ws
 
 
@@ -102,6 +106,8 @@ class IDWInterpolation:
         self.logging = logging
         # nodes per batch (ninpol_tpu's chunk_nodes)
         self.chunk_nodes = 131072
+        # host delivery in float32 (set by the Interpolator)
+        self.delivery_f32 = False
 
     def prepare(self, dgrid, cells_data, points_data, faces_data,
                 variable_to_index, variable, target_points,
@@ -111,4 +117,5 @@ class IDWInterpolation:
 
         return simple_prepare(math, self.chunk_nodes, dgrid, points_data,
                               variable_to_index, variable, target_points,
-                              weights, neumann_ws, device_out)
+                              weights, neumann_ws, device_out,
+                              self.delivery_f32)

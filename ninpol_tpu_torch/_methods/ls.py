@@ -87,6 +87,8 @@ class LSInterpolation:
         self.logging = logging
         # nodes per batch (ninpol_tpu's chunk_nodes)
         self.chunk_nodes = 131072
+        # host delivery in float32 (set by the Interpolator)
+        self.delivery_f32 = False
 
     def prepare(self, dgrid, cells_data, points_data, faces_data,
                 variable_to_index, variable, target_points,
@@ -96,4 +98,5 @@ class LSInterpolation:
 
         return simple_prepare(math, self.chunk_nodes, dgrid, points_data,
                               variable_to_index, variable, target_points,
-                              weights, neumann_ws, device_out)
+                              weights, neumann_ws, device_out,
+                              self.delivery_f32)

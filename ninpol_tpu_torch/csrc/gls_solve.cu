@@ -27,6 +27,19 @@
  * L1^-1, so M = D L1^-T L1^-1 D and breakdown reads dinv1 alone.  The
  * launch takes the instance for its `rounds` (>= 2: two rounds).
  *
+ * Stage cuts (the second template parameter, kStop; the production kernel
+ * is kStop = kAll): an instance that runs the stages up to and including
+ * kStop, then writes zero weights and, in rnorm, one float64 checksum per
+ * node of the state that stage ends on (the sum of its entries), so that
+ * the compiler keeps the work and a test can see where the cut fell.
+ * Timing the cuts in turn gives each stage's time inside the kernel
+ * (ninpol_tpu_torch/tools/kernel_stages.py), the counterpart of the TPU
+ * stage probes in tools/.  Every cut is under `if constexpr`: the
+ * production instance is the kernel without them.  The cuts are built
+ * only with -DGLS_SOLVE_STAGE_CUTS, into a library of their own with the
+ * entry gls_solve_stage_launch; without it the library has the two
+ * production instances and the entry gls_solve_launch.
+ *
  * What bounds it on an H100: arithmetic on the CUDA cores, not memory.  An
  * interior tetrahedral node (E = 24, F = 36: m = 132, n = 73) reads about
  * 6 KB of inputs but does ~1.3 M float32 FMAs (three m n^2 / 2 products:
@@ -67,6 +80,20 @@ using namespace cholqr_device;
 constexpr int kThreads = 256;
 constexpr float kSickDinv = 3e4f;
 constexpr size_t kStaticSmemMargin = 64;
+
+// Where a stage-cut instance stops: after the stage of that name, in the
+// order the kernel runs them (ops/gls_solve.py::STAGES names them alike).
+enum Stop : int {
+  kFloor,    // 1. inputs and local incidence
+  kRows,     // 2. float32 system rows A
+  kGram1,    // 3. equilibration and G1
+  kChol1,    //    L1^-1
+  kQ,        //    L1^-T and Q = A L1^-T (two rounds only)
+  kGram2,    //    G2 (two rounds only)
+  kChol2,    //    Lc = L2^-1 L1^-1 (two rounds only)
+  kSweeps,   // 4. float64 refinement sweeps
+  kAll       // 5. outputs: the production kernel
+};
 
 struct Params {
   const double *dk, *l1, *l2, *t1m, *tt, *lb, *nm;
@@ -148,6 +175,35 @@ __device__ float warp_max(float v) {
   return v;
 }
 
+// This thread's share, in float64, of the sum of the first `rows` x
+// `cols` entries of x (row stride ld).
+__device__ double part_sum(const float* x, int rows, int cols, int ld) {
+  double s = 0.0;
+  for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
+    const int r = i / cols;
+    s += x[r * ld + i - r * cols];
+  }
+  return s;
+}
+
+// A stage cut's outputs: zero weights and Neumann weight, and in rnorm
+// the block's sum of `part` (each thread's share of the checksum), summed
+// a warp at a time into `scratch` (kThreads / 32 doubles of shared memory
+// that nothing reads at the cut).
+__device__ void cut_outputs(const Params& p, long long b, double part,
+                            double* scratch) {
+  part = warp_sum(part);
+  if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32] = part;
+  for (int e = threadIdx.x; e < p.E; e += kThreads) p.w[b * p.E + e] = 0.0;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double s = 0.0;
+    for (int w = 0; w < kThreads / 32; ++w) s += scratch[w];
+    p.wn[b] = 0.0;
+    p.rnorm[b] = s;
+  }
+}
+
 struct Node {
   int E, F, n;
   const double *dk, *l1, *l2, *t1m, *tt, *lb;
@@ -218,7 +274,7 @@ __device__ void residual(const Node& nd, const double* y, double* r) {
 }
 
 // two blocks an SM at the interior class: at most 128 registers a thread
-template <int kRounds>
+template <int kRounds, int kStop = kAll>
 __global__ void __launch_bounds__(kThreads, 2) gls_solve_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_flag[2];   // active, sick
@@ -310,6 +366,15 @@ __global__ void __launch_bounds__(kThreads, 2) gls_solve_kernel(Params p) {
     }
     return;
   }
+  // the cuts' checksums: y, r and dy (3n >= 12 doubles) are free until
+  // the sweeps, r and dy after them
+  if constexpr (kStop == kFloor) {
+    double s = 0.0;   // the float64 pieces dk .. nm lie back to back
+    for (int i = tid; i < (int)(y - dk); i += kThreads) s += dk[i];
+    for (int f = tid; f < F; f += kThreads) s += I1[f] + I2[f] + Ib[f];
+    cut_outputs(p, b, s, y);
+    return;
+  }
 
   // ---- 2. float32 system rows
   // A and the first Gram accumulator, pad rows and columns included
@@ -342,6 +407,10 @@ __global__ void __launch_bounds__(kThreads, 2) gls_solve_kernel(Params p) {
     }
   }
   __syncthreads();
+  if constexpr (kStop == kRows) {
+    cut_outputs(p, b, part_sum(A, m, n, np), y);
+    return;
+  }
 
   // ---- 3. shifted CholeskyQR2 preconditioner (float32)
   for (int j = tid; j < n; j += kThreads) {
@@ -360,7 +429,15 @@ __global__ void __launch_bounds__(kThreads, 2) gls_solve_kernel(Params p) {
   }
   __syncthreads();
   gram(A, X, dead, p.shift, m, n, np);
+  if constexpr (kStop == kGram1) {
+    cut_outputs(p, b, part_sum(X, n, n, np), y);
+    return;
+  }
   chol_linv_rows_inplace(X, np, Y, np, true, n, p.tiny, dinv1);  // Y = L1^-1
+  if constexpr (kStop == kChol1) {
+    cut_outputs(p, b, part_sum(Y, n, n, np), y);
+    return;
+  }
   // one round: M's factor is L1^-1 itself
   const float* Lc = Y;
   if constexpr (kRounds >= 2) {
@@ -389,7 +466,15 @@ __global__ void __launch_bounds__(kThreads, 2) gls_solve_kernel(Params p) {
         __syncthreads();
       }
     }
+    if constexpr (kStop == kQ) {
+      cut_outputs(p, b, part_sum(A, m, n, np), y);
+      return;
+    }
     gram(A, Y, dead, 0.f, m, n, np);
+    if constexpr (kStop == kGram2) {
+      cut_outputs(p, b, part_sum(Y, n, n, np), y);
+      return;
+    }
     // Lc = L2^-1 L1^-1 in A's storage (Q is no longer read): L1^-1's rows
     // from X, then the factorization in place over them
     for (int i = tid; i < n * n; i += kThreads) {
@@ -398,6 +483,10 @@ __global__ void __launch_bounds__(kThreads, 2) gls_solve_kernel(Params p) {
     }
     chol_linv_rows_inplace(Y, np, A, np, false, n, p.tiny, dinv2);
     Lc = A;
+    if constexpr (kStop == kChol2) {
+      cut_outputs(p, b, part_sum(A, n, n, np), y);
+      return;
+    }
   }
   if (tid < 32) {
     float dmax = 0.f;
@@ -419,6 +508,12 @@ __global__ void __launch_bounds__(kThreads, 2) gls_solve_kernel(Params p) {
     apply_M(r, dy, Lc, D, v, u, n, np);
     for (int j = tid; j < n; j += kThreads) y[j] += dy[j];
     __syncthreads();
+  }
+  if constexpr (kStop == kSweeps) {
+    double s = 0.0;
+    for (int j = tid; j < n; j += kThreads) s += y[j];
+    cut_outputs(p, b, s, r);
+    return;
   }
   const double* dlast = p.sweeps > 0 ? dy : y;
 
@@ -476,15 +571,59 @@ int occupancy(const Layout& lay, long long* smem_bytes, int* blocks_per_sm) {
       blocks_per_sm, gls_solve_kernel<kRounds>, kThreads, smem);
 }
 
-// Launch the `rounds` instance; returns the cudaError_t of the launch.
-template <int kRounds>
+// Launch the `rounds` instance cut at kStop; returns the cudaError_t of
+// the launch.
+template <int kRounds, int kStop>
 int launch(const Params& p, int B, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      gls_solve_kernel<kRounds>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      gls_solve_kernel<kRounds, kStop>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  gls_solve_kernel<kRounds><<<B, kThreads, smem, stream>>>(p);
+  gls_solve_kernel<kRounds, kStop><<<B, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+#ifdef GLS_SOLVE_STAGE_CUTS
+// Launch the instance of `rounds` and `stop`, trying the cuts from kStop
+// on; the one-round instance has no cut inside the second round.
+template <int kRounds, int kStop = kFloor>
+int launch_cut(const Params& p, int stop, int B, size_t smem,
+               cudaStream_t stream) {
+  if (stop != kStop) {
+    if constexpr (kStop < kAll)
+      return launch_cut<kRounds, kStop + 1>(p, stop, B, smem, stream);
+    else
+      return (int)cudaErrorInvalidValue;
+  }
+  if constexpr (kRounds < 2 && kStop >= kQ && kStop <= kChol2)
+    return (int)cudaErrorInvalidValue;
+  else
+    return launch<kRounds, kStop>(p, B, smem, stream);
+}
+#endif
+
+// Launch the kernel's instance of `rounds` (>= 2: two rounds) cut after
+// stage `stop`, on B nodes; returns the cudaError_t of the launch.  The
+// production library has only the kAll instances; the stage-cut library
+// (built with -DGLS_SOLVE_STAGE_CUTS) has every cut.
+int solve_launch(const Params& p, int B, int rounds, int stop,
+                 cudaStream_t stream) {
+  const Layout lay = make_layout(p.E, p.F, p.with_neumann);
+  if (B <= 0 || p.E <= 0 || p.F <= 0 || p.sweeps < 0 ||
+      (p.with_neumann && (p.lb == nullptr || p.nm == nullptr)) ||
+      lay.np > kTile * kThreads ||   // a Q tile row wider than the block
+      (p.ws != nullptr && p.ws_stride < lay.big_floats) ||
+      stop < kFloor || stop > kAll)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = launch_smem(lay, p.ws != nullptr);
+#ifdef GLS_SOLVE_STAGE_CUTS
+  return rounds >= 2 ? launch_cut<2>(p, stop, B, smem, stream)
+                     : launch_cut<1>(p, stop, B, smem, stream);
+#else
+  if (stop != kAll) return (int)cudaErrorInvalidValue;
+  return rounds >= 2 ? launch<2, kAll>(p, B, smem, stream)
+                     : launch<1, kAll>(p, B, smem, stream);
+#endif
 }
 
 }  // namespace
@@ -504,7 +643,27 @@ extern "C" int gls_solve_occupancy(int E, int F, int with_neumann, int rounds,
                      : occupancy<1>(lay, smem_bytes, blocks_per_sm);
 }
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 on success).
+#ifdef GLS_SOLVE_STAGE_CUTS
+// The kernel's instance of `rounds` cut after stage `stop` (a Stop; kAll:
+// the production kernel), on `stream`; returns the cudaError_t of the
+// launch (0 on success).  A cut writes zero to w and wn and its checksum
+// to rnorm.
+extern "C" int gls_solve_stage_launch(
+    const double* dk, const double* l1, const double* l2, const double* t1m,
+    const double* tt, const double* lb, const double* nm, const int* pair,
+    const int* ks, const unsigned char* cv, const unsigned char* fv,
+    const unsigned char* isneu, const unsigned char* valid, double* w,
+    double* wn, double* rnorm, float* ws, long long ws_stride, int B, int E,
+    int F, int with_neumann, int sweeps, int rounds, int stop, double tiny,
+    double shift, void* stream) {
+  Params p{dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu, valid,
+           w, wn, rnorm, ws, ws_stride, E, F, with_neumann, sweeps,
+           (float)tiny, (float)shift};
+  return solve_launch(p, B, rounds, stop, (cudaStream_t)stream);
+}
+#else
+// The production kernel (kAll) on `stream`; returns the cudaError_t of
+// the launch (0 on success).
 extern "C" int gls_solve_launch(
     const double* dk, const double* l1, const double* l2, const double* t1m,
     const double* tt, const double* lb, const double* nm, const int* pair,
@@ -513,16 +672,9 @@ extern "C" int gls_solve_launch(
     double* wn, double* rnorm, float* ws, long long ws_stride, int B, int E,
     int F, int with_neumann, int sweeps, int rounds, double tiny, double shift,
     void* stream) {
-  const Layout lay = make_layout(E, F, with_neumann);
-  if (B <= 0 || E <= 0 || F <= 0 || sweeps < 0 ||
-      (with_neumann && (lb == nullptr || nm == nullptr)) ||
-      lay.np > kTile * kThreads ||   // a Q tile row wider than the block
-      (ws != nullptr && ws_stride < lay.big_floats))
-    return (int)cudaErrorInvalidValue;
   Params p{dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu, valid,
            w, wn, rnorm, ws, ws_stride, E, F, with_neumann, sweeps,
            (float)tiny, (float)shift};
-  const size_t smem = launch_smem(lay, ws != nullptr);
-  return rounds >= 2 ? launch<2>(p, B, smem, (cudaStream_t)stream)
-                     : launch<1>(p, B, smem, (cudaStream_t)stream);
+  return solve_launch(p, B, rounds, kAll, (cudaStream_t)stream);
 }
+#endif

@@ -12,13 +12,12 @@ import numpy as np
 from .interpolator import Interpolator
 
 
-def from_state(d, device=None, shard_geometry=False):
-    """Build an Interpolator from the numpy dict that
+def from_state(d, device=None):
+    """Build an Interpolator on ``device`` from the numpy dict that
     ``ninpol_tpu.Interpolator._make_cache(args)`` produces (the grid's
     constructor arguments plus the cell/point/face data and the
-    variable index), the same dict its pickle cache stores.  ``device``
-    and ``shard_geometry`` are passed to the Interpolator."""
-    interp = Interpolator(device=device, shard_geometry=shard_geometry)
+    variable index), the same dict its pickle cache stores."""
+    interp = Interpolator(device=device)
     interp._load_cache(d)
     interp._build_grid()
     return interp

@@ -60,11 +60,13 @@ class Interpolator:
         ``device="cpu"`` to run on the CPU.
 
         ``mesh``: run every interpolation over several devices, as
-        ``ninpol_tpu.Interpolator(mesh=...)`` does: an int (that many CUDA
-        cards, ``parallel.make_mesh(mesh, device=device)``; raises when
-        fewer exist; with ``device="cpu"`` that many CPU shards), a
+        ``ninpol_tpu.Interpolator(mesh=...)`` does: an int (the first
+        min(mesh, count) CUDA cards, ``parallel.make_mesh(mesh,
+        device=device)``, which logs a shortfall and raises only where
+        there is no card; with ``device="cpu"`` that many CPU shards), a
         sequence of devices (taken as given: ``["cuda:0", "cuda:0"]`` is
-        two shards on one card) or a ``parallel.Mesh``.  One process
+        two shards on one card; a card that does not exist raises) or a
+        ``parallel.Mesh``.  One process
         drives every device: each stencil class's nodes are split evenly
         over the shards, each shard's chunks run on its device, and the
         results are copied to the mesh's first (primary) device, where
@@ -76,12 +78,22 @@ class Interpolator:
         one device's memory.  The weights are those of one device, to
         1e-11.
 
-        ``shard_geometry=True`` also picks ninpol_tpu's unfused
-        shifted-CholeskyQR2 route for GLS, with or without a mesh (the
+        ``shard_geometry`` is dropped without a mesh, as ninpol_tpu drops
+        it (``interp.shard_geometry`` is then False).  With a mesh it also
+        picks ninpol_tpu's unfused shifted-CholeskyQR2 route for GLS (the
         route ``ninpol_tpu.Interpolator(mesh=N, shard_geometry=True)``
         takes): the gram, chol_linv, round2_gram and prec_apply kernels of
         ops/cholqr.py with float64 refinement sweeps, instead of the fused
-        solve kernel.  The weights agree to the same 1e-10 bar.
+        solve kernel.  ``interp.gls.fused = False`` takes that route on
+        one device, the counterpart of ninpol_tpu's backend test
+        (gls.py:1223), which sends every backend but the TPU down it.  The
+        weights agree to the same 1e-10 bar.
+
+        ``interp.delivery_f32 = True`` (ninpol_tpu's setting of that name,
+        off by default) casts the delivered weights and Neumann vector to
+        float32 on the device before the copy to the host, halving its
+        bytes, at ~1e-7 relative rounding; the host arrays stay float64.
+        ``prepare_interpolator(..., device_out=True)`` ignores it.
 
         ``interp.gls.solver = "pallas"`` selects ninpol_tpu's cross-check
         route of the same name, whatever ``shard_geometry`` says: a
@@ -100,10 +112,10 @@ class Interpolator:
         self.logger = Logger(name, logging=logging)
         self.mesh = as_mesh(mesh, device)
         self.device = device if self.mesh is None else self.mesh.primary
-        self.shard_geometry = bool(shard_geometry)
+        self.shard_geometry = bool(shard_geometry) and self.mesh is not None
 
         self.gls = GLSInterpolation(logging)
-        self.gls.fused = not shard_geometry
+        self.gls.fused = not self.shard_geometry
         self.idw = IDWInterpolation(logging)
         self.ls = LSInterpolation(logging)
         self.supported_methods = {
@@ -136,6 +148,9 @@ class Interpolator:
         # method-level device caches (id() of numpy arrays is unsafe —
         # CPython reuses addresses after GC)
         self._data_version = 0
+        # float32 host delivery (ninpol_tpu's non-parity setting; the
+        # 1e-10 parity contract needs the default False)
+        self.delivery_f32 = False
         self.CACHE_PATH = tempfile.gettempdir()
 
     # ------------------------------------------------------------------
@@ -452,7 +467,8 @@ class Interpolator:
                   hash(target_points.tobytes()),
                   self.gls.exact, self.gls.neumann_compat,
                   self.gls.n_refine, self.gls.fallback_tol, self.gls.fused,
-                  self.gls.solver, self.gls.precond_rounds)
+                  self.gls.solver, self.gls.precond_rounds,
+                  self.delivery_f32)
         if tp_key in self._prep_cache:
             weights, neumann_ws = self._prep_cache[tp_key]
         else:
@@ -504,7 +520,8 @@ class Interpolator:
 
         device_out=True: returns the (n_target, n_cols+1) float64 torch
         tensor [weights | neumann_w] on the interpolator's device (a
-        mesh's primary device), without the device->host copy.
+        mesh's primary device), without the device->host copy (float64
+        whatever ``delivery_f32`` says).
         """
         if method not in self.supported_methods:
             raise ValueError(
@@ -518,6 +535,8 @@ class Interpolator:
         t0 = time.perf_counter()
         # content/version stamp for the GLS face-table cache
         self.gls._data_token = self._data_version
+        for m in (self.gls, self.idw, self.ls):
+            m.delivery_f32 = self.delivery_f32
         out = self.supported_methods[method](
             self.device_grid,
             self.cells_data, self.points_data, self.faces_data,

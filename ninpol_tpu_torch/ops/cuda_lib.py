@@ -44,12 +44,16 @@ class CudaLibrary:
     """One ``csrc/<name>.cu`` as a ctypes library, built on first use.
 
     ``bind(lib)`` declares the argument and result types of the library's
-    C functions."""
+    C functions.  ``define`` (a preprocessor macro, or None) builds another
+    library from the same source with ``-D<define>``, kept under its own
+    name."""
 
-    def __init__(self, name, bind, csrc=CSRC):
+    def __init__(self, name, bind, csrc=CSRC, define=None):
         self.name = name
         self.csrc = csrc
         self.source = os.path.join(csrc, f"{name}.cu")
+        self.define = define
+        self.label = f"{name}.cu" + (f" -D{define}" if define else "")
         self._bind = bind
         self.lib = None
         self.build_seconds = None
@@ -63,7 +67,8 @@ class CudaLibrary:
     def path(self):
         """The built library's path, named by ``source_digest``."""
         digest = source_digest(self.source, self.csrc)
-        return os.path.join(BUILD_DIR, f"{self.name}_{digest}.so")
+        stem = self.name + (f"-{self.define}" if self.define else "")
+        return os.path.join(BUILD_DIR, f"{stem}_{digest}.so")
 
     def _build(self):
         path = self.path()
@@ -75,7 +80,8 @@ class CudaLibrary:
             out = subprocess.run(
                 [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                  "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                 "-Xptxas", "-v", "-o", tmp, self.source],
+                 "-Xptxas", "-v", "-o", tmp, self.source]
+                + ([f"-D{self.define}"] if self.define else []),
                 capture_output=True, text=True)
             self.build_log = out.stdout + out.stderr
             if out.returncode != 0:

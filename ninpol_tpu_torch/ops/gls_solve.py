@@ -49,6 +49,16 @@ launches, is ninpol_tpu's unfused route (``_methods/gls.py``).  There
 the flag reads max(|diag L1^-1|, |diag Lc|), the same numbers up to
 rounding, and counts a non-finite value as clamped, as the kernel's
 fmaxf-clamped pivots do.
+
+Stage cuts: ``gls_solve_stage(stop, ...)`` launches the kernel's instance
+that stops after the stage ``stop`` (a name of ``STAGES``; "all" is the
+production kernel, the same outputs as ``gls_solve``) from its own
+library, ``stage_library``: the same source built with
+``-DGLS_SOLVE_STAGE_CUTS``, so that ``gls_solve`` builds and loads only
+the production instances.  A cut gives zero w and wn and, as rnorm, each
+active node's float64 sum of the entries of the state its last stage
+ends on (``cholqr2_solve(..., stop=...)`` names them).
+``tools/kernel_stages.py`` times the cuts.
 """
 from __future__ import annotations
 
@@ -61,6 +71,17 @@ from .cuda_lib import CudaLibrary, check_launch, check_tensor, on_card, stream
 
 _FLOAT_ARGS = ("dk", "l1", "l2", "t1m", "tt")
 _MASK_ARGS = ("cv", "fv", "isneu", "valid")
+
+# the kernel's stage cuts, in the order it runs the stages (the Stop enum
+# of csrc/gls_solve.cu); the one-round instance has no cut in round two
+STAGES = ("floor", "rows", "gram1", "chol1", "q", "gram2", "chol2",
+          "sweeps", "all")
+_ROUND2_STAGES = ("q", "gram2", "chol2")
+
+
+def stages(rounds=2):
+    """The stage cuts of the kernel's ``rounds`` instance, in order."""
+    return tuple(s for s in STAGES if rounds >= 2 or s not in _ROUND2_STAGES)
 
 
 # ---------------------------------------------------------------------------
@@ -117,7 +138,7 @@ def assemble(dk, l1, l2, t1m, tt, lb, S1, S2, Sb, cv, active):
 
 def cholqr2_solve(pieces, dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv,
                   isneu, valid, *, sweeps=3, tiny=1e-12, shift=1.5e-5,
-                  rounds=2):
+                  rounds=2, stop="all"):
     """The solve as batched dense torch ops around the four preconditioner
     pieces of ops/cholqr.py (``cholqr.KERNELS`` or ``cholqr.PLAIN``): the
     dense float64 A, the float32 factors of ``cholqr_factors`` (of its
@@ -129,15 +150,47 @@ def cholqr2_solve(pieces, dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv,
     float32 image scaled back in float64 (ninpol_tpu gls.py:643-646); the
     kernel scales in float32, a rounding of the preconditioner that the
     sweeps absorb.  rnorm = ||dy|| / max(||y||, 1e-300), 1 on a ``sick``
-    node."""
+    node.
+
+    ``stop`` (a stage of ``stages(rounds)`` but "all") ends the solve as
+    the kernel's stage cut does: zero w and wn, and as rnorm each active
+    node's float64 sum of the entries of that stage's state: the inputs
+    and the incidence's cell slots (-1 for none) ("floor"), A in float32
+    ("rows"), G1, L1^-1, Q = As L1^-T, G2, Lc, y after the sweeps."""
     B, E, _ = dk.shape
     F = l1.shape[1]
     n = 3 * E + 1
     f32, f64 = torch.float32, torch.float64
+    if stop not in stages(rounds):
+        raise ValueError(f"no stage {stop!r} at rounds={rounds}: "
+                         f"{stages(rounds)}")
     S1, S2, Sb = incidence(pair, ks, cv, fv, isneu)
     active = node_active(pair, fv, valid)
+
+    def cut(total):
+        zero = torch.zeros((), dtype=f64, device=dk.device)
+        return (torch.zeros((B, E), dtype=f64, device=dk.device),
+                torch.zeros(B, dtype=f64, device=dk.device),
+                torch.where(active, total, zero))
+
+    def entries(x):
+        return x.to(f64).flatten(1).sum(dim=1)
+
+    if stop == "floor":
+        # without Neumann rows no face has an owner slot
+        slots = [torch.where(S.any(dim=2), S.argmax(dim=2), -1)
+                 for S in (S1, S2, Sb if lb is not None else 0 * Sb)]
+        return cut(sum(entries(x) for x in (dk, l1, l2, t1m, tt, lb, nm,
+                                             *slots) if x is not None))
     A = assemble(dk, l1, l2, t1m, tt, lb, S1, S2, Sb, cv, active)
+    if stop == "rows":
+        return cut(entries(A.to(f32)))
     pc = cholqr_factors(A, pieces, tiny, shift, rounds)
+    if stop == "q":
+        return cut(entries(torch.bmm(pc["As"], pc["Li1"].transpose(1, 2))))
+    factor = {"gram1": "G1", "chol1": "Li1", "gram2": "G2", "chol2": "Lc"}
+    if stop in factor:
+        return cut(entries(pc[factor[stop]]))
     prec_apply = pieces[3]
     D, Lc = pc["D"].to(f64), pc["Lc"]
 
@@ -152,6 +205,8 @@ def cholqr2_solve(pieces, dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv,
     for _ in range(sweeps):
         dy = M(b - mul_G(A, y))
         y = y + dy
+    if stop == "sweeps":
+        return cut(y.sum(dim=1))
     rnorm = torch.linalg.vector_norm(dy, dim=1) / torch.clamp_min(
         torch.linalg.vector_norm(y, dim=1), 1e-300)
     rnorm = torch.where(pc["sick"], 1.0, rnorm)
@@ -182,33 +237,50 @@ def solve_outputs(A, y, rnorm, nm, active, E, F):
 
 def gls_solve_reference(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv,
                         isneu, valid, *, sweeps=3, tiny=1e-12,
-                        shift=1.5e-5, rounds=2):
-    """Plain PyTorch version of the kernel: the same function, as batched
-    dense torch ops (dense A, explicit factors from the plain versions of
-    ops/cholqr.py, so it stays plain on a CUDA tensor)."""
+                        shift=1.5e-5, rounds=2, stop="all"):
+    """Plain PyTorch version of the kernel (of its stage cut ``stop``): the
+    same function, as batched dense torch ops (dense A, explicit factors
+    from the plain versions of ops/cholqr.py, so it stays plain on a CUDA
+    tensor)."""
     return cholqr2_solve(PLAIN, dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv,
                          fv, isneu, valid, sweeps=sweeps, tiny=tiny,
-                         shift=shift, rounds=rounds)
+                         shift=shift, rounds=rounds, stop=stop)
 
 
 # ---------------------------------------------------------------------------
 # CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
-def _bind(lib):
+def _bind_common(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.gls_solve_workspace_floats.argtypes = [ci, ci, ci]
     lib.gls_solve_workspace_floats.restype = ctypes.c_longlong
-    lib.gls_solve_launch.argtypes = (
-        [vp] * 13 + [vp] * 3 + [vp, ctypes.c_longlong]
-        + [ci] * 6 + [ctypes.c_double] * 2 + [vp])
-    lib.gls_solve_launch.restype = ci
     lib.gls_solve_occupancy.argtypes = [
         ci, ci, ci, ci, ctypes.POINTER(ctypes.c_longlong),
         ctypes.POINTER(ci)]
     lib.gls_solve_occupancy.restype = ci
+    # the inputs, outputs and workspace of a launch
+    return [vp] * 13 + [vp] * 3 + [vp, ctypes.c_longlong]
 
 
+def _bind(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.gls_solve_launch.argtypes = (
+        _bind_common(lib) + [ci] * 6 + [ctypes.c_double] * 2 + [vp])
+    lib.gls_solve_launch.restype = ci
+
+
+def _bind_stages(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.gls_solve_stage_launch.argtypes = (
+        _bind_common(lib) + [ci] * 7 + [ctypes.c_double] * 2 + [vp])
+    lib.gls_solve_stage_launch.restype = ci
+
+
+# the production kernel (its kAll instances), and apart from it, built
+# only when a cut is launched, the same source with every stage cut
 library = CudaLibrary("gls_solve", _bind)
+stage_library = CudaLibrary("gls_solve", _bind_stages,
+                            define="GLS_SOLVE_STAGE_CUTS")
 
 
 def occupancy(E, F, with_neumann, rounds=2):
@@ -258,29 +330,65 @@ def gls_solve(dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu, valid,
     if not on_card(dk, "gls_solve"):
         return gls_solve_reference(**t, sweeps=sweeps, tiny=tiny,
                                    shift=shift, rounds=rounds)
+    out = _launch(t, B, E, F, sweeps, tiny, shift, rounds)
+    gls_solve.launches += 1
+    return out
+
+
+def gls_solve_stage(stop, dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv,
+                    isneu, valid, *, sweeps=3, tiny=1e-12, shift=1.5e-5,
+                    rounds=2):
+    """The kernel's ``rounds`` instance cut after stage ``stop`` (a name of
+    ``stages(rounds)``; see the module docstring).  CPU tensors run the
+    plain version, CUDA tensors the cut; ``gls_solve_stage.launches``
+    counts its launches."""
+    if stop not in stages(rounds):
+        raise ValueError(f"no stage {stop!r} at rounds={rounds}: "
+                         f"{stages(rounds)}")
+    t = dict(dk=dk, l1=l1, l2=l2, t1m=t1m, tt=tt, lb=lb, nm=nm, pair=pair,
+             ks=ks, cv=cv, fv=fv, isneu=isneu, valid=valid)
+    B, E, F = _check_inputs(t)
+    if not on_card(dk, "gls_solve_stage"):
+        return gls_solve_reference(**t, sweeps=sweeps, tiny=tiny,
+                                   shift=shift, rounds=rounds, stop=stop)
+    out = _launch(t, B, E, F, sweeps, tiny, shift, rounds,
+                  STAGES.index(stop))
+    gls_solve_stage.launches += 1
+    return out
+
+
+def _launch(t, B, E, F, sweeps, tiny, shift, rounds, stop=None):
+    """One launch on the inputs ``t`` (checked): the production entry, or
+    the entry of the stage cuts at the Stop ``stop``."""
+    dk, lb = t["dk"], t["lb"]
     f64 = torch.float64
     w = torch.empty((B, E), dtype=f64, device=dk.device)
     wn = torch.empty(B, dtype=f64, device=dk.device)
     rnorm = torch.empty(B, dtype=f64, device=dk.device)
     if B == 0:
         return w, wn, rnorm
-    lib = library.get()
+    lib = (library if stop is None else stage_library).get()
     with_neumann = lb is not None
     with torch.cuda.device(dk.device):
         ws_floats = lib.gls_solve_workspace_floats(E, F, int(with_neumann))
         ws = (torch.empty(B * ws_floats, dtype=torch.float32,
                           device=dk.device) if ws_floats else None)
         ptr = lambda x: None if x is None else x.data_ptr()
-        err = lib.gls_solve_launch(
-            ptr(dk), ptr(l1), ptr(l2), ptr(t1m), ptr(tt), ptr(lb), ptr(nm),
-            ptr(pair), ptr(ks), ptr(cv), ptr(fv), ptr(isneu), ptr(valid),
-            ptr(w), ptr(wn), ptr(rnorm), ptr(ws), ws_floats,
-            B, E, F, int(with_neumann), int(sweeps), int(rounds),
-            float(tiny), float(shift), stream(dk.device))
-    check_launch(err, f"gls_solve (B={B}, E={E}, F={F}, "
-                      f"with_neumann={with_neumann})")
-    gls_solve.launches += 1
+        args = ([ptr(t[k]) for k in ("dk", "l1", "l2", "t1m", "tt", "lb",
+                                     "nm", "pair", "ks", "cv", "fv",
+                                     "isneu", "valid")]
+                + [ptr(w), ptr(wn), ptr(rnorm), ptr(ws), ws_floats,
+                   B, E, F, int(with_neumann), int(sweeps), int(rounds)])
+        tail = [float(tiny), float(shift), stream(dk.device)]
+        if stop is None:
+            err = lib.gls_solve_launch(*args, *tail)
+        else:
+            err = lib.gls_solve_stage_launch(*args, stop, *tail)
+    what = "gls_solve" if stop is None else f"gls_solve_stage {STAGES[stop]}"
+    check_launch(err, f"{what} (B={B}, E={E}, F={F}, "
+                      f"with_neumann={with_neumann}, rounds={rounds})")
     return w, wn, rnorm
 
 
 gls_solve.launches = 0
+gls_solve_stage.launches = 0

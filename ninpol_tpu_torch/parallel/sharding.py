@@ -26,10 +26,14 @@ The grid arrays are placed in one of two ways (``DeviceGrid``):
 A mesh may name one device more than once: ``["cuda:0", "cuda:0"]`` is two
 logical shards on one card, which share one replicated copy.
 
-Deviation from ninpol_tpu: ``make_mesh(n)`` raises when fewer than n CUDA
-devices exist, where ninpol_tpu's silently takes the devices it finds.
+``make_mesh(n)`` takes the first min(n, count) cards, as ninpol_tpu's takes
+the devices it finds, and logs the shortfall; it raises where there is no
+card at all (no CPU fallback), as does a list naming a card that does not
+exist.
 """
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -39,6 +43,8 @@ from torch.autograd.profiler import record_function
 # merges (their names are what a trace reader looks for)
 GATHER_RANGE = "ninpol_tpu_torch.mesh_gather"
 MERGE_RANGE = "ninpol_tpu_torch.mesh_merge"
+
+_log = logging.getLogger(__name__)
 
 
 def _cuda_count():
@@ -101,22 +107,26 @@ class Mesh:
 
 def make_mesh(n_devices=None, device=None):
     """A mesh of ``n_devices`` shards.  On CUDA (the default ``device``):
-    cuda:0 ... cuda:N-1, every card torch finds when ``n_devices`` is None;
-    raises when fewer cards exist or there is none.  With ``device="cpu"``:
-    N logical shards on the CPU (one when ``n_devices`` is None).  Only
-    the type of ``device`` is read."""
+    cuda:0 ... cuda:N-1 for N = min(n_devices, count), as ninpol_tpu
+    slices its device list, every card when ``n_devices`` is None; a
+    shortfall is logged (a warning of this module's logger), and no card
+    at all raises.  With ``device="cpu"``: N logical shards on the CPU
+    (one when ``n_devices`` is None).  Only the type of ``device`` is
+    read."""
     kind = torch.device("cuda" if device is None else device).type
     if kind == "cpu":
         return Mesh(["cpu"] * (1 if n_devices is None else int(n_devices)))
     if kind != "cuda":
         raise ValueError(f"a mesh holds cpu or cuda devices, not {kind}")
     count = _cuda_count()
-    n = count if n_devices is None else int(n_devices)
-    if count == 0 or n > count:
+    if count == 0:
         raise RuntimeError(
-            f"a mesh of {n if n_devices is not None else 'every'} CUDA "
-            f"device(s) was asked for and torch finds {count}; there is no "
-            f"CPU fallback (pass device='cpu' for CPU shards)")
+            "a mesh of CUDA devices was asked for and torch finds none; "
+            "there is no CPU fallback (pass device='cpu' for CPU shards)")
+    n = count if n_devices is None else min(int(n_devices), count)
+    if n_devices is not None and n < int(n_devices):
+        _log.warning("a mesh of %d CUDA devices was asked for and torch "
+                     "finds %d; the mesh takes %d", int(n_devices), count, n)
     return Mesh([f"cuda:{i}" for i in range(n)])
 
 

@@ -1,14 +1,15 @@
 """Manufactured-solution accuracy of the PyTorch port (on the CPU), as
 test_accuracy.py:27-55 holds ninpol_tpu: linear exactness for LS and GLS,
-second order for GLS and LS on hexa meshes, IDW converging, and every
-case of tests/utils/cases.py through GLS."""
+second order for GLS and LS on hexa meshes, GLS converging on ALH
+tetrahedra, IDW converging, and every case of tests/utils/cases.py
+through GLS."""
 import numpy as np
 import pytest
 import torch
 
 import ninpol_tpu_torch
 from ninpol_tpu.utils import meshgen
-from tests.utils.cases import ALL_CASES, LINCase, QUADCase
+from tests.utils.cases import ALL_CASES, ALHCase, LINCase, QUADCase
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -42,6 +43,12 @@ def test_quad_convergence_hexa(method, order_min):
     errs = [run_case(QUADCase, "hexa", n, method) for n in (4, 8)]
     order = np.log2(errs[0] / errs[1])
     assert order > order_min, f"errs={errs}, order={order:.2f}"
+
+
+def test_alh_convergence_tetra():
+    errs = [run_case(ALHCase, "tetra", n, "gls") for n in (4, 8)]
+    order = np.log2(errs[0] / errs[1])
+    assert order > 1.0, f"errs={errs}, order={order:.2f}"
 
 
 def test_idw_is_first_order_ish():

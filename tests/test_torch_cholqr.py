@@ -215,7 +215,8 @@ def test_cpu_wrappers_run_plain_versions_without_counting():
 class Setups:
     """Per mesh: the case, ninpol_tpu's mesh=1 shard_geometry=True
     interpolator with its prepared weights and CSR, and the port's
-    shard_geometry=True interpolator on the CPU; built on first use."""
+    counterpart on the CPU (mesh=1, shard_geometry=True: the unfused
+    route on one partitioned shard); built on first use."""
 
     def __init__(self):
         self._made = {}
@@ -229,7 +230,7 @@ class Setups:
             tp = np.arange(ref.grid.n_points)
             ref_w = ref.prepare_interpolator("gls", case.name, tp)
             ref_csr = ref.interpolate(case.name, "gls")
-            port = ninpol_tpu_torch.Interpolator(device="cpu",
+            port = ninpol_tpu_torch.Interpolator(device="cpu", mesh=1,
                                                  shard_geometry=True)
             port.load_mesh(mesh_obj=case.mesh)
             self._made[(fam, n)] = (case, ref, ref_w, ref_csr, port)
@@ -325,8 +326,8 @@ def test_route_is_part_of_the_prepared_weights_cache_key(setups,
     not serve the other route's cached result."""
     case, ref, _, _, _ = setups("hexa", 3)
     port = from_state(ref._make_cache(ref.process_mesh(ref.mesh_obj)),
-                      device="cpu", shard_geometry=True)
-    assert not port.gls.fused
+                      device="cpu")
+    port.gls.fused = False               # the unfused route on one device
     port.interpolate(case.name, "gls")
     calls = []
     for mod, name in ((cholqr, "gram_f32_reference"),

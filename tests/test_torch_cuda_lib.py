@@ -69,3 +69,22 @@ def test_package_libraries_hash_the_shared_header():
     for mod in (cholqr, gls_solve):
         with open(mod.library.source) as f:
             assert '#include "cholqr_device.cuh"' in f.read()
+
+
+def test_define_builds_a_library_of_its_own(csrc):
+    """A library built with a macro from the same source has a name of its
+    own (so neither build replaces the other) that follows the source's
+    digest; the solve kernel's stage cuts are such a library."""
+    from ninpol_tpu_torch.ops import gls_solve
+
+    plain = CudaLibrary("k", bind=None, csrc=str(csrc))
+    cuts = CudaLibrary("k", bind=None, csrc=str(csrc), define="CUTS")
+    assert os.path.basename(cuts.path()) == f"k-CUTS_{_digest(csrc)}.so"
+    assert cuts.path() != plain.path()
+    assert (cuts.source, cuts.label) == (plain.source, "k.cu -DCUTS")
+    before = cuts.path()
+    (csrc / "dev.cuh").write_text("inline int g() { return 3; }\n")
+    assert cuts.path() != before
+    stages, prod = gls_solve.stage_library, gls_solve.library
+    assert stages.source == prod.source and stages.path() != prod.path()
+    assert stages.define == "GLS_SOLVE_STAGE_CUTS" and prod.define is None

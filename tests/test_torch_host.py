@@ -1,5 +1,6 @@
 """Host layer of the PyTorch port (ninpol_tpu_torch) vs ninpol_tpu: the
-topology/geometry Grid, mesh I/O, and the no-JAX import contract."""
+topology/geometry Grid, mesh I/O (test_interpolator.py's gmsh and VTK
+checks among it), and the no-JAX import contract."""
 import os
 import subprocess
 import sys
@@ -12,6 +13,7 @@ import ninpol_tpu_torch
 from ninpol_tpu.utils import meshgen as ref_meshgen
 from ninpol_tpu_torch._io import mesh as mio
 from ninpol_tpu_torch.utils import meshgen
+from tests.utils.cases import LINCase
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -54,6 +56,51 @@ def test_mesh_io_roundtrip(fmt, binary, ver, tmp_path):
         assert d1.keys() == d2.keys()
         for t in d1:
             np.testing.assert_array_equal(d1[t], d2[t])
+
+
+def test_gmsh2_noncontiguous_tags(tmp_path):
+    """v2.2 files with sparse node tags remap connectivity consistently
+    (test_interpolator.py:97)."""
+    path = str(tmp_path / "gap.msh")
+    # tags 10, 20, 30, 40 (sorted order = tag order here)
+    with open(path, "w") as f:
+        f.write("$MeshFormat\n2.2 0 8\n$EndMeshFormat\n$Nodes\n4\n"
+                "10 0 0 0\n20 1 0 0\n30 0 1 0\n40 0 0 1\n$EndNodes\n"
+                "$Elements\n1\n1 4 2 0 0 10 20 30 40\n$EndElements\n")
+    m = mio.read(path)
+    assert m.cells[0].type == "tetra"
+    assert np.array_equal(m.cells[0].data, [[0, 1, 2, 3]])
+    assert np.allclose(m.points, [[0, 0, 0], [1, 0, 0],
+                                  [0, 1, 0], [0, 0, 1]])
+
+
+def test_vtk_binary_data_roundtrip(tmp_path):
+    """Cell and point data survive a binary VTK round trip
+    (test_interpolator.py:114)."""
+    mesh = meshgen.tetra_mesh(2)
+    n_cells = sum(len(b) for b in mesh.cells)
+    rng = np.random.default_rng(0)
+    mesh.cell_data = {"perm": [rng.standard_normal((n_cells, 9))]}
+    mesh.point_data = {"u": rng.standard_normal(len(mesh.points))}
+    path = str(tmp_path / "d.vtk")
+    mio.write(path, mesh, binary=True)
+    back = mio.read(path)
+    assert np.allclose(back.cell_data_dict["perm"]["tetra"],
+                       mesh.cell_data["perm"][0])
+    assert np.allclose(back.point_data["u"], mesh.point_data["u"])
+
+
+def test_vtk_data_roundtrip():
+    """A case's data rides the port's Mesh object in meshio's layout
+    (test_interpolator.py:128: the VTK writer keeps geometry only); the
+    case's mesh is ninpol_tpu's, which the port takes by duck typing."""
+    case = LINCase()
+    case.assign_mesh_properties(ref_meshgen.hexa_mesh(2), seed=0)
+    m = mio.as_local_mesh(case.mesh)
+    assert isinstance(m, mio.Mesh)
+    assert "permeability" in m.cell_data
+    assert m.cell_data_dict["permeability"]["hexahedron"].shape[1] == 9
+    assert "neumann_flag_LIN" in m.point_data
 
 
 def test_load_mesh_file_uses_own_pickle_cache(tmp_path):

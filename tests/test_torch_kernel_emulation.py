@@ -13,6 +13,7 @@ import torch
 from chip_smoke import pad_class
 from ninpol_tpu_torch.ops import cholqr as cq
 from ninpol_tpu_torch.ops import gls_solve as gs
+from ninpol_tpu_torch.tools import kernel_stages
 from tests.test_torch_gls_solve import RNORM_TOL, TOL, _port_chunk
 from tests.utils import cuda_emu
 
@@ -26,6 +27,14 @@ def emu(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("cuda_emu"))
     return {"cholqr": cuda_emu.build("cholqr", out, cq._bind),
             "gls_solve": cuda_emu.build("gls_solve", out, gs._bind)}
+
+
+@pytest.fixture(scope="module")
+def emu_stages(emu, tmp_path_factory):
+    """The stage-cut library (gls_solve.cu with -DGLS_SOLVE_STAGE_CUTS)."""
+    out = str(tmp_path_factory.mktemp("cuda_emu_stages"))
+    return cuda_emu.build("gls_solve", out, gs._bind_stages,
+                          define=gs.stage_library.define)
 
 
 def _ptr(x):
@@ -129,8 +138,10 @@ def test_prec_apply_does_not_read_the_upper_triangle(emu, path):
         < TOL_F32
 
 
-def _solve(lib, inp, ws_floats=0, sweeps=3, rounds=2):
-    """The fused kernel on CPU tensors, as ops/gls_solve.py launches it."""
+def _solve(lib, inp, ws_floats=0, sweeps=3, rounds=2, stop=None):
+    """The fused kernel on CPU tensors, as ops/gls_solve.py launches it;
+    with ``stop`` (a name of gls_solve.STAGES) its stage cut, through the
+    stage entry of ``lib``, the stage-cut library."""
     B, E, _ = inp["dk"].shape
     F = inp["l1"].shape[1]
     f64 = torch.float64
@@ -139,8 +150,13 @@ def _solve(lib, inp, ws_floats=0, sweeps=3, rounds=2):
     ws = torch.empty(B * ws_floats, dtype=torch.float32) if ws_floats else None
     args = [inp[k] for k in ("dk", "l1", "l2", "t1m", "tt", "lb", "nm",
                              "pair", "ks", "cv", "fv", "isneu", "valid")]
-    _call(lib.gls_solve_launch, *args, w, wn, rnorm, ws, ws_floats, B, E, F,
-          int(inp["lb"] is not None), sweeps, rounds, 1e-12, 1.5e-5)
+    head = [*args, w, wn, rnorm, ws, ws_floats, B, E, F,
+            int(inp["lb"] is not None), sweeps, rounds]
+    if stop is None:
+        _call(lib.gls_solve_launch, *head, 1e-12, 1.5e-5)
+    else:
+        _call(lib.gls_solve_stage_launch, *head, gs.STAGES.index(stop),
+              1e-12, 1.5e-5)
     return w, wn, rnorm
 
 
@@ -234,3 +250,105 @@ def test_gls_solve_shared_memory_per_class(emu, E, F, neumann, smem, blocks):
         E, F, neumann, 2, ctypes.byref(got_smem),
         ctypes.byref(got_blocks)) == 0
     assert (got_smem.value, got_blocks.value) == (smem, blocks)
+
+
+class CutRuns:
+    """Per (neumann, rounds): the first node of a tetra_mesh(3) class
+    chunk and a second one made invalid (a cut writes zeros there, as the
+    kernel does), with the production kernel's outputs on them at the
+    route's sweeps; built on first use.  One valid node: every emulated
+    barrier costs a scheduler round trip when the suite runs in parallel
+    workers."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self._made = {}
+
+    def __call__(self, neumann, rounds):
+        if (neumann, rounds) not in self._made:
+            inp = {k: None if v is None else v[:2].clone()
+                   for k, v in _port_chunk(neumann=neumann).items()}
+            inp["valid"][-1] = False
+            sweeps = 3 if rounds == 2 else 5
+            prod = _solve(self.lib, inp, sweeps=sweeps, rounds=rounds)
+            self._made[(neumann, rounds)] = (inp, sweeps, prod)
+        return self._made[(neumann, rounds)]
+
+
+@pytest.fixture(scope="module")
+def cut_runs(emu):
+    return CutRuns(emu["gls_solve"])
+
+
+@pytest.mark.parametrize("rounds", [2, 1])
+@pytest.mark.parametrize("neumann", [False, True])
+def test_gls_solve_all_cut_is_the_production_kernel(emu_stages, cut_runs,
+                                                    neumann, rounds):
+    """The stage-cut library's "all" cut is the production kernel: w, wn
+    and rnorm equal the production library's gls_solve_launch's bit for
+    bit."""
+    inp, sweeps, prod = cut_runs(neumann, rounds)
+    cut = _solve(emu_stages, inp, sweeps=sweeps, rounds=rounds, stop="all")
+    for a, b in zip(cut, prod):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rounds", [2, 1])
+@pytest.mark.parametrize("neumann", [False, True])
+def test_gls_solve_stage_checksums_match_plain_version(emu_stages, cut_runs,
+                                                       neumann, rounds):
+    """Each stage cut of the kernel's ``rounds`` instance (the route's
+    sweeps) writes zero w and wn and, as rnorm, the same sum as the plain
+    version's intermediate (cholqr2_solve(..., stop=...)), so each cut
+    stops where its name says: held as tools/kernel_stages.py holds the
+    cuts on the card (cut_errors: the float32 cuts to 1e-5 of the same
+    sum of their magnitude, chol1 also to 10 times the plain version's
+    own distance from the float64 factor, the float64 sums of the inputs
+    and of A to 1e-12, y after the sweeps to 1e-10; the interior class's
+    sweeps cut is left out for time).  The invalid node's checksum is 0
+    in both."""
+    inp, sweeps, (_, _, rn) = cut_runs(neumann, rounds)
+    assert (rn[:-1] <= RNORM_TOL).all()
+    stops = [s for s in gs.stages(rounds)[:-1] if neumann or s != "sweeps"]
+    errors = kernel_stages.cut_errors(
+        inp, rounds, sweeps, stops=stops,
+        run=lambda stop, at: _solve(emu_stages, inp, sweeps=at,
+                                    rounds=rounds, stop=stop))
+    assert list(errors) == stops
+    for stop, e in errors.items():
+        assert e["nodes"] == 1 and e["max_err"] <= e["tol"], (stop, e)
+        assert e.get("sweeps", sweeps) == sweeps, (stop, e)
+
+
+def test_gls_solve_stage_rejects_cuts_it_does_not_have(emu, emu_stages,
+                                                       cut_runs):
+    """The one-round instance has no cut inside round two, and no cut lies
+    past "all": the entry refuses them (cudaErrorInvalidValue) and the
+    wrapper raises before any launch; on a CPU tensor the wrapper runs
+    the plain version and counts no launch.  The production library has
+    no stage entry, the stage-cut library no production entry."""
+    assert not hasattr(emu["gls_solve"], "gls_solve_stage_launch")
+    assert not hasattr(emu_stages, "gls_solve_launch")
+    inp, _, _ = cut_runs(False, 2)
+    lib = emu_stages
+    B, E, _ = inp["dk"].shape
+    F = inp["l1"].shape[1]
+    out = [torch.empty((B, E), dtype=torch.float64),
+           torch.empty(B, dtype=torch.float64),
+           torch.empty(B, dtype=torch.float64)]
+    args = [inp[k] for k in ("dk", "l1", "l2", "t1m", "tt", "lb", "nm",
+                             "pair", "ks", "cv", "fv", "isneu", "valid")]
+    for rounds, stop in ((1, gs.STAGES.index("q")), (1, gs.STAGES.index(
+            "chol2")), (2, len(gs.STAGES)), (2, -1)):
+        assert lib.gls_solve_stage_launch(
+            *[_ptr(a) for a in args + out], None, 0, B, E, F, 0, 3, rounds,
+            stop, 1e-12, 1.5e-5, None) == 1
+    assert gs.stages(1) == ("floor", "rows", "gram1", "chol1", "sweeps",
+                            "all")
+    for stop, rounds in (("q", 1), ("gram2", 1), ("bogus", 2)):
+        with pytest.raises(ValueError, match="no stage"):
+            gs.gls_solve_stage(stop, **inp, rounds=rounds)
+    before = gs.gls_solve_stage.launches
+    w, wn, rn = gs.gls_solve_stage("rows", **inp)
+    assert gs.gls_solve_stage.launches == before
+    assert not w.any() and rn[:-1].all()

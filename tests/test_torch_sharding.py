@@ -18,6 +18,7 @@ from ninpol_tpu_torch._methods.device_grid import GridView
 from ninpol_tpu_torch.parallel import (Mesh, PartitionedRows, Replicated,
                                        make_mesh, schedule, sharded_gls,
                                        split_nodes)
+from ninpol_tpu_torch.parallel import sharding as sharding_module
 from ninpol_tpu_torch.parallel.sharding import as_mesh
 from tests.utils.cases import ALHCase
 
@@ -54,6 +55,10 @@ class Setups:
         if key not in self._interps:
             interp = ninpol_tpu_torch.Interpolator(
                 device="cpu", mesh=mesh, shard_geometry=shard_geometry)
+            if mesh is None and shard_geometry:
+                # shard_geometry is dropped without a mesh, as in
+                # ninpol_tpu: the unfused route on one device instead
+                interp.gls.fused = False
             interp.load_mesh(mesh_obj=self.case(n).mesh)
             self._interps[key] = interp
         return self.case(n), self._interps[key]
@@ -74,8 +79,9 @@ def flag(interp, var):
 def test_public_api_mesh_matches_single_device(setups, method,
                                                shard_geometry):
     """Every class (interior, Neumann) of every method through
-    interpolate() on eight CPU shards, against one device with the same
-    settings (shard_geometry=True is the unfused route on both)."""
+    interpolate() on eight CPU shards, against one device on the same
+    route (with shard_geometry=True the unfused route: gls.fused = False
+    on one device)."""
     case, single = setups(4, None, shard_geometry)
     _, sharded = setups(4, 8, shard_geometry)
     W1, N1 = single.interpolate(case.name, method)
@@ -307,10 +313,11 @@ def test_partitioned_rows_getitem_matches_indexing(form, size):
 
 @pytest.mark.parametrize("ask", ["int-without-card", "int-past-count",
                                  "devices-past-count"])
-def test_mesh_of_missing_cards_raises(monkeypatch, ask):
-    """No CPU fallback: a CUDA mesh without a card, or of more cards than
-    exist, raises before anything runs (ninpol_tpu's make_mesh would take
-    fewer devices)."""
+def test_mesh_of_missing_cards_raises(monkeypatch, caplog, ask):
+    """No CPU fallback: a CUDA mesh without a card, or a device list that
+    names a card that does not exist, raises before anything runs.  An
+    int past the card count takes the cards there are, as ninpol_tpu's
+    make_mesh takes the devices it finds, and logs the shortfall."""
     if ask == "int-without-card":
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CPU fallback"):
@@ -318,11 +325,17 @@ def test_mesh_of_missing_cards_raises(monkeypatch, ask):
         return
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    if ask == "int-past-count":
+        with caplog.at_level("WARNING", logger=sharding_module.__name__):
+            assert make_mesh(2) == Mesh(["cuda:0"])
+            interp = ninpol_tpu_torch.Interpolator(mesh=2)
+        assert interp.mesh == Mesh(["cuda:0"])
+        assert interp.device == torch.device("cuda", 0)
+        assert [r.levelname for r in caplog.records] == ["WARNING"] * 2
+        assert "finds 1; the mesh takes 1" in caplog.records[0].getMessage()
+        return
     with pytest.raises(RuntimeError, match="finds 1"):
-        if ask == "int-past-count":
-            make_mesh(2)
-        else:
-            ninpol_tpu_torch.Interpolator(mesh=["cuda:0", "cuda:1"])
+        ninpol_tpu_torch.Interpolator(mesh=["cuda:0", "cuda:1"])
 
 
 def test_mesh_helpers():

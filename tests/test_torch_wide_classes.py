@@ -373,9 +373,9 @@ def test_precond_rounds_one_changes_only_the_fused_route(hexa_case, route):
     weights); the unfused and CSNE routes ignore it, as ninpol_tpu's do,
     and give the same weights bit for bit.  It is part of the
     prepared-weights cache key, so a cached result is not served for it."""
-    port = ninpol_tpu_torch.Interpolator(
-        device="cpu", shard_geometry=route == "shard_geometry")
+    port = ninpol_tpu_torch.Interpolator(device="cpu")
     port.load_mesh(mesh_obj=hexa_case.mesh)
+    port.gls.fused = route != "shard_geometry"   # the unfused route
     if route == "pallas":
         port.gls.solver = "pallas"
     assert port.gls.precond_rounds == 2

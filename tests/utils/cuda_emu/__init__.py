@@ -36,19 +36,23 @@ def gxx():
     return shutil.which("g++")
 
 
-def build(name, out_dir, bind):
+def build(name, out_dir, bind, define=None):
     """csrc/<name>.cu as an emulated ctypes library in out_dir, with its
-    C functions declared by ``bind`` (the port module's ``_bind``)."""
+    C functions declared by ``bind`` (the port module's ``_bind``);
+    ``define``, a macro the source is built with, as CudaLibrary's."""
     for f in os.listdir(CSRC):
         if f == f"{name}.cu" or f.endswith(".cuh"):
             with open(os.path.join(CSRC, f)) as src:
                 text = to_cpp(src.read())
             with open(os.path.join(out_dir, f), "w") as dst:
                 dst.write(text)
-    so = os.path.join(out_dir, f"{name}_emu.so")
+    stem = name + (f"-{define}" if define else "")
+    so = os.path.join(out_dir, f"{stem}_emu.so")
     cmd = [gxx(), "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
            "-x", "c++", "-I", HERE, "-I", out_dir, "-o", so,
            os.path.join(out_dir, f"{name}.cu")]
+    if define:
+        cmd.append(f"-D{define}")
     out = subprocess.run(cmd, capture_output=True, text=True)
     if out.returncode != 0:
         raise RuntimeError(f"g++ failed on {name}.cu:\n{out.stderr}")
