@@ -12,10 +12,11 @@ route (Householder R and corrected semi-normal equations) and its
 hexahedral one, and checks them all:
 
   1. prints the card (nvidia-smi name, power limit); requires CUDA;
-  2. builds the three kernel libraries with nvcc, in parallel:
-     csrc/gls_solve.cu (the fused solve), csrc/cholqr.cu (gram,
-     chol_linv, round2_gram, prec_apply) and csrc/qr.cu (qr_r,
-     sne_solve);
+  2. builds the kernel libraries with nvcc, in parallel:
+     csrc/gls_solve.cu (the fused solve, and apart from it its stage
+     cuts), csrc/cholqr.cu (gram, chol_linv, round2_gram, prec_apply),
+     csrc/qr.cu (qr_r, sne_solve) and csrc/factor_probes.cu (phase 11's
+     kernels);
   3. builds bench.py's problem with the port's own meshgen
      (tools/problem.py): tetra_mesh(68), an ALH-style full-tensor K,
      u = x^2 + y^2 + z^2, a seeded (rng 0) Dirichlet/Neumann boundary
@@ -129,12 +130,26 @@ hexahedral one, and checks them all:
      the largest error of each cut in the JSON line); the "all" cut
      equal to gls_solve to the bit, the cumulative times rising with the
      cuts and the "all" cut within 3% of phase 4's kernel time; one
-     {"kernel_stages": ...} JSON line.
+     {"kernel_stages": ...} JSON line;
+ 11. kernel 1's factorization probes (tools/factor_probes.py) on phase
+     4's chunks, on the unfused route's float32 tensors there: the four
+     kernels of csrc/factor_probes.cu (chol_factor, chol_trsm_gram after
+     the elimination's factor and after tensor-core panels of three
+     widths, chol_linv_tc at four, chol_trisolve_apply with its solves
+     pivot by pivot and by blocks of 8 rows), each timed as phase 10
+     times a cut, beside its bound, the nearest library composition,
+     phase 10's cuts it would replace and the unfused kernels; registers,
+     spills, shared memory and blocks per SM; the TPU probes' three
+     verdicts on these times; every instance launched in the timed run
+     and held to its plain version (tools/factor_probes.py: TOL of its
+     scale, or CHOL_RATIO times the plain version's own distance from
+     float64); one {"factor_probes": ...} JSON line.
 
 Each phase prints its seconds.  Any failing phase raises (non-zero
 exit).  The last four lines are the mesh JSON line (phase 9), the card,
 the kernels JSON line (kernel 1's entry also holds its single-round
-instance's rows and times) and {"ok": true, "device": {...}}.
+instance's rows and times; phase 11's kernels have an entry for each
+tools/ site they replace, five in all) and {"ok": true, "device": {...}}.
 
 Run: python3 chip_smoke.py     (options: --n N, the tet mesh size;
 --hexa N, phase 8's hexa mesh; --n-round1 N, phase 7's tet mesh)
@@ -150,9 +165,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-# bench.py's problem through the port, the card's bound (H100 peaks) and
-# kernel 1's stage probe
-from ninpol_tpu_torch.tools import kernel_stages
+# bench.py's problem through the port, the card's bound (H100 peaks),
+# kernel 1's stage probe and its factorization probes
+from ninpol_tpu_torch.tools import factor_probes, kernel_stages, site_of
 from ninpol_tpu_torch.tools.problem import PEAK_FP64, bound, build_problem
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -586,9 +601,12 @@ def cholqr_vs_plain(interp, tp):
                 lambda: torch.linalg.solve_triangular(
                     torch.linalg.cholesky_ex(G).L, rhs, upper=False),
                 # Cholesky n^3/3, then n^3/3 for the triangular rows of
-                # L^-1 (or of L^-1 Li1, triangular too)
+                # L^-1 (or of L^-1 Li1, triangular too); of G (symmetric)
+                # and P (lower triangular) the function needs the lower
+                # triangle
                 B * 2 * n ** 3 / 3,
-                G.nbytes + (0 if P is None else P.nbytes) + out_bytes)
+                (1 if P is None else 2) * B * n * (n + 1) // 2 * 4
+                + out_bytes)
             print("# chol_linv_f32 " + json.dumps(row), flush=True)
             check(torch.equal(fk, fp), f"chol_linv kernel and plain version "
                                        f"flag different pivots: {row}")
@@ -1415,13 +1433,97 @@ def stage_phase(chunks, rows, n_refine):
     return table
 
 
+def factor_phase(chunks, stage_table):
+    """Phase 11: kernel 1's factorization probes (tools/factor_probes.py)
+    on phase 4's chunks, beside phase 10's cuts (``stage_table``): the
+    timed run, with every probe kernel's launch counts set to 0 just
+    before it and read just after (each instance must have launched),
+    then each instance held to its plain version.  Returns (table,
+    launches), launches by instance."""
+    fp = factor_probes
+    chunks = [(c, {k: None if v is None else v.cuda()
+                   for k, v in inp.items()}, n_elem)
+              for c, inp, n_elem in chunks]
+    table, launches = fp.probe(
+        chunks, [row["rounds"]["2"]["cuts"] for row in stage_table])
+    del chunks
+    fp.report(table)
+    print(json.dumps({"factor_probes": {
+        "card": card_line(), "reps": kernel_stages.REPS,
+        "launches": launches, "classes": table}}), flush=True)
+    for msg in fp.failed(table):
+        check(False, msg)
+    for name, count in launches.items():
+        check(count > 0, f"phase 11: {name} was not launched in the timed "
+                         f"run: {launches}")
+    out_max = max(r["out_max"] for row in table
+                  for r in row["kernels"].values())
+    print(f"# phase 11: largest held output {out_max:.3e}, "
+          f"{np.log10(np.finfo(np.float32).max / out_max):.1f} decades "
+          f"below float32's largest", flush=True)
+    return table, launches
+
+
+def entry(name, source, replaces, launches, rows, top,
+          tpu_file="pallas_chol.py"):
+    """A kernel's entry of the kernels JSON line: ``replaces`` a line of
+    ninpol_tpu/ops/<tpu_file>, or a site's path; its numbers ``top``'s,
+    the timed class's row, beside every row of ``rows``."""
+    return {"name": name, "route": "cuda",
+            "source": f"ninpol_tpu_torch/csrc/{source}",
+            "replaces": replaces if isinstance(replaces, str)
+            else f"ninpol_tpu/ops/{tpu_file}:{replaces}",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")},
+            "timed_class": {k: top[k] for k in (
+                "E", "F", "with_neumann", "chunk")},
+            "classes": rows}
+
+
+def factor_entries(table, launches):
+    """Phase 11's entries, one for each tools/ site its kernels replace
+    (``factor_probes.answer``: chol_trsm_gram's variants B and C are two):
+    the site's fastest instance's numbers on the largest class's chunk
+    (named in "instance"), every instance of the site in every class in
+    "classes"; launches are the site's instances' in phase 11's timed
+    run.  max_abs_err is absolute, as in every entry; "max_err" is each
+    node's error over its scale, the one held to tolerance, and
+    "out_max" the largest output (chol_trisolve_apply's grow with
+    lambda_max(M)^4, so its absolute error is large)."""
+    top = max(table, key=lambda r: r["chunk"])
+    sites = {}
+    for kernel, kw in factor_probes.CONFIGS:
+        sites.setdefault(factor_probes.answer(kernel, kw), []).append(
+            factor_probes.label(kernel, kw))
+    out = []
+    for name, labels in sites.items():
+        rows = [dict(row["kernels"][label], E=row["E"], F=row["F"],
+                     instance=label, with_neumann=row["with_neumann"],
+                     chunk=row["chunk"])
+                for row in table for label in labels]
+        fastest = min(labels, key=lambda label: top["kernels"][label]["ms"])
+        e = entry(name, "factor_probes.cu", site_of(name),
+                  sum(launches[label] for label in labels), rows,
+                  dict(top["kernels"][fastest], **{
+                      k: top[k] for k in ("E", "F", "with_neumann",
+                                          "chunk")}))
+        e.update(instance=fastest, max_err=max(r["max_err"] for r in rows),
+                 out_max=max(r["out_max"] for r in rows))
+        out.append(e)
+    return out
+
+
 def build_kernels():
     """Phase 2: one nvcc per kernel source, all started together."""
     from ninpol_tpu_torch.ops import cholqr as cq
+    from ninpol_tpu_torch.ops import factor_probes as fp
     from ninpol_tpu_torch.ops import gls_solve as gs
     from ninpol_tpu_torch.ops import qr
 
-    libs = (gs.library, gs.stage_library, cq.library, qr.library)
+    libs = (gs.library, gs.stage_library, cq.library, qr.library,
+            fp.library)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
         for f in [ex.submit(lib.get) for lib in libs]:
@@ -1564,22 +1666,13 @@ def main():
     phase_done("9 mesh")
 
     # ---- 10. kernel 1's stage probe
-    stage_phase(chunks, rows, n_refine)
+    stage_table = stage_phase(chunks, rows, n_refine)
     phase_done("10 kernel stages")
-    print(f"# total: {time.perf_counter() - t_run:.2f} s", flush=True)
 
-    def entry(name, source, replaces, launches, rows, top,
-              tpu_file="pallas_chol.py"):
-        return {"name": name, "route": "cuda",
-                "source": f"ninpol_tpu_torch/csrc/{source}",
-                "replaces": f"ninpol_tpu/ops/{tpu_file}:{replaces}",
-                "launches": launches,
-                "max_abs_err": max(r["max_abs_err"] for r in rows),
-                **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")},
-                "timed_class": {k: top[k] for k in (
-                    "E", "F", "with_neumann", "chunk")},
-                "classes": rows}
+    # ---- 11. kernel 1's factorization probes
+    probe_table, probe_launches = factor_phase(chunks, stage_table)
+    phase_done("11 factor probes")
+    print(f"# total: {time.perf_counter() - t_run:.2f} s", flush=True)
 
     top = max(rows, key=lambda r: r["nodes_in_class"])
     kernels = [entry("gls_solve", "gls_solve.cu", 849,
@@ -1601,6 +1694,7 @@ def main():
         top_q = max(rows_q[name], key=lambda r: r["chunk"])
         kernels.append(entry(name, "qr.cu", line, stats_c["launches"][name],
                              rows_q[name], top_q, tpu_file="pallas_qr.py"))
+    kernels += factor_entries(probe_table, probe_launches)
     print("# mesh " + json.dumps(mesh_stats), flush=True)
     print(card, flush=True)            # nvidia-smi name, power.limit
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,449 @@
+"""Kernel 1's factorization probes on the card: design alternatives for
+the two factorizations of the fused GLS solve kernel, timed beside its
+stage cuts.
+
+The counterpart of the repo's TPU probes tools/trsm_probe.py,
+trisolve_probe.py, chol_mxu_probe.py and chol_tri_probe.py (the sites and
+what answers each: ``tools.SITES``).  The kernels are those of
+ops/factor_probes.py, run on the route's own inputs: for the first chunk
+of each stencil class of the default route's plan (``kernel_stages.
+chunk_inputs``), the unfused route's float32 tensors (the equilibrated A,
+G1 = A^T A + shift, L1^-1, G2 = (A L1^-T)^T (A L1^-T), Lc = L2^-1 L1^-1)
+and one vector a node from a seeded generator.  Per class it prints:
+
+  each kernel's ms (the best of kernel_stages.REPS single launches after
+  a warm-up), its bound (``problem.bound`` of its FLOPs and device
+  bytes), the nearest library composition's ms, its plain version's ms,
+  its registers, spills, shared memory and blocks an SM, its error
+  against its plain version and its largest output (``probe_errors``);
+  the stage cuts it would replace (kernel 1's, ``kernel_stages.
+  time_cuts`` at rounds = 2) and the unfused route's kernels beside it;
+  the TPU probes' verdicts on these times (``verdicts``).
+
+Run on the card (the kernels are built from csrc/ on first use):
+
+    python -m ninpol_tpu_torch.tools.factor_probes [--n 68]
+
+It prints ``#`` lines, then one JSON line ``{"factor_probes": ...}``.
+Nothing falls back: a kernel that does not build or launch raises, and
+one past its tolerance fails the run after that line.
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import subprocess
+
+import numpy as np
+import torch
+
+from . import kernel_stages as ks
+from .problem import bound, build_problem
+
+# Mapply's count in the TPU probe's solve variant (trisolve_probe.py:145):
+# the route's preconditioner applications at rounds = 2, sweeps + 1
+APPLIES = 4
+SEED = 0
+# each kernel against its plain version, per node over a scale (the
+# largest error of a node that no factor flags): the float32 products
+# (G2) to CUT_TOL of the same product of the operands' magnitudes
+# (|A| |L1^-1|^T, as kernel_stages holds gram2); the factor, the inverse
+# and the applies to CUT_TOL of their own magnitude; every one also
+# within CHOL_RATIO times the plain version's own distance from the same
+# function in float64 on the same inputs, as kernel_stages holds chol1
+TOL = ks.CUT_TOL["chol1"]
+# (kernel, the wrapper's arguments) of every instance timed:
+# chol_trsm_gram after the elimination's factor (width 0, the TPU
+# probe's variant B) or tensor-core panels (variant C); chol_linv_tc's
+# panel widths (chol_mxu_probe.py's super-panels); chol_trisolve_apply's
+# rows a block of its solves (1: the TPU probe's column sweep)
+CONFIGS = (("chol_factor", {}),
+           *(("chol_trsm_gram", {"width": w}) for w in (0, 8, 16, 32)),
+           *(("chol_linv_tc", {"width": w}) for w in (8, 16, 32, 48)),
+           *(("chol_trisolve_apply", {"block": b}) for b in (1, 8)))
+
+
+def label(kernel, kw):
+    """An instance's name: the kernel and its arguments."""
+    return kernel + ("[" + ",".join(f"{k}={v}" for k, v in kw.items()) + "]"
+                     if kw else "")
+
+
+def answer(kernel, kw):
+    """The name under which ``tools.SITES`` lists the instance: its
+    kernel, or for chol_trsm_gram after tensor-core panels (the TPU
+    probe's variant C, a site of its own) "chol_trsm_gram (tensor-core
+    factor)"."""
+    if kernel == "chol_trsm_gram" and kw["width"]:
+        return "chol_trsm_gram (tensor-core factor)"
+    return kernel
+
+
+def prepare(chunks):
+    """The probes' inputs on each chunk (``kernel_stages.chunk_inputs``):
+    [(head, tensors)], tensors the unfused route's As, G1, Li1, G2, Lc,
+    its ``sick`` flags and a seeded vector v, on the chunk's device."""
+    from ..ops import cholqr as cq
+    from ..ops.gls_solve import assemble, incidence, node_active
+
+    out = []
+    for c, inp, _ in chunks:
+        S1, S2, Sb = incidence(inp["pair"], inp["ks"], inp["cv"],
+                               inp["fv"], inp["isneu"])
+        A = assemble(inp["dk"], inp["l1"], inp["l2"], inp["t1m"], inp["tt"],
+                     inp["lb"], S1, S2, Sb, inp["cv"],
+                     node_active(inp["pair"], inp["fv"], inp["valid"]))
+        pc = cq.cholqr_factors(A, cq.KERNELS)
+        B, m, n = pc["As"].shape
+        gen = torch.Generator(device=A.device).manual_seed(SEED)
+        v = torch.randn((B, n), generator=gen, device=A.device,
+                        dtype=torch.float32)
+        head = {"E": c["E"], "F": c["F"], "with_neumann": c["with_neumann"],
+                "chunk": B, "m": m, "n": n}
+        out.append((head, {k: pc[k] for k in ("As", "G1", "Li1", "G2", "Lc",
+                                              "sick")} | {"v": v}))
+        del A, S1, S2, Sb, pc
+    return out
+
+
+def run(kernel, kw, t, plain=False):
+    """One call of probe ``kernel`` with the arguments ``kw`` on the
+    tensors ``t`` (the wrapper, or with ``plain`` its plain version)."""
+    from ..ops import factor_probes as fp
+
+    fn = getattr(fp, f"{kernel}_reference") if plain else \
+        functools.partial(getattr(fp, kernel), **kw)
+    if kernel == "chol_trsm_gram":
+        return fn(t["As"], t["G1"])
+    if kernel == "chol_trisolve_apply":
+        return fn(t["G2"], t["Li1"], t["v"], applies=APPLIES)
+    return fn(t["G1"])
+
+
+def library_call(kernel, t):
+    """The nearest composition of PyTorch library calls to ``kernel``'s
+    function on ``t``: cholesky_ex (chol_factor: the same function where
+    no pivot is clamped), then triangular solves and products."""
+    G = t["G2"] if kernel == "chol_trisolve_apply" else t["G1"]
+    cholesky = torch.linalg.cholesky_ex
+    if kernel == "chol_factor":
+        return lambda: cholesky(G).L
+    if kernel == "chol_trsm_gram":
+        def trsm_gram():
+            X = torch.linalg.solve_triangular(
+                cholesky(G).L, t["As"].transpose(1, 2), upper=False)
+            return torch.bmm(X, X.transpose(1, 2))
+        return trsm_gram
+    if kernel == "chol_linv_tc":
+        eye = torch.eye(G.shape[1], dtype=G.dtype, device=G.device)
+        return lambda: torch.linalg.solve_triangular(
+            cholesky(G).L, eye.expand(G.shape), upper=False)
+
+    def trisolve():
+        L, Li, v = cholesky(G).L, t["Li1"], t["v"][:, :, None]
+        for _ in range(APPLIES):
+            v = torch.bmm(Li.transpose(1, 2),
+                          torch.cholesky_solve(torch.bmm(Li, v), L))
+        return v[:, :, 0]
+    return trisolve
+
+
+def work(kernel, head):
+    """(FP32 FLOPs, device bytes) of ``kernel`` on the chunk: every node
+    is factored, each input read once and each output written once,
+    triangles counted as triangles: of G (symmetric) and of Li (lower
+    triangular) only the lower triangle is read, by every kernel; the
+    outputs are the dense (B, n, n) or (B, n) tensors they return."""
+    B, m, n = head["chunk"], head["m"], head["n"]
+    square, tri = B * n * n * 4, B * n * (n + 1) // 2 * 4
+    factor = n ** 3 / 3
+    if kernel == "chol_factor":
+        return B * factor, tri + square
+    if kernel == "chol_trsm_gram":
+        # the factor, X = L^-1 A^T (m n^2), the symmetric X X^T
+        return (B * (factor + m * n * n + m * n * (n + 1)),
+                B * m * n * 4 + tri + square)
+    if kernel == "chol_linv_tc":
+        return B * 2 * factor, tri + square
+    # the factor, then each apply: Li v and Li^T y on the triangle, two
+    # triangular solves
+    return (B * (factor + APPLIES * (2 * n * (n + 1) + 2 * n * n)),
+            2 * tri + 2 * B * n * 4)
+
+
+def stage_ms(cuts):
+    """The stage-cut times a probe would replace, from a ``time_cuts``
+    list at rounds = 2: chol1, chol2 and the sweeps' stage ms, and chol1
+    to gram2 (the cumulative gram2 less gram1: the factorization, Q and
+    G2, what the TPU's trsm variants A, B and C compute)."""
+    at = {c["stop"]: c for c in cuts}
+    return {"chol1": at["chol1"]["stage_ms"],
+            "chol2": at["chol2"]["stage_ms"],
+            "sweeps": at["sweeps"]["stage_ms"],
+            "chol1_to_gram2": at["gram2"]["ms"] - at["gram1"]["ms"],
+            "all": at["all"]["ms"]}
+
+
+def time_probes(prepared, cuts):
+    """Every probe kernel's ms, bound, occupancy, plain and library ms on
+    each prepared chunk, beside the stage cuts (``cuts[i]``: a
+    ``time_cuts`` list at rounds = 2 for chunk i) and the unfused route's
+    kernels on the same tensors.  The probe kernels' launches here are
+    the path ``launches`` counts."""
+    from ..ops import cholqr as cq
+    from ..ops import factor_probes as fp
+
+    table = []
+    for (head, t), chunk_cuts in zip(prepared, cuts):
+        row = dict(head, kernels={})
+        plain, library = {}, {}
+        for kernel, kw in CONFIGS:
+            f32, nbytes = work(kernel, head)
+            bound_ms, bound_by = bound(f32, nbytes)
+            if kernel not in plain:
+                plain[kernel] = ks.once_ms(
+                    lambda: run(kernel, kw, t, plain=True))
+                library[kernel] = ks.best_ms(library_call(kernel, t))
+            row["kernels"][label(kernel, kw)] = {
+                "kernel": kernel, **kw,
+                "ms": ks.best_ms(lambda: run(kernel, kw, t)),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "plain_ms": plain[kernel], "library_ms": library[kernel],
+                "occupancy": fp.occupancy(kernel, head["m"], head["n"],
+                                          **kw)}
+        # the baseline the trisolve verdict subtracts: the factor of G2
+        row["kernels"]["chol_factor"]["ms_on_g2"] = ks.best_ms(
+            lambda: fp.chol_factor(t["G2"]))
+        row["standalone"] = {
+            "chol_linv_f32": ks.best_ms(lambda: cq.chol_linv_f32(t["G1"])),
+            "chol_linv_f32_p": ks.best_ms(
+                lambda: cq.chol_linv_f32(t["G2"], mul_right=t["Li1"])),
+            "round2_gram_f32": ks.best_ms(
+                lambda: cq.round2_gram_f32(t["As"], t["Li1"])),
+            "prec_apply_f32": ks.best_ms(
+                lambda: cq.prec_apply_f32(t["Lc"], t["v"]))}
+        row["stages"] = stage_ms(chunk_cuts)
+        row["verdicts"] = verdicts(row)
+        table.append(row)
+    return table
+
+
+def node_err(got, ref, scale, held):
+    """The largest over the nodes ``held`` of max|got - ref| / max|scale|,
+    per node."""
+    d = (got - ref).abs().flatten(1).amax(dim=1)
+    s = scale.abs().flatten(1).amax(dim=1).clamp_min(1e-30)
+    err = (d / s)[held]
+    return float(err.max()) if len(err) else 0.0
+
+
+def probe_errors(prepared):
+    """Each probe kernel against its plain version on each prepared chunk:
+    [{label: {"max_err", "plain_err", "tol", "max_abs_err", "out_max",
+    "nodes"}}], held on the nodes the route flags no pivot of (TOL's
+    comment).  ``out_max`` is the plain version's largest |output| on
+    those nodes: the applies raise v by up to lambda_max(M)^4, so it says
+    how far chol_trisolve_apply's results stay below float32's range."""
+    from ..ops import factor_probes as fp
+
+    out = []
+    for _, t in prepared:
+        held = ~t["sick"]
+        f64 = {k: t[k].double() for k in ("As", "G1", "Li1", "G2", "v")}
+        aQ = t["As"].abs() @ t["Li1"].abs().transpose(1, 2)
+        scales = {"chol_trsm_gram": aQ.transpose(1, 2) @ aQ}
+        exact = {"chol_factor": fp.chol_factor_reference(f64["G1"]),
+                 "chol_trsm_gram": fp.chol_trsm_gram_reference(f64["As"],
+                                                               f64["G1"]),
+                 "chol_linv_tc": fp.chol_linv_tc_reference(f64["G1"]),
+                 "chol_trisolve_apply": fp.chol_trisolve_apply_reference(
+                     f64["G2"], f64["Li1"], f64["v"], applies=APPLIES)}
+        refs, errs = {}, {}
+        for kernel, kw in CONFIGS:
+            if kernel not in refs:
+                refs[kernel] = run(kernel, kw, t, plain=True)
+            ref = refs[kernel]
+            got = run(kernel, kw, t)
+            scale = scales.get(kernel, ref)
+            plain_err = node_err(ref.double(), exact[kernel], scale, held)
+            errs[label(kernel, kw)] = {
+                "max_err": node_err(got, ref, scale, held),
+                "plain_err": plain_err,
+                "tol": max(TOL, ks.CHOL_RATIO * plain_err),
+                "max_abs_err": float((got - ref)[held].abs().max())
+                if held.any() else 0.0,
+                "out_max": float(ref[held].abs().max())
+                if held.any() else 0.0,
+                "nodes": int(held.sum())}
+            del got
+        out.append(errs)
+        del f64, aQ, scales, exact, refs
+    return out
+
+
+def verdicts(row):
+    """The TPU probes' verdicts, in their own terms, on the row's times:
+      trsm       A (L^-1, Q and G2: chol_linv_f32 + round2_gram_f32
+                 standalone, and kernel 1's cuts chol1 to gram2) against
+                 chol_trsm_gram after the elimination (the probe's
+                 variant B) and after tensor-core panels (variant C, the
+                 fastest width);
+      trisolve   trisolve_probe.py:173's rule: the solves win iff
+                 (chol_trisolve_apply - chol_factor) < APPLIES x
+                 prec_apply_f32 + (chol_linv_f32 with P - chol_factor),
+                 chol_factor on G2, for each block of the solves (1: the
+                 TPU probe's column sweep);
+      chol_mxu   each chol_linv_tc width against chol_linv_f32's register
+                 body and against the chol1 cut."""
+    k, sa, st = row["kernels"], row["standalone"], row["stages"]
+    a_standalone = sa["chol_linv_f32"] + sa["round2_gram_f32"]
+
+    def trsm(width):
+        return k[label("chol_trsm_gram", {"width": width})]["ms"]
+
+    c_width = min((8, 16, 32), key=trsm)
+    trsm_ms = {"B": trsm(0), "C": trsm(c_width)}
+    chol = k["chol_factor"]["ms_on_g2"]
+    explicit = APPLIES * sa["prec_apply_f32"] + sa["chol_linv_f32_p"] - chol
+    solves = {str(b): k[label("chol_trisolve_apply", {"block": b})]["ms"]
+              - chol for b in (1, 8)}
+    return {
+        "trsm": {"A_standalone_ms": a_standalone,
+                 "A_stages_ms": st["chol1_to_gram2"], "C_width": c_width,
+                 **{f"{v}_ms": ms for v, ms in trsm_ms.items()},
+                 **{f"{v}_beats_A_standalone": ms < a_standalone
+                    for v, ms in trsm_ms.items()},
+                 **{f"{v}_beats_A_stages": ms < st["chol1_to_gram2"]
+                    for v, ms in trsm_ms.items()}},
+        "trisolve": {"explicit_ms": explicit, "blocks": {
+            b: {"solves_ms": ms, "solves_win": ms < explicit}
+            for b, ms in solves.items()}},
+        "chol_mxu": {str(w): {
+            "ms": k[label("chol_linv_tc", {"width": w})]["ms"],
+            "over_chol_linv_f32": k[label("chol_linv_tc", {"width": w})]["ms"]
+            / sa["chol_linv_f32"],
+            "over_chol1_cut": k[label("chol_linv_tc", {"width": w})]["ms"]
+            / st["chol1"]} for w in (8, 16, 32, 48)}}
+
+
+def report(table):
+    """The table as ``#`` lines: one a kernel, then the verdicts."""
+    for row in table:
+        print(f"# factor_probes ({row['E']}, {row['F']}) with_neumann="
+              f"{row['with_neumann']} chunk={row['chunk']} m={row['m']} "
+              f"n={row['n']}", flush=True)
+        for name, r in row["kernels"].items():
+            occ = r["occupancy"]
+            print(f"#   {name:>28}: {r['ms']:9.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+                  f"{r['library_ms']:.4f} ms, plain {r['plain_ms']:.2f} ms;"
+                  f" {occ['registers']} registers, {occ['local_bytes']} "
+                  f"spill bytes, {occ['smem_bytes']} B shared, "
+                  f"{occ['blocks_per_sm']} blocks an SM"
+                  + (f"; error {r['max_err']:.2e} (tol {r['tol']:.1e}, "
+                     f"plain's own {r['plain_err']:.1e}), largest output "
+                     f"{r['out_max']:.2e}" if "max_err" in r else ""),
+                  flush=True)
+        st, sa = row["stages"], row["standalone"]
+        print(f"#   stage cuts: chol1 {st['chol1']:.4f}, chol1 to gram2 "
+              f"{st['chol1_to_gram2']:.4f}, chol2 {st['chol2']:.4f}, sweeps "
+              f"{st['sweeps']:.4f}, all {st['all']:.4f} ms; unfused: "
+              f"chol_linv_f32 {sa['chol_linv_f32']:.4f}, with P "
+              f"{sa['chol_linv_f32_p']:.4f}, round2_gram_f32 "
+              f"{sa['round2_gram_f32']:.4f}, prec_apply_f32 "
+              f"{sa['prec_apply_f32']:.4f} ms; chol_factor on G2 "
+              f"{row['kernels']['chol_factor']['ms_on_g2']:.4f} ms",
+              flush=True)
+        v = row["verdicts"]
+        tr, ts = v["trsm"], v["trisolve"]
+        win = {True: "wins", False: "loses"}
+        print(f"#   verdict trsm against A standalone "
+              f"{tr['A_standalone_ms']:.4f} ms / A's stages "
+              f"{tr['A_stages_ms']:.4f} ms: " + "; ".join(
+                  f"{name} {tr[f'{v}_ms']:.4f} ms "
+                  f"{win[tr[f'{v}_beats_A_standalone']]} / "
+                  f"{win[tr[f'{v}_beats_A_stages']]}"
+                  for v, name in (("B", "B (elimination factor)"),
+                                  ("C", f"C (width {tr['C_width']})"))),
+              flush=True)
+        print("#   verdict trisolve: " + "; ".join(
+            f"block {w}: solves {'WIN' if b['solves_win'] else 'LOSE'}, "
+            f"chol_trisolve_apply - chol_factor = {b['solves_ms']:.4f} ms"
+            for w, b in ts["blocks"].items())
+            + f" vs {APPLIES} x prec_apply_f32 + (chol_linv_f32 with P - "
+              f"chol_factor) = {ts['explicit_ms']:.4f} ms", flush=True)
+        print("#   verdict chol_mxu: " + ", ".join(
+            f"width {w} {r['ms']:.4f} ms = {r['over_chol_linv_f32']:.2f}x "
+            f"chol_linv_f32, {r['over_chol1_cut']:.2f}x the chol1 cut"
+            for w, r in v["chol_mxu"].items()), flush=True)
+
+
+def failed(table):
+    """The kernels of a table whose error is past its tolerance."""
+    return [f"({row['E']}, {row['F']}) {name}: error {r['max_err']:.3e} > "
+            f"{r['tol']:.1e}"
+            for row in table for name, r in row["kernels"].items()
+            if "max_err" in r and not r["max_err"] <= r["tol"]]
+
+
+def launch_counts():
+    """Each instance's launches ({label: count}), from its wrapper's
+    count by width or block."""
+    from ..ops import factor_probes as fp
+
+    return {label(kernel, kw): getattr(fp, kernel).launches_by[
+        next(iter(kw.values()), None)] for kernel, kw in CONFIGS}
+
+
+def reset_counts():
+    from ..ops import factor_probes as fp
+
+    for w in fp.KERNELS:
+        w.launches = 0
+        w.launches_by.clear()
+
+
+def probe(chunks, cuts):
+    """The whole probe on ``chunks``: the timed path (its launches
+    counted from 0), then each kernel against its plain version, merged
+    into the table; returns (table, launches)."""
+    prepared = prepare(chunks)
+    reset_counts()
+    table = time_probes(prepared, cuts)
+    launches = launch_counts()
+    for row, errs in zip(table, probe_errors(prepared)):
+        for name, e in errs.items():
+            row["kernels"][name].update(e)
+    return table, launches
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=68,
+                    help="tetra_mesh size (6 n^3 cells); 68 = 1,886,592")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("factor_probes needs a CUDA card")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"# card: {card}", flush=True)
+    interp, _ = build_problem(args.n)
+    chunks = ks.chunk_inputs(interp, np.arange(interp.grid.n_points))
+    sweeps = ks.route_sweeps(interp.gls.n_refine, 2)
+    cuts = [ks.time_cuts(inp, 2, sweeps) for _, inp, _ in chunks]
+    table, launches = probe(chunks, cuts)
+    report(table)
+    print(json.dumps({"factor_probes": {
+        "card": card, "mesh": f"tetra_mesh({args.n})", "reps": ks.REPS,
+        "launches": launches, "classes": table}}), flush=True)
+    bad = failed(table) + [f"{k}: no launch" for k, n in launches.items()
+                           if n == 0]
+    if bad:
+        raise SystemExit("\n".join(bad))
+
+
+if __name__ == "__main__":
+    main()

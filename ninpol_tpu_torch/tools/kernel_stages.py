@@ -18,7 +18,9 @@ its share of the whole kernel; and beside them the unfused route's
 kernels (ops/cholqr.py) that compute the same stages, timed in the same
 run on the same inputs.  Each cut is also held to its plain version
 (``cut_errors``): its checksum against gls_solve_reference(...,
-stop=...) on the same tensors, within CUT_TOL.
+stop=...) on the same tensors, within CUT_TOL.  Run from the command
+line, it also times each cut's plain version once (``probe(...,
+plain=True)``).
 
 Run on the card (the kernels are built from csrc/ on first use):
 
@@ -242,20 +244,37 @@ def failed_cuts(table):
     return bad
 
 
-def time_cuts(inp, rounds, sweeps):
+def once_ms(fn):
+    """Device ms of one ``fn()`` after a warm-up run (for the plain
+    versions, whose time is only reported)."""
+    fn()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def time_cuts(inp, rounds, sweeps, plain=False):
     """Each cut of the kernel's ``rounds`` instance on the chunk: its
-    cumulative ms, the stage's ms, bound and share of the whole kernel."""
+    cumulative ms, the stage's ms, bound and share of the whole kernel;
+    with ``plain`` also its plain version's cumulative ms
+    (gls_solve_reference(..., stop=...), one run after a warm-up)."""
     from ..ops import gls_solve as gs
 
     work = stage_work(inp, rounds, sweeps)
     cuts, before = [], 0.0
     for stop in gs.stages(rounds):
-        ms = best_ms(lambda: gs.gls_solve_stage(
-            stop, **inp, sweeps=sweeps, rounds=rounds))
+        kw = dict(sweeps=sweeps, rounds=rounds)
+        ms = best_ms(lambda: gs.gls_solve_stage(stop, **inp, **kw))
         f32, f64, nbytes = work[stop]
         bound_ms, bound_by = bound(f32, nbytes, fp64_flops=f64)
         cuts.append({"stop": stop, "ms": ms, "stage_ms": ms - before,
                      "bound_ms": bound_ms, "bound_by": bound_by})
+        if plain:
+            cuts[-1]["plain_ms"] = once_ms(lambda: gs.gls_solve_reference(
+                **inp, **kw, stop=stop))
         before = ms
     for cut in cuts:
         cut["share"] = cut["stage_ms"] / before
@@ -299,10 +318,11 @@ def time_standalone(inp, rounds, sweeps):
     return out
 
 
-def probe(chunks, n_refine=2):
+def probe(chunks, n_refine=2, plain=False):
     """The stage table of each chunk (``chunk_inputs``) and each
     ``rounds`` instance, at the route's sweeps for ``n_refine``, with each
-    cut's checksum error against its plain version (``cut_errors``)."""
+    cut's checksum error against its plain version (``cut_errors``) and,
+    with ``plain``, that version's time (``time_cuts``)."""
     from ..ops.gls_solve import node_active
 
     out = []
@@ -315,7 +335,7 @@ def probe(chunks, n_refine=2):
                "rounds": {}}
         for rounds in (2, 1):
             sweeps = route_sweeps(n_refine, rounds)
-            cuts = time_cuts(inp, rounds, sweeps)
+            cuts = time_cuts(inp, rounds, sweeps, plain)
             errors = cut_errors(inp, rounds, sweeps)
             for cut in cuts:
                 cut.update(errors.get(cut["stop"], {}))
@@ -339,6 +359,8 @@ def report(table):
                       f" stage {cut['stage_ms']:9.4f} ms "
                       f"({100 * cut['share']:5.1f}%), bound "
                       f"{cut['bound_ms']:.4f} ms ({cut['bound_by']})"
+                      + (f", plain {cut['plain_ms']:.2f} ms cumulative"
+                         if "plain_ms" in cut else "")
                       + (f", checksum error {cut['max_err']:.2e} (tol "
                          f"{cut['tol']:.1e}, {cut['nodes']} nodes)"
                          if "max_err" in cut else "")
@@ -364,7 +386,7 @@ def main():
     print(f"# card: {card}", flush=True)
     interp, _ = build_problem(args.n)
     chunks = chunk_inputs(interp, np.arange(interp.grid.n_points))
-    table = probe(chunks, interp.gls.n_refine)
+    table = probe(chunks, interp.gls.n_refine, plain=True)
     report(table)
     print(json.dumps({"kernel_stages": {
         "card": card, "mesh": f"tetra_mesh({args.n})", "reps": REPS,

@@ -99,6 +99,28 @@ inline bool __any_sync(unsigned, bool pred) {
 
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 
+// mma.sync.aligned.m8n8k4.row.col.f64 (D = A B + D on the FP64 tensor
+// cores), with the card's fragments: lane 4 g + t holds a = A[g][t],
+// b = B[t][g], c0 = D[g][2t] and c1 = D[g][2t + 1].  The four products
+// of an entry are summed in order, each with one rounding.
+#define CUDA_EMU 1
+inline void emu_mma_m8n8k4_f64(double& c0, double& c1, double a, double b) {
+  double av[32], bv[32];
+  emu_warp->slot[emu_lane] = a;
+  __syncwarp();
+  for (int l = 0; l < 32; ++l) av[l] = emu_warp->slot[l];
+  __syncwarp();
+  emu_warp->slot[emu_lane] = b;
+  __syncwarp();
+  for (int l = 0; l < 32; ++l) bv[l] = emu_warp->slot[l];
+  __syncwarp();
+  const int g = emu_lane >> 2, t = emu_lane & 3;
+  for (int k = 0; k < 4; ++k) {
+    c0 = std::fma(av[4 * g + k], bv[4 * (2 * t) + k], c0);
+    c1 = std::fma(av[4 * g + k], bv[4 * (2 * t + 1) + k], c1);
+  }
+}
+
 // <cuda_pipeline.h>'s asynchronous copies, as plain synchronous copies:
 // a copy is complete when the call returns, so a missing wait does not
 // show here
