@@ -15,8 +15,8 @@ hexahedral one, and checks them all:
   2. builds the kernel libraries with nvcc, in parallel:
      csrc/gls_solve.cu (the fused solve, and apart from it its stage
      cuts), csrc/cholqr.cu (gram, chol_linv, round2_gram, prec_apply),
-     csrc/qr.cu (qr_r, sne_solve) and csrc/factor_probes.cu (phase 11's
-     kernels);
+     csrc/qr.cu (qr_r, sne_solve), csrc/factor_probes.cu (phase 11's
+     kernels) and csrc/mxu_probes.cu (phase 12's);
   3. builds bench.py's problem with the port's own meshgen
      (tools/problem.py): tetra_mesh(68), an ALH-style full-tensor K,
      u = x^2 + y^2 + z^2, a seeded (rng 0) Dirichlet/Neumann boundary
@@ -143,13 +143,29 @@ hexahedral one, and checks them all:
      verdicts on these times; every instance launched in the timed run
      and held to its plain version (tools/factor_probes.py: TOL of its
      scale, or CHOL_RATIO times the plain version's own distance from
-     float64); one {"factor_probes": ...} JSON line.
+     float64); one {"factor_probes": ...} JSON line;
+ 12. kernel 1's Gram and Q probes on the tensor cores
+     (tools/mxu_probes.py) on phase 4's chunks, on the unfused route's
+     float32 tensors there (As, L1^-1, G1, and both laid out node-minor
+     by node_transpose): the four kernels of csrc/mxu_probes.cu
+     (node_transpose both ways; gram_tc on DMMA, 3xTF32 and bf16,
+     node-major and node-minor; q_tc; gram_q_gram_tc in both layouts),
+     each timed as phase 10 times a cut, beside its bound, the library
+     call, phase 10's gram1, q and gram2 cuts and the unfused Gram
+     kernels; registers, spills, shared memory and blocks per SM; then
+     the node-minor Gram at r5_mxu_shapes.py's seven shapes on 16,384
+     synthetic nodes; the TPU probes' verdicts (mxu, precision, shapes);
+     every instance launched in the timed run and held to its plain
+     version (node_transpose bit for bit, the products within 1e-5 of
+     the operands' magnitude product a node), with its distance from
+     float64; one {"mxu_probes": ...} JSON line.
 
 Each phase prints its seconds.  Any failing phase raises (non-zero
 exit).  The last four lines are the mesh JSON line (phase 9), the card,
 the kernels JSON line (kernel 1's entry also holds its single-round
 instance's rows and times; phase 11's kernels have an entry for each
-tools/ site they replace, five in all) and {"ok": true, "device": {...}}.
+tools/ site they replace, five in all, and phase 12's eight) and
+{"ok": true, "device": {...}}.
 
 Run: python3 chip_smoke.py     (options: --n N, the tet mesh size;
 --hexa N, phase 8's hexa mesh; --n-round1 N, phase 7's tet mesh)
@@ -166,8 +182,10 @@ import numpy as np
 import torch
 
 # bench.py's problem through the port, the card's bound (H100 peaks),
-# kernel 1's stage probe and its factorization probes
-from ninpol_tpu_torch.tools import factor_probes, kernel_stages, site_of
+# kernel 1's stage probe, its factorization probes and its tensor-core
+# Gram and Q probes
+from ninpol_tpu_torch.tools import (factor_probes, kernel_stages, mxu_probes,
+                                    site_of)
 from ninpol_tpu_torch.tools.problem import PEAK_FP64, bound, build_problem
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1482,21 +1500,20 @@ def entry(name, source, replaces, launches, rows, top,
             "classes": rows}
 
 
-def factor_entries(table, launches):
-    """Phase 11's entries, one for each tools/ site its kernels replace
-    (``factor_probes.answer``: chol_trsm_gram's variants B and C are two):
-    the site's fastest instance's numbers on the largest class's chunk
-    (named in "instance"), every instance of the site in every class in
-    "classes"; launches are the site's instances' in phase 11's timed
-    run.  max_abs_err is absolute, as in every entry; "max_err" is each
-    node's error over its scale, the one held to tolerance, and
-    "out_max" the largest output (chol_trisolve_apply's grow with
-    lambda_max(M)^4, so its absolute error is large)."""
+def probe_entries(tool, source, table, launches):
+    """The entries of a probe phase (``tool``: tools/factor_probes.py or
+    tools/mxu_probes.py), one for each tools/ site its kernels replace
+    (``tool.answer``): the site's fastest instance's numbers on the
+    largest class's chunk (named in "instance"), every instance of the
+    site in every class in "classes"; launches are the site's instances'
+    in the phase's timed run.  max_abs_err is absolute, as in every
+    entry; "max_err" is each node's error over its scale, the one held to
+    tolerance."""
     top = max(table, key=lambda r: r["chunk"])
     sites = {}
-    for kernel, kw in factor_probes.CONFIGS:
-        sites.setdefault(factor_probes.answer(kernel, kw), []).append(
-            factor_probes.label(kernel, kw))
+    for kernel, kw in tool.CONFIGS:
+        sites.setdefault(tool.answer(kernel, kw), []).append(
+            tool.label(kernel, kw))
     out = []
     for name, labels in sites.items():
         rows = [dict(row["kernels"][label], E=row["E"], F=row["F"],
@@ -1504,14 +1521,73 @@ def factor_entries(table, launches):
                      chunk=row["chunk"])
                 for row in table for label in labels]
         fastest = min(labels, key=lambda label: top["kernels"][label]["ms"])
-        e = entry(name, "factor_probes.cu", site_of(name),
+        e = entry(name, source, site_of(name),
                   sum(launches[label] for label in labels), rows,
                   dict(top["kernels"][fastest], **{
                       k: top[k] for k in ("E", "F", "with_neumann",
                                           "chunk")}))
-        e.update(instance=fastest, max_err=max(r["max_err"] for r in rows),
-                 out_max=max(r["out_max"] for r in rows))
+        e.update(instance=fastest, max_err=max(r["max_err"] for r in rows))
         out.append(e)
+    return out
+
+
+def factor_entries(table, launches):
+    """Phase 11's entries (``probe_entries``; chol_trsm_gram's variants B
+    and C are two sites), each with "out_max", the largest output
+    (chol_trisolve_apply's grow with lambda_max(M)^4, so its absolute
+    error is large)."""
+    out = probe_entries(factor_probes, "factor_probes.cu", table, launches)
+    for e in out:
+        e["out_max"] = max(r["out_max"] for r in e["classes"])
+    return out
+
+
+def mxu_phase(chunks, stage_table):
+    """Phase 12: kernel 1's Gram and Q probes on the tensor cores
+    (tools/mxu_probes.py) on phase 4's chunks, beside phase 10's cuts
+    (``stage_table``), then the shape sweep: the timed runs, with every
+    probe kernel's launch counts set to 0 just before and read just after
+    (each instance must have launched), then each instance held to its
+    plain version.  Returns (table, sweep, launches)."""
+    mx = mxu_probes
+    chunks = [(c, {k: None if v is None else v.cuda()
+                   for k, v in inp.items()}, n_elem)
+              for c, inp, n_elem in chunks]
+    table, sweep, launches = mx.probe(
+        chunks, [row["rounds"]["2"]["cuts"] for row in stage_table])
+    del chunks
+    mx.report(table, sweep)
+    print(json.dumps({"mxu_probes": {
+        "card": card_line(), "reps": kernel_stages.REPS,
+        "launches": launches, "classes": table, "shapes": sweep,
+        "shape_verdicts": mx.shape_verdicts(sweep)}}), flush=True)
+    for msg in mx.failed(table, sweep):
+        check(False, msg)
+    for name, count in launches.items():
+        check(count > 0, f"phase 12: {name} was not launched in the timed "
+                         f"run: {launches}")
+    return table, sweep, launches
+
+
+def mxu_entries(table, sweep, launches):
+    """Phase 12's entries: ``probe_entries`` of the route's chunks, and the
+    shape sweep's (r5_mxu_shapes.py:84), its fastest instance at (132,
+    80) with every shape in "classes"."""
+    mx = mxu_probes
+    out = probe_entries(mx, "mxu_probes.cu", table, launches)
+    at = [r for r in sweep if (r["m"], r["n"], r["split"]) == (132, 80, 0)]
+    best = min(at, key=lambda r: r["ms"])
+    out.append({"name": mx.SHAPES_ANSWER, "route": "cuda",
+                "source": "ninpol_tpu_torch/csrc/mxu_probes.cu",
+                "replaces": site_of(mx.SHAPES_ANSWER),
+                "launches": launches[mx.SHAPES_ANSWER],
+                "max_abs_err": max(r["max_abs_err"] for r in sweep),
+                **{k: best[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+                "instance": f"gram_tc[{best['precision']},minor] at "
+                            f"(132, 80), {best['nodes']} nodes",
+                "max_err": max(r["max_err"] for r in sweep),
+                "classes": sweep})
     return out
 
 
@@ -1520,10 +1596,11 @@ def build_kernels():
     from ninpol_tpu_torch.ops import cholqr as cq
     from ninpol_tpu_torch.ops import factor_probes as fp
     from ninpol_tpu_torch.ops import gls_solve as gs
+    from ninpol_tpu_torch.ops import mxu_probes as mp
     from ninpol_tpu_torch.ops import qr
 
     libs = (gs.library, gs.stage_library, cq.library, qr.library,
-            fp.library)
+            fp.library, mp.library)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
         for f in [ex.submit(lib.get) for lib in libs]:
@@ -1672,6 +1749,10 @@ def main():
     # ---- 11. kernel 1's factorization probes
     probe_table, probe_launches = factor_phase(chunks, stage_table)
     phase_done("11 factor probes")
+
+    # ---- 12. kernel 1's Gram and Q probes on the tensor cores
+    mxu_table, mxu_sweep, mxu_launches = mxu_phase(chunks, stage_table)
+    phase_done("12 mxu probes")
     print(f"# total: {time.perf_counter() - t_run:.2f} s", flush=True)
 
     top = max(rows, key=lambda r: r["nodes_in_class"])
@@ -1695,6 +1776,7 @@ def main():
         kernels.append(entry(name, "qr.cu", line, stats_c["launches"][name],
                              rows_q[name], top_q, tpu_file="pallas_qr.py"))
     kernels += factor_entries(probe_table, probe_launches)
+    kernels += mxu_entries(mxu_table, mxu_sweep, mxu_launches)
     print("# mesh " + json.dumps(mesh_stats), flush=True)
     print(card, flush=True)            # nvidia-smi name, power.limit
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -31,12 +31,20 @@ SITES = {
                              f"{_STAGES}: chol2"),
     "trisolve_probe.py:115": ("answered", "4 x prec_apply_f32"),
     "trisolve_probe.py:162": ("ported", "chol_trisolve_apply"),
-    # Gram and Q on tensor cores, then input and floor: ROADMAP section 2
-    **{f"mxu_probe.py:{line}": ("queued", "Gram and Q on tensor "
-                                "cores")
-       for line in (108, 123, 138, 150, 166, 185, 215, 230, 241)},
-    "r5_mxu_shapes.py:84": ("queued", "Gram tile shapes on tensor "
-                            "cores"),
+    # the Gram and Q stages on tensor cores (mxu_probes.py)
+    "mxu_probe.py:108": ("ported", "node_transpose (in)"),
+    "mxu_probe.py:123": ("ported", "gram_tc (node-major)"),
+    "mxu_probe.py:138": ("ported", "gram_tc (bf16)"),
+    "mxu_probe.py:150": ("ported", "node_transpose (out)"),
+    "mxu_probe.py:166": ("ported", "gram_tc (node-minor)"),
+    "mxu_probe.py:185": ("ported", "q_tc"),
+    "mxu_probe.py:215": ("ported", "gram_q_gram_tc"),
+    "mxu_probe.py:230": ("answered", "gram_f32 (gram_reg_kernel); "
+                         f"{_STAGES}: gram1"),
+    "mxu_probe.py:241": ("answered", f"{_STAGES}: q; round2_gram_f32 "
+                         "(Q with G2)"),
+    "r5_mxu_shapes.py:84": ("ported", "gram_tc (shapes)"),
+    # input and floor: ROADMAP section 2
     **{f"r5_layout_probe.py:{line}": ("queued", "input layout")
        for line in (60, 72, 85, 105)},
     "r5_overlap_probe.py:100": ("queued", "input copies overlapped "

@@ -13,9 +13,12 @@ import time
 import numpy as np
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 off the tensor cores,
-# FP64 on them (DMMA; 34e12 off them), and HBM3 bandwidth
+# FP64 on them (DMMA; 34e12 off them), TF32 and bf16 on them (dense), and
+# HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_FP64 = 67e12
+PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
 

@@ -469,20 +469,26 @@ def test_every_tools_site_has_a_row():
     """Every pl.pallas_call( line of the repo's tools/*.py is a row of the
     port's site table, and every row is such a line: ported (by a stage
     cut or a probe kernel), answered by a named kernel or cut, or queued;
-    each probe kernel of ops/factor_probes.py ports a site, and site_of
-    finds it."""
+    each probe kernel of ops/factor_probes.py and ops/mxu_probes.py ports a
+    site, and site_of finds it; only the input and floor sites of
+    r5_layout_probe.py and r5_overlap_probe.py are still queued."""
+    from ninpol_tpu_torch.ops import mxu_probes as mp
+
     assert _tools_sites() == set(SITES)
     status = [s for s, _ in SITES.values()]
-    assert len(SITES) == 34 and status.count("queued") == 15
+    assert len(SITES) == 34 and status.count("queued") == 5
+    assert {site.split(":")[0] for site, (s, _) in SITES.items()
+            if s == "queued"} == {"r5_layout_probe.py", "r5_overlap_probe.py"}
     probes = set()
     for site, (s, by) in SITES.items():
         assert s in ("ported", "answered", "queued") and by
         name = by.split(" (")[0]
-        if s == "ported" and hasattr(fp, name):
-            assert getattr(fp, name) in fp.KERNELS
-            assert site_of(by) == f"tools/{site}"
-            probes.add(name)
-    assert probes == {w.__name__ for w in fp.KERNELS}
+        for module in (fp, mp):
+            if s == "ported" and hasattr(module, name):
+                assert getattr(module, name) in module.KERNELS
+                assert site_of(by) == f"tools/{site}"
+                probes.add(name)
+    assert probes == {w.__name__ for w in fp.KERNELS + mp.KERNELS}
 
 
 def test_records_list_every_site():

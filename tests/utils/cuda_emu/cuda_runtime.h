@@ -16,6 +16,7 @@
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
@@ -57,6 +58,7 @@ struct EmuWarp {
   ucontext_t lane[32];
   State state[32];
   double slot[32];
+  double slots[8][32];   // emu_gather's values, up to 8 a lane
   std::function<void()> body;
   int warp = 0, cur = 0;
 };
@@ -119,6 +121,132 @@ inline void emu_mma_m8n8k4_f64(double& c0, double& c1, double a, double b) {
     c0 = std::fma(av[4 * g + k], bv[4 * (2 * t) + k], c0);
     c1 = std::fma(av[4 * g + k], bv[4 * (2 * t + 1) + k], c1);
   }
+}
+
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, sizeof u);
+  return u;
+}
+
+// cvt.rna.tf32.f32: to nearest with ties away from zero, keeping 10
+// fraction bits (the magnitude plus half the 13 dropped bits' unit, then
+// truncated); infinities and NaNs pass
+inline uint32_t emu_cvt_rna_tf32(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if ((u & 0x7f800000u) == 0x7f800000u) return u;
+  return (u + 0x1000u) & 0xffffe000u;
+}
+// one float to bf16, to nearest with ties to even (cvt.rn.bf16.f32)
+inline uint32_t emu_bf16_rn(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return (u >> 16) | 0x40u;   // a quiet NaN
+  return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
+}
+// cvt.rn.bf16x2.f32 d, hi, lo: hi in d's upper half, lo in its lower
+inline uint32_t emu_cvt_rn_bf16x2(float hi, float lo) {
+  return emu_bf16_rn(hi) << 16 | emu_bf16_rn(lo);
+}
+
+// Every lane's ``count`` values v into all[q][lane], one warp-wide step.
+inline void emu_gather(const double* v, int count, double (*all)[32]) {
+  for (int q = 0; q < count; ++q) emu_warp->slots[q][emu_lane] = v[q];
+  __syncwarp();
+  for (int q = 0; q < count; ++q)
+    for (int l = 0; l < 32; ++l) all[q][l] = emu_warp->slots[q][l];
+  __syncwarp();
+}
+
+// The m16n8k* products, from the PTX ISA's fragment tables: lane 4 g + t
+// holds D's entries c = (D[g][2t], D[g][2t + 1], D[g + 8][2t], D[g +
+// 8][2t + 1]); A (16 x K) and B (K x 8) are gathered from every lane's
+// registers, then each entry adds the K products in order, each rounded
+// once (float32 sums for TF32 and bf16, whose products are exact in
+// float32; float64 for the FP64 shape).
+template <class T>
+inline void emu_mma_m16n8(T (&c)[4], const T (*A)[16], const T (*B)[8], int K) {
+  const int g = emu_lane >> 2, t = emu_lane & 3;
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + 8 * (e >> 1), col = 2 * t + (e & 1);
+    T s = c[e];
+    for (int k = 0; k < K; ++k) s = std::fma(A[row][k], B[k][col], s);
+    c[e] = s;
+  }
+}
+
+// mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 (sm_90): the fragments
+// of m16n8k8.tf32, in float64.
+inline void emu_mma_m16n8k8_f64(double (&c)[4], const double (&a)[4], const double (&b)[2]) {
+  const double v[6] = {a[0], a[1], a[2], a[3], b[0], b[1]};
+  double all[6][32];
+  emu_gather(v, 6, all);
+  double A[16][16], B[16][8];
+  for (int l = 0; l < 32; ++l) {
+    const int g = l >> 2, t = l & 3;
+    A[g][t] = all[0][l];
+    A[g + 8][t] = all[1][l];
+    A[g][t + 4] = all[2][l];
+    A[g + 8][t + 4] = all[3][l];
+    B[t][g] = all[4][l];
+    B[t + 4][g] = all[5][l];
+  }
+  emu_mma_m16n8(c, A, B, 8);
+}
+
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32: lane 4 g + t holds
+// a = (A[g][t], A[g + 8][t], A[g][t + 4], A[g + 8][t + 4]) and b =
+// (B[t][g], B[t + 4][g]); the tensor cores read a TF32 operand's top 19
+// bits.
+inline void emu_mma_m16n8k8_tf32(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  const double v[6] = {(double)a[0], (double)a[1], (double)a[2], (double)a[3], (double)b[0],
+                       (double)b[1]};
+  double all[6][32];
+  emu_gather(v, 6, all);
+  auto tf32 = [](double bits) { return __uint_as_float((uint32_t)bits & 0xffffe000u); };
+  float A[16][16], B[16][8];
+  for (int l = 0; l < 32; ++l) {
+    const int g = l >> 2, t = l & 3;
+    A[g][t] = tf32(all[0][l]);
+    A[g + 8][t] = tf32(all[1][l]);
+    A[g][t + 4] = tf32(all[2][l]);
+    A[g + 8][t + 4] = tf32(all[3][l]);
+    B[t][g] = tf32(all[4][l]);
+    B[t + 4][g] = tf32(all[5][l]);
+  }
+  emu_mma_m16n8(c, A, B, 8);
+}
+
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: two bf16 a
+// register, the lower index in the low half; lane 4 g + t holds a =
+// ((A[g][2t], A[g][2t + 1]), (A[g + 8][2t], A[g + 8][2t + 1]), (A[g][2t +
+// 8], A[g][2t + 9]), (A[g + 8][2t + 8], A[g + 8][2t + 9])) and b =
+// ((B[2t][g], B[2t + 1][g]), (B[2t + 8][g], B[2t + 9][g])).
+inline void emu_mma_m16n8k16_bf16(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  const double v[6] = {(double)a[0], (double)a[1], (double)a[2], (double)a[3], (double)b[0],
+                       (double)b[1]};
+  double all[6][32];
+  emu_gather(v, 6, all);
+  auto lo = [](double r) { return __uint_as_float(((uint32_t)r & 0xffffu) << 16); };
+  auto hi = [](double r) { return __uint_as_float((uint32_t)r & 0xffff0000u); };
+  float A[16][16], B[16][8];
+  for (int l = 0; l < 32; ++l) {
+    const int g = l >> 2, t = l & 3;
+    for (int q = 0; q < 4; ++q) {   // a's register q: row g + 8 (q & 1), columns 2t + 8 (q >> 1)
+      const int row = g + 8 * (q & 1), col = 2 * t + 8 * (q >> 1);
+      A[row][col] = lo(all[q][l]);
+      A[row][col + 1] = hi(all[q][l]);
+    }
+    for (int q = 0; q < 2; ++q) {   // b's register q: rows 2t + 8q
+      B[2 * t + 8 * q][g] = lo(all[4 + q][l]);
+      B[2 * t + 8 * q + 1][g] = hi(all[4 + q][l]);
+    }
+  }
+  emu_mma_m16n8(c, A, B, 16);
 }
 
 // <cuda_pipeline.h>'s asynchronous copies, as plain synchronous copies:
