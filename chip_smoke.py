@@ -16,7 +16,8 @@ hexahedral one, and checks them all:
      csrc/gls_solve.cu (the fused solve, and apart from it its stage
      cuts), csrc/cholqr.cu (gram, chol_linv, round2_gram, prec_apply),
      csrc/qr.cu (qr_r, sne_solve), csrc/factor_probes.cu (phase 11's
-     kernels) and csrc/mxu_probes.cu (phase 12's);
+     kernels), csrc/mxu_probes.cu (phase 12's) and csrc/input_probes.cu
+     (phase 13's);
   3. builds bench.py's problem with the port's own meshgen
      (tools/problem.py): tetra_mesh(68), an ALH-style full-tensor K,
      u = x^2 + y^2 + z^2, a seeded (rng 0) Dirichlet/Neumann boundary
@@ -158,13 +159,33 @@ hexahedral one, and checks them all:
      every instance launched in the timed run and held to its plain
      version (node_transpose bit for bit, the products within 1e-5 of
      the operands' magnitude product a node), with its distance from
-     float64; one {"mxu_probes": ...} JSON line.
+     float64; one {"mxu_probes": ...} JSON line;
+ 13. kernel 1's input stream (tools/input_probes.py) on phase 4's chunks:
+     the two kernels of csrc/input_probes.cu, input_sum (each node's
+     kernel-1 inputs summed: the thirteen tensors as the route gathers
+     them, and the same bytes packed once and read by 8- and 16-byte
+     loads, by one cp.async.bulk, a warp a node and node-minor; the
+     natural layout also at kernel 1's shared memory) and overlap_probe
+     (the packed record summed, then a trivial body, the TPU probe's
+     dummy work seeded from an argument or from the sum, or the work
+     alone, one node a block or in persistent blocks that copy the next
+     node's record by cp.async.bulk; at its own shared memory and at
+     kernel 1's; at 60 rounds and at rounds calibrated on the card), each
+     timed as phase 10 times a cut with 256 MB written before each
+     launch (no input stays in L2), beside its bound, GB/s and HBM share,
+     the library call, kernel 1's floor cut timed the same way and phase
+     10's; registers, spills, shared memory and blocks per SM; the TPU
+     probes' layout and overlap verdicts; every instance launched in the
+     timed run and held to its plain version (the sums within 1e-12 of
+     the record's magnitudes a node, the dummy work within 1e-5 of its
+     own); one {"input_probes": ...} JSON line.
 
 Each phase prints its seconds.  Any failing phase raises (non-zero
 exit).  The last four lines are the mesh JSON line (phase 9), the card,
 the kernels JSON line (kernel 1's entry also holds its single-round
 instance's rows and times; phase 11's kernels have an entry for each
-tools/ site they replace, five in all, and phase 12's eight) and
+tools/ site they replace, five in all, phase 12's eight and phase 13's
+five) and
 {"ok": true, "device": {...}}.
 
 Run: python3 chip_smoke.py     (options: --n N, the tet mesh size;
@@ -182,10 +203,10 @@ import numpy as np
 import torch
 
 # bench.py's problem through the port, the card's bound (H100 peaks),
-# kernel 1's stage probe, its factorization probes and its tensor-core
-# Gram and Q probes
-from ninpol_tpu_torch.tools import (factor_probes, kernel_stages, mxu_probes,
-                                    site_of)
+# kernel 1's stage probe, its factorization probes, its tensor-core Gram
+# and Q probes and its input-stream probes
+from ninpol_tpu_torch.tools import (factor_probes, input_probes,
+                                    kernel_stages, mxu_probes, site_of)
 from ninpol_tpu_torch.tools.problem import PEAK_FP64, bound, build_problem
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1501,12 +1522,12 @@ def entry(name, source, replaces, launches, rows, top,
 
 
 def probe_entries(tool, source, table, launches):
-    """The entries of a probe phase (``tool``: tools/factor_probes.py or
-    tools/mxu_probes.py), one for each tools/ site its kernels replace
-    (``tool.answer``): the site's fastest instance's numbers on the
-    largest class's chunk (named in "instance"), every instance of the
-    site in every class in "classes"; launches are the site's instances'
-    in the phase's timed run.  max_abs_err is absolute, as in every
+    """The entries of a probe phase (``tool``: tools/factor_probes.py,
+    tools/mxu_probes.py or tools/input_probes.py), one for each tools/ site
+    its kernels replace (``tool.answer``): the site's fastest instance's
+    numbers on the largest class's chunk (named in "instance"), every
+    instance of the site in every class in "classes"; launches are the
+    site's instances' in the phase's timed run.  max_abs_err is absolute, as in every
     entry; "max_err" is each node's error over its scale, the one held to
     tolerance."""
     top = max(table, key=lambda r: r["chunk"])
@@ -1591,16 +1612,50 @@ def mxu_entries(table, sweep, launches):
     return out
 
 
+def input_phase(chunks, stage_table):
+    """Phase 13: kernel 1's input stream (tools/input_probes.py) on phase
+    4's chunks, beside kernel 1's floor cut (timed by the probe as its
+    instances are, and phase 10's from ``stage_table``): the timed run,
+    with both probe kernels' launch counts set to 0 just before and read
+    just after (each instance must have launched), then each instance held
+    to its plain version.  Returns (table, launches)."""
+    ip = input_probes
+    chunks = [(c, {k: None if v is None else v.cuda()
+                   for k, v in inp.items()}, n_elem)
+              for c, inp, n_elem in chunks]
+    table, launches = ip.probe(chunks)
+    del chunks
+    for row, stages in zip(table, stage_table):
+        cut = stages["rounds"]["2"]["cuts"][0]
+        check(cut["stop"] == "floor", f"phase 10's first cut is {cut['stop']}")
+        row["phase10_floor_ms"] = cut["ms"]
+        print(f"# phase 13: ({row['E']}, {row['F']}) floor cut "
+              f"{row['floor_ms']:.4f} ms with L2 flushed, phase 10's "
+              f"{cut['ms']:.4f} ms", flush=True)
+    ip.report(table)
+    print(json.dumps({"input_probes": {
+        "card": card_line(), "reps": kernel_stages.REPS,
+        "flush_bytes": ip.FLUSH_BYTES, "launches": launches,
+        "classes": table}}), flush=True)
+    for msg in ip.failed(table):
+        check(False, msg)
+    for name, count in launches.items():
+        check(count > 0, f"phase 13: {name} was not launched in the timed "
+                         f"run: {launches}")
+    return table, launches
+
+
 def build_kernels():
     """Phase 2: one nvcc per kernel source, all started together."""
     from ninpol_tpu_torch.ops import cholqr as cq
     from ninpol_tpu_torch.ops import factor_probes as fp
     from ninpol_tpu_torch.ops import gls_solve as gs
+    from ninpol_tpu_torch.ops import input_probes as ip
     from ninpol_tpu_torch.ops import mxu_probes as mp
     from ninpol_tpu_torch.ops import qr
 
     libs = (gs.library, gs.stage_library, cq.library, qr.library,
-            fp.library, mp.library)
+            fp.library, mp.library, ip.library)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
         for f in [ex.submit(lib.get) for lib in libs]:
@@ -1753,6 +1808,10 @@ def main():
     # ---- 12. kernel 1's Gram and Q probes on the tensor cores
     mxu_table, mxu_sweep, mxu_launches = mxu_phase(chunks, stage_table)
     phase_done("12 mxu probes")
+
+    # ---- 13. kernel 1's input stream
+    input_table, input_launches = input_phase(chunks, stage_table)
+    phase_done("13 input probes")
     print(f"# total: {time.perf_counter() - t_run:.2f} s", flush=True)
 
     top = max(rows, key=lambda r: r["nodes_in_class"])
@@ -1777,6 +1836,8 @@ def main():
                              rows_q[name], top_q, tpu_file="pallas_qr.py"))
     kernels += factor_entries(probe_table, probe_launches)
     kernels += mxu_entries(mxu_table, mxu_sweep, mxu_launches)
+    kernels += probe_entries(input_probes, "input_probes.cu", input_table,
+                             input_launches)
     print("# mesh " + json.dumps(mesh_stats), flush=True)
     print(card, flush=True)            # nvidia-smi name, power.limit
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,7 +4,7 @@
 (tools/*.py, "file:line") to the port's answer: (status, by whom).
 "ported" sites have a kernel or a stage cut of the port that computes
 what the site computes; "answered" ones are timed by an existing kernel
-or stage cut; "queued" ones wait for kernel 1's redesign.
+or stage cut.
 """
 
 _STAGES = "kernel 1's stage cuts (kernel_stages.py)"
@@ -44,11 +44,12 @@ SITES = {
     "mxu_probe.py:241": ("answered", f"{_STAGES}: q; round2_gram_f32 "
                          "(Q with G2)"),
     "r5_mxu_shapes.py:84": ("ported", "gram_tc (shapes)"),
-    # input and floor: ROADMAP section 2
-    **{f"r5_layout_probe.py:{line}": ("queued", "input layout")
-       for line in (60, 72, 85, 105)},
-    "r5_overlap_probe.py:100": ("queued", "input copies overlapped "
-                                "with compute"),
+    # kernel 1's input stream (input_probes.py)
+    "r5_layout_probe.py:60": ("ported", "input_sum (natural)"),
+    "r5_layout_probe.py:72": ("ported", "input_sum (packed)"),
+    "r5_layout_probe.py:85": ("ported", "input_sum (wide, bulk)"),
+    "r5_layout_probe.py:105": ("ported", "input_sum (multi, minor)"),
+    "r5_overlap_probe.py:100": ("ported", "overlap_probe"),
 }
 
 

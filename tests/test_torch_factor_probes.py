@@ -468,32 +468,37 @@ def _tools_sites():
 def test_every_tools_site_has_a_row():
     """Every pl.pallas_call( line of the repo's tools/*.py is a row of the
     port's site table, and every row is such a line: ported (by a stage
-    cut or a probe kernel), answered by a named kernel or cut, or queued;
-    each probe kernel of ops/factor_probes.py and ops/mxu_probes.py ports a
-    site, and site_of finds it; only the input and floor sites of
-    r5_layout_probe.py and r5_overlap_probe.py are still queued."""
+    cut or a probe kernel) or answered by a named kernel or cut, none
+    queued; each probe kernel of ops/factor_probes.py, ops/mxu_probes.py
+    and ops/input_probes.py ports a site, and site_of finds it; the input
+    sites of r5_layout_probe.py and r5_overlap_probe.py are ported by
+    input_probes' kernels."""
+    from ninpol_tpu_torch.ops import input_probes as ip
     from ninpol_tpu_torch.ops import mxu_probes as mp
 
     assert _tools_sites() == set(SITES)
     status = [s for s, _ in SITES.values()]
-    assert len(SITES) == 34 and status.count("queued") == 5
-    assert {site.split(":")[0] for site, (s, _) in SITES.items()
-            if s == "queued"} == {"r5_layout_probe.py", "r5_overlap_probe.py"}
+    assert len(SITES) == 34 and status.count("queued") == 0
+    assert {site.split(":")[0] for site, (_, by) in SITES.items()
+            if hasattr(ip, by.split(" (")[0])} == {"r5_layout_probe.py",
+                                                   "r5_overlap_probe.py"}
     probes = set()
     for site, (s, by) in SITES.items():
-        assert s in ("ported", "answered", "queued") and by
+        assert s in ("ported", "answered") and by
         name = by.split(" (")[0]
-        for module in (fp, mp):
+        for module in (fp, mp, ip):
             if s == "ported" and hasattr(module, name):
                 assert getattr(module, name) in module.KERNELS
                 assert site_of(by) == f"tools/{site}"
                 probes.add(name)
-    assert probes == {w.__name__ for w in fp.KERNELS + mp.KERNELS}
+    assert probes == {w.__name__
+                      for w in fp.KERNELS + mp.KERNELS + ip.KERNELS}
 
 
 def test_records_list_every_site():
     """PERF.md's site table gives each file's row every one of its sites
-    (":line"), and ROADMAP.md queues every file with a queued site."""
+    (":line"), and calls none queued that SITES does not; ROADMAP.md
+    queues every file with a queued site."""
     with open(os.path.join(ROOT, "PERF.md")) as f:
         perf = f.read().splitlines()
     with open(os.path.join(ROOT, "ROADMAP.md")) as f:
@@ -507,5 +512,7 @@ def test_records_list_every_site():
         assert len(rows) == 1, name
         for line in lines:
             assert re.search(rf":{line}\b", rows[0]), (name, line)
+        if all(SITES[f"{name}:{n}"][0] != "queued" for n in lines):
+            assert "queued" not in rows[0], name
         if any(SITES[f"{name}:{n}"][0] == "queued" for n in lines):
             assert name in roadmap, name

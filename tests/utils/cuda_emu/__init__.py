@@ -47,6 +47,19 @@ def build(name, out_dir, bind, define=None):
             with open(os.path.join(out_dir, f), "w") as dst:
                 dst.write(text)
     stem = name + (f"-{define}" if define else "")
+    return _compile(name, stem, out_dir, bind, define)
+
+
+def build_text(text, name, out_dir, bind):
+    """A CUDA source given as text (a test's own kernels, which may call
+    the emulator's ``emu_*`` primitives directly), built as ``build``
+    builds a file of csrc/."""
+    with open(os.path.join(out_dir, f"{name}.cu"), "w") as dst:
+        dst.write(to_cpp(text))
+    return _compile(name, name, out_dir, bind)
+
+
+def _compile(name, stem, out_dir, bind, define=None):
     so = os.path.join(out_dir, f"{stem}_emu.so")
     cmd = [gxx(), "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
            "-x", "c++", "-I", HERE, "-I", out_dir, "-o", so,

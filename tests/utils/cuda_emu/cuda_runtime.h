@@ -36,14 +36,20 @@
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+struct double2 { double x, y; };
+struct int2 { int x, y; };
+struct int4 { int x, y, z, w; };
+struct uint2 { unsigned x, y; };
+struct uint4 { unsigned x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+enum { cudaDevAttrMultiProcessorCount = 16, cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 
 constexpr int kEmuSmemOptin = 232448;   // an H100's shared memory a block
+constexpr int kEmuSms = 132;            // and its SMs
 constexpr size_t kEmuStack = 256 * 1024;  // a lane's fiber stack
 
 inline thread_local dim3 threadIdx, blockIdx;
@@ -257,11 +263,66 @@ inline void __pipeline_memcpy_async(void* dst, const void* src, size_t bytes, si
 }
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(size_t) {}
+
+// The mbarrier (a 64-bit word of shared memory) and cp.async.bulk: the
+// word holds the current phase's parity (bit 63), the arrivals it was
+// initialised with (bits 52-62), the arrivals still pending (bits 32-51)
+// and the transaction bytes still pending (bits 0-31, signed); a phase
+// completes when both pending counts reach 0, and the next one starts
+// with every arrival pending.  Updates are atomic: a block's warps are OS
+// threads.  A bulk copy is made at issue and completes its bytes at once.
+inline uint64_t emu_mbarrier_word(unsigned phase, unsigned count, unsigned pending, int32_t tx) {
+  return (uint64_t)phase << 63 | (uint64_t)count << 52 | (uint64_t)pending << 32 | (uint32_t)tx;
+}
+inline void emu_mbarrier_init(uint64_t* bar, unsigned count) {
+  __atomic_store_n(bar, emu_mbarrier_word(0, count, count, 0), __ATOMIC_SEQ_CST);
+}
+// ``arrivals`` arrive and ``tx`` transaction bytes are added (expected,
+// > 0) or completed (< 0)
+inline void emu_mbarrier_update(uint64_t* bar, unsigned arrivals, int32_t tx) {
+  uint64_t old = __atomic_load_n(bar, __ATOMIC_SEQ_CST), next;
+  do {
+    unsigned phase = (unsigned)(old >> 63), count = (unsigned)(old >> 52) & 0x7ffu;
+    unsigned pending = (unsigned)(old >> 32) & 0xfffffu;
+    const int32_t left = (int32_t)(uint32_t)old + tx;
+    if (arrivals > pending) {
+      std::fprintf(stderr, "cuda_emu: more arrivals than an mbarrier phase expects\n");
+      std::abort();
+    }
+    pending -= arrivals;
+    if (pending == 0 && left == 0) {
+      phase ^= 1u;
+      pending = count;
+    }
+    next = emu_mbarrier_word(phase, count, pending, left);
+  } while (!__atomic_compare_exchange_n(bar, &old, next, false, __ATOMIC_SEQ_CST,
+                                        __ATOMIC_SEQ_CST));
+}
+inline void emu_mbarrier_arrive(uint64_t* bar) { emu_mbarrier_update(bar, 1, 0); }
+inline void emu_mbarrier_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  emu_mbarrier_update(bar, 1, (int32_t)bytes);
+}
+// mbarrier.try_wait.parity: has the phase of this parity completed?
+inline bool emu_mbarrier_try_wait_parity(uint64_t* bar, unsigned parity) {
+  return (unsigned)(__atomic_load_n(bar, __ATOMIC_SEQ_CST) >> 63) != (parity & 1u);
+}
+// cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes
+inline void emu_cp_async_bulk(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  std::memcpy(dst, src, bytes);
+  emu_mbarrier_update(bar, 0, -(int32_t)bytes);
+}
+inline void __trap() {
+  std::fprintf(stderr, "cuda_emu: __trap\n");
+  std::abort();
+}
 using std::fmaf; using std::fmaxf; using std::sqrt; using std::fmax;
 using std::min; using std::max;
 
 inline int cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
-inline int cudaDeviceGetAttribute(int* v, int, int) { *v = kEmuSmemOptin; return cudaSuccess; }
+inline int cudaDeviceGetAttribute(int* v, int attr, int) {
+  *v = attr == cudaDevAttrMultiProcessorCount ? kEmuSms : kEmuSmemOptin;
+  return cudaSuccess;
+}
 template <typename K> inline int cudaFuncSetAttribute(K, int, int) { return cudaSuccess; }
 inline int cudaGetLastError() { return cudaSuccess; }
 // registers and local memory are not modelled: both read 0
