@@ -140,11 +140,13 @@ hexahedral one, and checks them all:
      pivot by pivot and by blocks of 8 rows), each timed as phase 10
      times a cut, beside its bound, the nearest library composition,
      phase 10's cuts it would replace and the unfused kernels; registers,
-     spills, shared memory and blocks per SM; the TPU probes' three
-     verdicts on these times; every instance launched in the timed run
-     and held to its plain version (tools/factor_probes.py: TOL of its
-     scale, or CHOL_RATIO times the plain version's own distance from
-     float64); one {"factor_probes": ...} JSON line;
+     spills, shared memory and blocks per SM; chol_trsm_gram and
+     chol_linv_tc also at kernel 1's shared memory request (its blocks
+     an SM); the TPU probes' three verdicts on these times; every
+     instance launched in the timed run, at both requests, and held to
+     its plain version there (tools/factor_probes.py: TOL of its scale,
+     or CHOL_RATIO times the plain version's own distance from float64);
+     one {"factor_probes": ...} JSON line;
  12. kernel 1's Gram and Q probes on the tensor cores
      (tools/mxu_probes.py) on phase 4's chunks, on the unfused route's
      float32 tensors there (As, L1^-1, G1, and both laid out node-minor
@@ -1495,6 +1497,8 @@ def factor_phase(chunks, stage_table):
     for name, count in launches.items():
         check(count > 0, f"phase 11: {name} was not launched in the timed "
                          f"run: {launches}")
+    for msg in fp.unlaunched_k1(table):
+        check(False, f"phase 11: {msg}")
     out_max = max(r["out_max"] for row in table
                   for r in row["kernels"].values())
     print(f"# phase 11: largest held output {out_max:.3e}, "

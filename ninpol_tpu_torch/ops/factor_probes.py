@@ -9,15 +9,18 @@ inputs):
         L of G = L L^T, lower triangular, every pivot clamped at
         ``tiny`` as chol_linv_f32's: its diagonal is 1/dinv, dinv =
         rsqrt(max(pivot, tiny)); no inverse (trisolve_probe.py:79)
-  chol_trsm_gram(A, G, tiny, width)  (B,m,n), (B,n,n) -> (B,n,n)
+  chol_trsm_gram(A, G, tiny, width, smem_bytes)
+                                     (B,m,n), (B,n,n) -> (B,n,n)
         X X^T with X = L^-1 A^T by forward substitution, never forming
         L^-1 (trsm_probe.py:129, :192): the substitution and X X^T as
         FP64 tensor-core products, G factored by the elimination
-        (``width`` 0, the probe's variant B) or by chol_linv_tc's panels
-        of ``width`` 8, 16 or 32 (variant C)
-  chol_linv_tc(G, tiny, width)       (B,n,n) -> (B,n,n)
-        L^-1, as chol_linv_f32(G), by left-looking panels of ``width``
-        (8, 16, 32, 48) whose updates run on FP64 tensor cores
+        (``width`` 0, the probe's variant B) or by chol_linv_tc's
+        blocked factor with panels of ``width`` 8, 16 or 32 (variant C)
+  chol_linv_tc(G, tiny, width, smem_bytes)
+                                     (B,n,n) -> (B,n,n)
+        L^-1, as chol_linv_f32(G), by a blocked factor, 8 columns a
+        step, right-looking by panels of ``width`` (8, 16, 32, 48), its
+        products and L^-1's blocks on FP64 tensor cores
         (chol_mxu_probe.py:73)
   chol_trisolve_apply(G, Li, v, tiny, applies, block)
                                      (B,n,n), (B,n,n), (B,n) -> (B,n)
@@ -35,9 +38,11 @@ that.  Each wrapper runs its plain version for CPU tensors and launches
 its kernel (built with nvcc on first use, in a library of its own) for
 CUDA tensors, or raises; ``<wrapper>.launches`` counts kernel launches,
 ``<wrapper>.launches_by`` the same by the instance's ``width`` or
-``block`` (None for chol_factor).
-``occupancy(name, m, n, ...)`` gives a launch's registers, spills,
-shared memory and blocks an SM.
+``block`` (None for chol_factor).  ``smem_bytes`` requests that much
+dynamic shared memory a block (at least what the instance needs), to run
+at another kernel's occupancy (kernel 1's: ops/gls_solve.py::occupancy).
+``occupancy(name, m, n, ..., smem_bytes=)`` gives a launch's registers,
+spills, shared memory and blocks an SM.
 """
 from __future__ import annotations
 
@@ -95,14 +100,15 @@ def _bind(lib):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.c_longlong
     lib.chol_factor_launch.argtypes = [vp, vp, ci, ci, cf, vp]
-    lib.chol_trsm_gram_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf, vp]
-    lib.chol_linv_tc_launch.argtypes = [vp, vp, ci, ci, ci, cf, vp]
+    lib.chol_trsm_gram_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf, ll,
+                                          vp]
+    lib.chol_linv_tc_launch.argtypes = [vp, vp, ci, ci, ci, cf, ll, vp]
     lib.chol_trisolve_apply_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci,
                                                ci, cf, vp]
     for name in _IDS:
         getattr(lib, f"{name}_launch").restype = ci
     lib.factor_probes_occupancy.argtypes = [
-        ci, ci, ci, ci, ctypes.POINTER(ll), ctypes.POINTER(ci),
+        ci, ci, ci, ci, ll, ctypes.POINTER(ll), ctypes.POINTER(ci),
         ctypes.POINTER(ci), ctypes.POINTER(ci), ctypes.POINTER(ll)]
     lib.factor_probes_occupancy.restype = ci
 
@@ -130,13 +136,20 @@ def _launch(wrapper, instance, what, fn, *args):
     wrapper.launches_by[instance] += 1
 
 
-def occupancy(name, m, n, width=0, block=None):
+def occupancy(name, m, n, width=0, block=None, smem_bytes=0):
     """The launch of probe ``name`` at (m, n) with the wrapper's
-    ``width`` or ``block`` on the current card (``cuda_lib.occupancy``)."""
+    ``width`` or ``block`` and a shared memory request of ``smem_bytes``
+    on the current card (``cuda_lib.occupancy``)."""
     width = block if block is not None else width
     return cuda_lib.occupancy(library.get().factor_probes_occupancy,
                               f"{name} occupancy query (m={m}, n={n}, "
-                              f"width={width})", _IDS[name], m, n, width)
+                              f"width={width}, smem={smem_bytes})",
+                              _IDS[name], m, n, width, int(smem_bytes))
+
+
+def _check_request(smem_bytes):
+    if smem_bytes < 0:
+        raise ValueError(f"smem_bytes must be >= 0, got {smem_bytes}")
 
 
 def chol_factor(G, tiny=1e-12):
@@ -152,12 +165,14 @@ def chol_factor(G, tiny=1e-12):
     return out
 
 
-def chol_trsm_gram(A, G, tiny=1e-12, width=0):
+def chol_trsm_gram(A, G, tiny=1e-12, width=0, smem_bytes=0):
     """(B, m, n), (B, n, n) SPD float32 -> X X^T, X = L^-1 A^T, G = L L^T,
     the products on tensor cores, G factored by the elimination (``width``
-    0) or by tensor-core panels of ``width`` 8, 16 or 32."""
+    0) or by tensor-core panels of ``width`` 8, 16 or 32; at least
+    ``smem_bytes`` of shared memory a block."""
     if width not in TRSM_WIDTHS:
         raise ValueError(f"width must be one of {TRSM_WIDTHS}, got {width}")
+    _check_request(smem_bytes)
     B, n = _square("G", G)
     m = A.shape[1] if A.dim() == 3 else -1
     check_tensor("A", A, (B, m, n), _F32, G.device)
@@ -169,16 +184,18 @@ def chol_trsm_gram(A, G, tiny=1e-12, width=0):
         _launch(chol_trsm_gram, width, f"chol_trsm_gram (B={B}, m={m}, "
                                        f"n={n}, width={width})",
                 "chol_trsm_gram_launch", A, G, out, B, m, n, width,
-                float(tiny))
+                float(tiny), int(smem_bytes))
     return out
 
 
-def chol_linv_tc(G, tiny=1e-12, width=16):
+def chol_linv_tc(G, tiny=1e-12, width=16, smem_bytes=0):
     """(B, n, n) SPD float32 -> L^-1 with G = L L^T, by panels of
-    ``width`` on tensor cores."""
+    ``width`` on tensor cores; at least ``smem_bytes`` of shared memory a
+    block."""
     if width not in LINV_TC_WIDTHS:
         raise ValueError(f"width must be one of {LINV_TC_WIDTHS}, got "
                          f"{width}")
+    _check_request(smem_bytes)
     B, n = _square("G", G)
     check_tensor("G", G, (B, n, n), _F32, G.device)
     if not on_card(G, "chol_linv_tc"):
@@ -187,7 +204,8 @@ def chol_linv_tc(G, tiny=1e-12, width=16):
     if B:
         _launch(chol_linv_tc, width,
                 f"chol_linv_tc (B={B}, n={n}, width={width})",
-                "chol_linv_tc_launch", G, out, B, n, width, float(tiny))
+                "chol_linv_tc_launch", G, out, B, n, width, float(tiny),
+                int(smem_bytes))
     return out
 
 

@@ -16,6 +16,10 @@ and one vector a node from a seeded generator.  Per class it prints:
   bytes), the nearest library composition's ms, its plain version's ms,
   its registers, spills, shared memory and blocks an SM, its error
   against its plain version and its largest output (``probe_errors``);
+  chol_trsm_gram and chol_linv_tc also at kernel 1's shared memory
+  (``K1_KERNELS``: the largest request of the chunks' classes, kernel
+  1's blocks an SM; ms, occupancy, error and launches under ``_k1``), as
+  they would run inside it;
   the stage cuts it would replace (kernel 1's, ``kernel_stages.
   time_cuts`` at rounds = 2) and the unfused route's kernels beside it;
   the TPU probes' verdicts on these times (``verdicts``).
@@ -62,6 +66,8 @@ CONFIGS = (("chol_factor", {}),
            *(("chol_trsm_gram", {"width": w}) for w in (0, 8, 16, 32)),
            *(("chol_linv_tc", {"width": w}) for w in (8, 16, 32, 48)),
            *(("chol_trisolve_apply", {"block": b}) for b in (1, 8)))
+# the kernels also timed and held at kernel 1's shared memory request
+K1_KERNELS = ("chol_trsm_gram", "chol_linv_tc")
 
 
 def label(kernel, kw):
@@ -107,11 +113,30 @@ def prepare(chunks):
     return out
 
 
-def run(kernel, kw, t, plain=False):
+def setup(prepared):
+    """Per chunk, before the timed run: kernel 1's dynamic shared memory
+    and blocks an SM at its class (``k1_smem``, ``k1_blocks_per_sm``) and
+    the request that stands for them in every chunk (``k1_request``, the
+    largest of the chunks': at (12, 24) kernel 1 is held to its (24, 36)
+    blocks an SM by registers, PERF.md §6 PR 14)."""
+    from ..ops import gls_solve as gs
+
+    for head, _ in prepared:
+        head["k1_smem"], head["k1_blocks_per_sm"] = gs.occupancy(
+            head["E"], head["F"], head["with_neumann"], 2)
+    request = max(head["k1_smem"] for head, _ in prepared)
+    for head, _ in prepared:
+        head["k1_request"] = request
+
+
+def run(kernel, kw, t, plain=False, smem_bytes=0):
     """One call of probe ``kernel`` with the arguments ``kw`` on the
-    tensors ``t`` (the wrapper, or with ``plain`` its plain version)."""
+    tensors ``t`` (the wrapper, or with ``plain`` its plain version), a
+    K1_KERNELS wrapper at a shared memory request of ``smem_bytes``."""
     from ..ops import factor_probes as fp
 
+    if smem_bytes:
+        kw = dict(kw, smem_bytes=smem_bytes)
     fn = getattr(fp, f"{kernel}_reference") if plain else \
         functools.partial(getattr(fp, kernel), **kw)
     if kernel == "chol_trsm_gram":
@@ -187,10 +212,11 @@ def stage_ms(cuts):
 
 def time_probes(prepared, cuts):
     """Every probe kernel's ms, bound, occupancy, plain and library ms on
-    each prepared chunk, beside the stage cuts (``cuts[i]``: a
-    ``time_cuts`` list at rounds = 2 for chunk i) and the unfused route's
-    kernels on the same tensors.  The probe kernels' launches here are
-    the path ``launches`` counts."""
+    each prepared chunk (``setup`` done), K1_KERNELS' also at kernel 1's
+    request with their launches there, beside the stage cuts
+    (``cuts[i]``: a ``time_cuts`` list at rounds = 2 for chunk i) and the
+    unfused route's kernels on the same tensors.  The probe kernels'
+    launches here are the path ``launches`` counts."""
     from ..ops import cholqr as cq
     from ..ops import factor_probes as fp
 
@@ -212,6 +238,15 @@ def time_probes(prepared, cuts):
                 "plain_ms": plain[kernel], "library_ms": library[kernel],
                 "occupancy": fp.occupancy(kernel, head["m"], head["n"],
                                           **kw)}
+            if kernel in K1_KERNELS:
+                request, wrapper = head["k1_request"], getattr(fp, kernel)
+                before = wrapper.launches
+                row["kernels"][label(kernel, kw)].update(
+                    ms_k1=ks.best_ms(lambda: run(kernel, kw, t,
+                                                 smem_bytes=request)),
+                    launches_k1=wrapper.launches - before,
+                    occupancy_k1=fp.occupancy(kernel, head["m"], head["n"],
+                                              **kw, smem_bytes=request))
         # the baseline the trisolve verdict subtracts: the factor of G2
         row["kernels"]["chol_factor"]["ms_on_g2"] = ks.best_ms(
             lambda: fp.chol_factor(t["G2"]))
@@ -241,14 +276,15 @@ def node_err(got, ref, scale, held):
 def probe_errors(prepared):
     """Each probe kernel against its plain version on each prepared chunk:
     [{label: {"max_err", "plain_err", "tol", "max_abs_err", "out_max",
-    "nodes"}}], held on the nodes the route flags no pivot of (TOL's
-    comment).  ``out_max`` is the plain version's largest |output| on
+    "nodes"}}], K1_KERNELS' also "max_err_k1" and "max_abs_err_k1" at the
+    head's ``k1_request``, held on the nodes the route flags no pivot of
+    (TOL's comment).  ``out_max`` is the plain version's largest |output| on
     those nodes: the applies raise v by up to lambda_max(M)^4, so it says
     how far chol_trisolve_apply's results stay below float32's range."""
     from ..ops import factor_probes as fp
 
     out = []
-    for _, t in prepared:
+    for head, t in prepared:
         held = ~t["sick"]
         f64 = {k: t[k].double() for k in ("As", "G1", "Li1", "G2", "v")}
         aQ = t["As"].abs() @ t["Li1"].abs().transpose(1, 2)
@@ -276,6 +312,12 @@ def probe_errors(prepared):
                 "out_max": float(ref[held].abs().max())
                 if held.any() else 0.0,
                 "nodes": int(held.sum())}
+            if kernel in K1_KERNELS:
+                got = run(kernel, kw, t, smem_bytes=head["k1_request"])
+                errs[label(kernel, kw)].update(
+                    max_err_k1=node_err(got, ref, scale, held),
+                    max_abs_err_k1=float((got - ref)[held].abs().max())
+                    if held.any() else 0.0)
             del got
         out.append(errs)
         del f64, aQ, scales, exact, refs
@@ -345,6 +387,14 @@ def report(table):
                      f"plain's own {r['plain_err']:.1e}), largest output "
                      f"{r['out_max']:.2e}" if "max_err" in r else ""),
                   flush=True)
+            if "ms_k1" in r:
+                occ = r["occupancy_k1"]
+                print(f"#   {'at kernel 1 shared memory':>28}: "
+                      f"{r['ms_k1']:9.4f} ms; {occ['smem_bytes']} B shared, "
+                      f"{occ['blocks_per_sm']} blocks an SM, {r['launches_k1']}"
+                      f" launches" + (f"; error {r['max_err_k1']:.2e}"
+                                      if "max_err_k1" in r else ""),
+                      flush=True)
         st, sa = row["stages"], row["standalone"]
         print(f"#   stage cuts: chol1 {st['chol1']:.4f}, chol1 to gram2 "
               f"{st['chol1_to_gram2']:.4f}, chol2 {st['chol2']:.4f}, sweeps "
@@ -380,11 +430,23 @@ def report(table):
 
 
 def failed(table):
-    """The kernels of a table whose error is past its tolerance."""
-    return [f"({row['E']}, {row['F']}) {name}: error {r['max_err']:.3e} > "
+    """The kernels of a table whose error, at either shared memory
+    request, is past its tolerance."""
+    return [f"({row['E']}, {row['F']}) {name}{at}: error {r[key]:.3e} > "
             f"{r['tol']:.1e}"
             for row in table for name, r in row["kernels"].items()
-            if "max_err" in r and not r["max_err"] <= r["tol"]]
+            for key, at in (("max_err", ""),
+                            ("max_err_k1", " at kernel 1's shared memory"))
+            if key in r and not r[key] <= r["tol"]]
+
+
+def unlaunched_k1(table):
+    """The K1_KERNELS instances that did not launch at kernel 1's shared
+    memory in the timed run."""
+    return [f"({row['E']}, {row['F']}) {name}: no launch at kernel 1's "
+            f"shared memory" for row in table
+            for name, r in row["kernels"].items()
+            if r["kernel"] in K1_KERNELS and not r.get("launches_k1")]
 
 
 def launch_counts():
@@ -409,6 +471,7 @@ def probe(chunks, cuts):
     counted from 0), then each kernel against its plain version, merged
     into the table; returns (table, launches)."""
     prepared = prepare(chunks)
+    setup(prepared)
     reset_counts()
     table = time_probes(prepared, cuts)
     launches = launch_counts()
@@ -440,7 +503,7 @@ def main():
         "card": card, "mesh": f"tetra_mesh({args.n})", "reps": ks.REPS,
         "launches": launches, "classes": table}}), flush=True)
     bad = failed(table) + [f"{k}: no launch" for k, n in launches.items()
-                           if n == 0]
+                           if n == 0] + unlaunched_k1(table)
     if bad:
         raise SystemExit("\n".join(bad))
 

@@ -4,11 +4,13 @@ ninpol_tpu's own factorization helpers (_chol_panels, _linv_rows) in an
 interpret-mode pallas_call, as the TPU probes compose them, and against
 float64 NumPy at the route's (m, n); each CUDA kernel through the
 emulator of tests/utils/cuda_emu against its plain version (the
-tensor-core instances through its exact emulation of the one DMMA
-fragment shape they use); the tool's error and verdict paths; and the
-table of the TPU probes' pallas_call sites against the code and the
-records."""
+tensor-core instances through its exact emulations of the m8n8k4 and
+m16n8k8 DMMA fragments, the named barrier and the bulk copy), also on a
+clamped pivot, at n = 80 and n = 37 and at kernel 1's shared memory;
+the tool's error and verdict paths; and the table of the TPU probes'
+pallas_call sites against the code and the records."""
 import contextlib
+import ctypes
 import glob
 import os
 import re
@@ -38,6 +40,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = kernel_stages.CUT_TOL["chol1"]
 NT = pallas_chol.NT
 N_PAD = 16           # the interpret-mode tile: ~2 s a call at 16, ~33 s at 80
+K1_REQUEST = 95648   # kernel 1's dynamic shared memory at (24, 36)
 APPLIES = tool.APPLIES
 
 
@@ -242,6 +245,10 @@ def test_wrappers_run_plain_versions_on_cpu():
         fp.chol_trisolve_apply(G2, Li1, v, block=4)
     with pytest.raises(ValueError):
         fp.chol_trsm_gram(A[:, :, :-1], G1)
+    with pytest.raises(ValueError):
+        fp.chol_linv_tc(G1, width=8, smem_bytes=-1)
+    assert torch.equal(fp.chol_linv_tc(G1, width=8, smem_bytes=95648),
+                       fp.chol_linv_tc_reference(G1))
 
 
 # ---------------------------------------------------------------------------
@@ -260,9 +267,10 @@ def _call(fn, *args):
                 for a in args], None) == 0
 
 
-def _emulated(lib, kernel, kw, t):
+def _emulated(lib, kernel, kw, t, smem=0):
     """One emulated launch of ``kernel`` with the wrapper's arguments
-    ``kw`` on the float32 tensors ``t`` (As, G1, Li1, G2, v)."""
+    ``kw`` on the float32 tensors ``t`` (As, G1, Li1, G2, v), chol_trsm_gram
+    and chol_linv_tc at a shared memory request of ``smem`` bytes."""
     B, m, n = t["As"].shape
     out = torch.empty_like(t["v"] if kernel == "chol_trisolve_apply"
                            else t["G1"])
@@ -270,10 +278,10 @@ def _emulated(lib, kernel, kw, t):
         _call(lib.chol_factor_launch, t["G1"], out, B, n, 1e-12)
     elif kernel == "chol_trsm_gram":
         _call(lib.chol_trsm_gram_launch, t["As"], t["G1"], out, B, m, n,
-              kw["width"], 1e-12)
+              kw["width"], 1e-12, smem)
     elif kernel == "chol_linv_tc":
         _call(lib.chol_linv_tc_launch, t["G1"], out, B, n, kw["width"],
-              1e-12)
+              1e-12, smem)
     else:
         _call(lib.chol_trisolve_apply_launch, t["G2"], t["Li1"], t["v"], out,
               B, n, APPLIES, kw["block"], 1e-12)
@@ -310,6 +318,134 @@ def test_kernel_matches_plain_version(emu, kernel, kw, m, n, B):
         assert (torch.triu(got, 1) == 0).all()
 
 
+_BLOCKED = [(k, kw) for k, kw in tool.CONFIGS if k in tool.K1_KERNELS]
+
+
+def _clamped(r, pivots):
+    """Route inputs with node b's row and column ``pivots[b]`` of G1 (and
+    that column of A) zeroed: an exact zero pivot, clamped at tiny, in
+    block 0 (factored before the loop) or a later block (factored by the
+    update's lookahead)."""
+    for b, k in enumerate(pivots):
+        r["A"][b, :, k] = 0.0
+        r["G1"][b, k, :] = r["G1"][b, :, k] = 0.0
+    return r
+
+
+@pytest.mark.parametrize("kernel,kw", _BLOCKED,
+                         ids=[tool.label(k, kw) for k, kw in _BLOCKED])
+@pytest.mark.parametrize("case", ["clamped", "n80", "n37"])
+def test_blocked_kernels_edge_cases(emu, kernel, kw, case):
+    """Every instance of chol_trsm_gram and chol_linv_tc against its plain
+    version (emulated) on a clamped pivot (a zero row and column of G1:
+    L^-1 takes 1/sqrt(tiny) there, held apart, the rest within TOL), at n
+    = 80 (n a multiple of 8, no padding, the most blocks the kernels
+    take) and at n = 37 (the Neumann class: padded to 40, A by one bulk
+    copy)."""
+    m, n, B = {"clamped": (40, 21, 2), "n80": (96, 80, 1),
+               "n37": (108, 37, 2)}[case]
+    r = _route_inputs(m, n, B, seed=3)
+    pivots = (9, 3)
+    if case == "clamped":
+        r = _clamped(r, pivots)
+    t = {"As": _f32(r["A"]), "G1": _f32(r["G1"]),
+         "Li1": _f32(np.tril(r["Li1"])), "v": _f32(r["v"])}
+    got = _emulated(emu, kernel, kw, t)
+    ref = tool.run(kernel, kw, t, plain=True)
+    assert torch.isfinite(got).all()
+    if kernel == "chol_trsm_gram":
+        Li = fp.chol_linv_tc_reference(t["G1"])
+        aQ = t["As"].abs() @ Li.abs().transpose(1, 2)
+        assert _node_err(got, ref, aQ.transpose(1, 2) @ aQ) < TOL
+        return
+    if case == "clamped":
+        for b, k in enumerate(pivots):
+            assert ref[b, k, k] == pytest.approx(1e6, rel=1e-6)
+            assert got[b, k, k] == pytest.approx(float(ref[b, k, k]),
+                                                 rel=TOL)
+            got[b, k, k] = ref[b, k, k] = 0.0
+    assert _node_err(got, ref) < TOL
+    assert (torch.triu(got, 1) == 0).all()
+
+
+@pytest.mark.parametrize("kernel,kw", _BLOCKED,
+                         ids=[tool.label(k, kw) for k, kw in _BLOCKED])
+def test_blocked_kernels_at_kernel1_shared_memory(emu, kernel, kw):
+    """A shared memory request past the instance's need (kernel 1's, to
+    run at its blocks an SM) changes the launch, not the result: the same
+    output bit for bit (the emulator's 30 x 19 chol_trsm_gram copies A by
+    elements, 132 x 73 by one bulk copy), the request in the occupancy
+    query's shared memory and 2 blocks an SM there."""
+    for m, n, B in ((30, 19, 2), (132, 73, 1)):
+        r = _route_inputs(m, n, B)
+        t = {"As": _f32(r["A"]), "G1": _f32(r["G1"])}
+        assert torch.equal(_emulated(emu, kernel, kw, t),
+                           _emulated(emu, kernel, kw, t, smem=K1_REQUEST))
+    occ = cuda_emu_occupancy(emu, kernel, 132, 73, kw["width"], 0)
+    k1 = cuda_emu_occupancy(emu, kernel, 132, 73, kw["width"], K1_REQUEST)
+    assert occ["smem_bytes"] < K1_REQUEST == k1["smem_bytes"]
+    assert k1["blocks_per_sm"] == 2 < occ["blocks_per_sm"]
+
+
+def cuda_emu_occupancy(lib, kernel, m, n, width, request):
+    """The emulated library's occupancy query of an instance."""
+    from ninpol_tpu_torch.ops import cuda_lib
+
+    return cuda_lib.occupancy(lib.factor_probes_occupancy, kernel,
+                              fp._IDS[kernel], m, n, width, request)
+
+
+_NAMED_BARRIER = r"""
+#include <cuda_runtime.h>
+#include <chrono>
+
+// Eight warps, ``rounds`` rounds: warp 0 sleeps, writes the round into 32
+// slots of shared memory and arrives on named barrier 1 (bar.arrive);
+// warps 1..7 wait on it (bar.sync) and record the slots; a block barrier
+// ends the round.  A wait that did not wait reads the round before.
+__global__ void named_kernel(int* out, int rounds) {
+  __shared__ int slots[32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = 0; r < rounds; ++r) {
+    if (warp == 0) {
+      if (lane == 0) std::this_thread::sleep_for(std::chrono::milliseconds(2));
+      slots[lane] = 1000 * blockIdx.x + r;
+      emu_named_barrier(1, 256, false);
+    } else {
+      emu_named_barrier(1, 256, true);
+      out[(blockIdx.x * rounds + r) * 224 + threadIdx.x - 32] = slots[(lane + warp) % 32];
+    }
+    __syncthreads();
+  }
+}
+
+extern "C" int named_blocks(int* out, int blocks, int rounds) {
+  named_kernel<<<blocks, 256, 0, nullptr>>>(out, rounds);
+  return 0;
+}
+"""
+
+
+def test_emulated_named_barrier(tmp_path):
+    """bar.arrive / bar.sync as the emulator runs them (warps as OS
+    threads): the waiting warps see what the arriving warp wrote before
+    it arrived, in every round and block (the barrier's count starts each
+    phase and block at 0)."""
+    if cuda_emu.gxx() is None:
+        pytest.skip("needs g++ to build the emulated kernels")
+
+    def bind(lib):
+        lib.named_blocks.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_int]
+
+    lib = cuda_emu.build_text(_NAMED_BARRIER, "named", str(tmp_path), bind)
+    out = torch.full((2 * 3 * 224,), -1, dtype=torch.int32)
+    lib.named_blocks(out.data_ptr(), 2, 3)
+    want = torch.tensor([1000 * b + r for b in range(2) for r in range(3)],
+                        dtype=torch.int32).repeat_interleave(224)
+    assert torch.equal(out, want)
+
+
 def test_trisolve_matches_prec_apply_chain(emu):
     """chol_trisolve_apply computes what the route applies with the
     explicit factor: APPLIES times prec_apply_f32(L2^-1 Li1, v)."""
@@ -344,7 +480,7 @@ def test_tool_errors_on_route_chunks(emu, monkeypatch):
     for head, t in prepared:
         assert t["As"].shape[1:] == (head["m"], head["n"])
     head, t = prepared[1]
-    prepared = [(dict(head, chunk=2),
+    prepared = [(dict(head, chunk=2, k1_request=K1_REQUEST),
                  {k: v[:2].contiguous() for k, v in t.items()})]
     monkeypatch.setattr(fp.library, "lib", emu)
     monkeypatch.setattr(fp, "on_card", lambda x, name: True)
@@ -359,6 +495,8 @@ def test_tool_errors_on_route_chunks(emu, monkeypatch):
         for name, e in errs.items():
             assert e["max_err"] <= e["tol"], (name, e)
             assert e["nodes"] == 2 and e["tol"] >= TOL
+            if name.split("[")[0] in tool.K1_KERNELS:
+                assert e["max_err_k1"] <= e["tol"], (name, e)
 
 
 def test_verdicts_follow_the_tpu_rules():
@@ -387,6 +525,28 @@ def test_verdicts_follow_the_tpu_rules():
     assert v["chol_mxu"]["32"]["over_chol_linv_f32"] == pytest.approx(4 / 4.8)
     assert tool.failed([{"E": 24, "F": 36, "kernels": {
         "chol_factor": {"max_err": 2e-5, "tol": 1e-5}}}])
+
+
+def test_k1_checks_flag_errors_and_missing_launches():
+    """The checks at kernel 1's shared memory: ``failed`` flags an error
+    past tolerance there alone, ``unlaunched_k1`` an instance of
+    K1_KERNELS with no launch there (and no other kernel)."""
+    def row(err_k1, launches_k1):
+        return {"E": 24, "F": 36, "kernels": {
+            "chol_linv_tc[width=8]": {"kernel": "chol_linv_tc",
+                                      "max_err": 1e-6, "tol": 1e-5,
+                                      "max_err_k1": err_k1,
+                                      "launches_k1": launches_k1},
+            "chol_factor": {"kernel": "chol_factor", "max_err": 1e-6,
+                            "tol": 1e-5}}}
+
+    assert tool.failed([row(2e-6, 6)]) == []
+    bad = tool.failed([row(2e-5, 6)])
+    assert len(bad) == 1 and "kernel 1's shared memory" in bad[0]
+    assert tool.unlaunched_k1([row(2e-6, 6)]) == []
+    assert tool.unlaunched_k1([row(2e-6, 0)]) == [
+        "(24, 36) chol_linv_tc[width=8]: no launch at kernel 1's shared "
+        "memory"]
 
 
 def test_work_counts_what_the_functions_need():

@@ -13,6 +13,7 @@
 #include <ucontext.h>
 
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -310,6 +311,31 @@ inline bool emu_mbarrier_try_wait_parity(uint64_t* bar, unsigned parity) {
 inline void emu_cp_async_bulk(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
   std::memcpy(dst, src, bytes);
   emu_mbarrier_update(bar, 0, -(int32_t)bytes);
+}
+// bar.sync / bar.arrive on named barrier ``id`` (1-15) of ``count``
+// threads, a warp-wide call: the warp's lanes meet, then lane 0 adds the
+// warp's 32 threads to the barrier's count; the arrival that completes it
+// resets the count and starts a new generation; a sync waits (spinning,
+// as its warp's OS thread) for the generation it arrived in to end.  The
+// barrier's counts live across blocks: a completed phase leaves 0.
+struct EmuNamedBarrier {
+  std::atomic<int> arrived{0};
+  std::atomic<unsigned> generation{0};
+};
+inline EmuNamedBarrier emu_named[16];
+inline void emu_named_barrier(int id, int count, bool wait) {
+  __syncwarp();
+  if (emu_lane == 0) {
+    EmuNamedBarrier& b = emu_named[id];
+    const unsigned gen = b.generation.load();
+    if (b.arrived.fetch_add(32) + 32 == count) {
+      b.arrived.store(0);
+      b.generation.fetch_add(1);
+    } else if (wait) {
+      while (b.generation.load() == gen) std::this_thread::yield();
+    }
+  }
+  __syncwarp();
 }
 inline void __trap() {
   std::fprintf(stderr, "cuda_emu: __trap\n");
