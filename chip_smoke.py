@@ -27,9 +27,10 @@ hexahedral one, and checks them all:
      (E, F, with_neumann) class of the plan: w and wn agree to <= 1e-10
      scaled on the nodes both call converged, and the rnorm > 1e-11 sets
      agree; prints both times (the kernel's the least of 5 single
-     launches, as phase 10 times), the kernel's dynamic shared memory and
-     blocks per SM, and the time of torch.linalg.lstsq on the largest
-     class's dense float64 system;
+     launches, as phase 10 times), the kernel's dynamic shared memory,
+     blocks per SM, registers and local (spill) bytes a thread, and the
+     time of torch.linalg.lstsq on the largest class's dense float64
+     system;
      4b. one chunk padded to (E, F) = (64, 96), too wide for shared
      memory, so the kernel runs from its device workspace: same weights;
      4c. each cholqr kernel vs its plain version on one chunk of every
@@ -136,13 +137,14 @@ hexahedral one, and checks them all:
      4's chunks, on the unfused route's float32 tensors there: the four
      kernels of csrc/factor_probes.cu (chol_factor, chol_trsm_gram after
      the elimination's factor and after tensor-core panels of three
-     widths, chol_linv_tc at four, chol_trisolve_apply with its solves
-     pivot by pivot and by blocks of 8 rows), each timed as phase 10
-     times a cut, beside its bound, the nearest library composition,
-     phase 10's cuts it would replace and the unfused kernels; registers,
-     spills, shared memory and blocks per SM; chol_trsm_gram and
-     chol_linv_tc also at kernel 1's shared memory request (its blocks
-     an SM); the TPU probes' three verdicts on these times; every
+     widths, chol_linv_tc at four and with a right factor, L2^-1 L1^-1
+     as kernel 1's chol2, chol_trisolve_apply with its solves pivot by
+     pivot and by blocks of 8 rows), each timed as phase 10 times a cut,
+     beside its bound, the nearest library composition, phase 10's cuts
+     it would replace and the unfused kernels; registers, spills, shared
+     memory and blocks per SM; chol_trsm_gram and chol_linv_tc also at
+     kernel 1's shared memory request (its blocks an SM); the TPU probes'
+     verdicts and the chol2 verdict on these times; every
      instance launched in the timed run, at both requests, and held to
      its plain version there (tools/factor_probes.py: TOL of its scale,
      or CHOL_RATIO times the plain version's own distance from float64);
@@ -186,7 +188,7 @@ Each phase prints its seconds.  Any failing phase raises (non-zero
 exit).  The last four lines are the mesh JSON line (phase 9), the card,
 the kernels JSON line (kernel 1's entry also holds its single-round
 instance's rows and times; phase 11's kernels have an entry for each
-tools/ site they replace, five in all, phase 12's eight and phase 13's
+tools/ site they replace, six in all, phase 12's eight and phase 13's
 five) and
 {"ok": true, "device": {...}}.
 
@@ -379,11 +381,12 @@ def kernel_vs_plain(interp, chunks, rounds=2):
         flops = (3 * m * n * n + 4 * n ** 3 / 3 if rounds == 2
                  else m * n * n + 2 * n ** 3 / 3)
         bound_ms, bound_by = bound(B * flops, nbytes)
-        smem, blocks = gs.occupancy(E, F, c["with_neumann"], rounds)
+        occ = gs.occupancy(E, F, c["with_neumann"], rounds)
         row = {"rounds": rounds, "E": E, "F": F,
                "with_neumann": c["with_neumann"],
                "nodes_in_class": len(c["nodes"]), "chunk": B,
-               "smem_bytes": smem, "blocks_per_sm": blocks, **held,
+               **{k: occ[k] for k in ("smem_bytes", "blocks_per_sm",
+                                      "registers", "local_bytes")}, **held,
                "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None}

@@ -29,34 +29,48 @@ __device__ inline float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+// Upper tile t of an np x np matrix, tiles numbered row by row over the
+// kTile x kTile tiles (ti, tj), ti <= tj: its first row and column.
+__device__ inline void upper_tile(int t, int nt, int& i0, int& j0) {
+  int ti = 0, rest = t;
+  while (rest >= nt - ti) { rest -= nt - ti; ++ti; }
+  i0 = ti * kTile;
+  j0 = (ti + rest) * kTile;
+}
+
+// acc[p][q] += sum_{r < rows} a[r][i0 + p] a[r][j0 + q], a at stride np:
+// each entry sums its rows in order with FMAs, 8 loads per 16 FMAs.
+__device__ inline void gram_tile(const float* a, int rows, int np, int i0, int j0,
+                                 float (&acc)[kTile][kTile]) {
+  for (int r = 0; r < rows; ++r) {
+    const float4 x4 = load4(a + r * np + i0), y4 = load4(a + r * np + j0);
+    const float x[kTile] = {x4.x, x4.y, x4.z, x4.w};
+    const float y[kTile] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+    for (int p = 0; p < kTile; ++p)
+#pragma unroll
+      for (int q = 0; q < kTile; ++q) acc[p][q] = fmaf(x[p], y[q], acc[p][q]);
+  }
+}
+
 // Accumulate rows [0, rows) of a (stride np) into the upper tiles of g
 // (np x np): g[i][j] += sum_r a[r][i] a[r][j] for the kTile x kTile tiles
-// (ti, tj), ti <= tj.  Each entry sums its rows in order with FMAs; a
-// thread keeps one tile in registers for the whole call: 8 loads per 16
-// FMAs.  Thread t owns tiles t, t + blockDim, ..., so no two threads
-// write one entry, and a thread that calls it again on the same g finds
-// its own tiles.
+// (ti, tj), ti <= tj (gram_tile); a thread keeps one tile in registers for
+// the whole call.  Thread t owns tiles t, t + blockDim, ..., so no two
+// threads write one entry, and a thread that calls it again on the same g
+// finds its own tiles.
 __device__ inline void gram_accumulate(const float* a, float* g, int rows, int np) {
   const int nt = np / kTile;
   for (int t = threadIdx.x; t < nt * (nt + 1) / 2; t += blockDim.x) {
-    int ti = 0, rest = t;              // t -> (ti, tj), row by row
-    while (rest >= nt - ti) { rest -= nt - ti; ++ti; }
-    const int i0 = ti * kTile, j0 = (ti + rest) * kTile;
+    int i0, j0;
+    upper_tile(t, nt, i0, j0);
     float acc[kTile][kTile];
 #pragma unroll
     for (int p = 0; p < kTile; ++p) {
       const float4 v = load4(g + (i0 + p) * np + j0);
       acc[p][0] = v.x; acc[p][1] = v.y; acc[p][2] = v.z; acc[p][3] = v.w;
     }
-    for (int r = 0; r < rows; ++r) {
-      const float4 x4 = load4(a + r * np + i0), y4 = load4(a + r * np + j0);
-      const float x[kTile] = {x4.x, x4.y, x4.z, x4.w};
-      const float y[kTile] = {y4.x, y4.y, y4.z, y4.w};
-#pragma unroll
-      for (int p = 0; p < kTile; ++p)
-#pragma unroll
-        for (int q = 0; q < kTile; ++q) acc[p][q] = fmaf(x[p], y[q], acc[p][q]);
-    }
+    gram_tile(a, rows, np, i0, j0, acc);
 #pragma unroll
     for (int p = 0; p < kTile; ++p)
       *reinterpret_cast<float4*>(g + (i0 + p) * np + j0) =

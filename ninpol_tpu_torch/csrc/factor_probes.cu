@@ -37,25 +37,29 @@
  *   Cholesky factor and L^-1 by blocked_factor (template kW = 8, 16, 32,
  *   48, the probe's super-panel widths), L^-1's 8-row block rows formed
  *   inside the factor's steps (inverse_tile), each block one DMMA product
- *   chain over the block rows already done.  Bound by memory (G's triangle
+ *   chain over the block rows already done.  With a right factor P
+ *   (template kRight) it gives L^-1 P, lower_product's blocks over P's
+ *   staged triangle: the route's chol2 (Lc = L2^-1 L1^-1) alone, which
+ *   replaces tools/trisolve_probe.py:95.  Bound by memory (G's triangle
  *   read, L^-1 written); held by the lead warp's pivot chain, the block
  *   rows' products and its input and output, which all blocks of a
  *   launch meet at once.
  *
- * The blocked factor (chol_linv_tc, chol_trsm_gram's variant C) keeps L,
- *   the part still to factor and L^-1 in float64 as packed triangles of
- *   8 x 8 blocks, so no product converts an operand; it goes 8 columns a
- *   step, right-looking by panels of kW, with two block barriers a step
- *   (20 a node at n = 73; 23 in all for chol_trsm_gram): warp 0 factors
- *   each diagonal block by shuffles, with its inverse, a step ahead of
- *   the other seven warps, which form the panel against that inverse,
- *   update the rest on m16n8k8 and wait for the lead on a named
- *   barrier.  n is
- *   padded to a multiple of 8 with the identity on the padded diagonal.
- *   The products run on FP64 DMMA (float32 inputs widened once, so each
- *   product is exact and the sums are float64, rounded once to float32):
- *   single-pass TF32 keeps ~3 digits, the preconditioner needs
- *   Gram-quality products, and DMMA's fragments need no hi/lo split.
+ * The blocked factor (chol_linv_tc, chol_trsm_gram's variant C) is
+ *   blocked_factor.cuh's, which the fused solve's two factorizations run
+ *   too (gls_solve.cu): L, the part still to factor and L^-1 in float64
+ *   as packed triangles of 8 x 8 blocks, so no product converts an
+ *   operand; 8 columns a step, right-looking by panels of kW, two block
+ *   barriers a step (20 a node at n = 73; 23 in all for chol_trsm_gram);
+ *   warp 0 factors each diagonal block by shuffles, with its inverse, a
+ *   step ahead of the other seven warps, which form the panel against
+ *   that inverse, update the rest on m16n8k8 and wait for the lead on a
+ *   named barrier.  n is padded to a multiple of 8 with the identity on
+ *   the padded diagonal.  The products run on FP64 DMMA (float32 inputs
+ *   widened once, so each product is exact and the sums are float64,
+ *   rounded once to float32): single-pass TF32 keeps ~3 digits, the
+ *   preconditioner needs Gram-quality products, and DMMA's fragments
+ *   need no hi/lo split.
  *
  * chol_trisolve_apply_kernel replaces tools/trisolve_probe.py:162: the
  *   factor L2 of G2 kept (no L2^-1 L1^-1), then `applies` times v <-
@@ -77,27 +81,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "blocked_factor.cuh"
+
 namespace {
+
+using namespace blocked_factor_device;
 
 constexpr int kGrid = 16;                 // the register grid: kGrid x kGrid threads
 constexpr int kThreads = kGrid * kGrid, kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
+static_assert(kThreads == kFactorThreads, "blocked_factor runs on the probes' blocks");
 constexpr unsigned kSpinLimit = 1u << 22;   // tries of an mbarrier wait before __trap
-
-__host__ __device__ inline int pad8(int n) { return (n + 7) / 8 * 8; }
-
-// D = A B + D for one 8 x 8 x 4 tile on the FP64 tensor cores, the warp's
-// fragments of mma.sync.m8n8k4.row.col.f64: lane 4 g + t holds a = A[g][t],
-// b = B[t][g], c0 = D[g][2t] and c1 = D[g][2t + 1].
-__device__ __forceinline__ void mma_f64(double& c0, double& c1, double a, double b) {
-#ifdef CUDA_EMU
-  emu_mma_m8n8k4_f64(c0, c1, a, b);
-#else
-  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};"
-               : "+d"(c0), "+d"(c1)
-               : "d"(a), "d"(b));
-#endif
-}
 
 // ---- the elimination in registers (chol_factor, chol_trsm_gram with kW =
 // 0, chol_trisolve_apply)
@@ -173,326 +166,7 @@ __device__ __forceinline__ void eliminate(float (&g)[kS][kS], int n, float tiny,
   }
 }
 
-// ---- the blocked factor on the tensor cores (chol_linv_tc, chol_trsm_gram
-// with kW > 0)
-//
-// L (and S, the part still to factor), L^-1 and the diagonal blocks'
-// inverses are float64 in shared memory, as packed lower triangles of 8 x
-// 8 blocks (bo: block (i, j), j <= i, row-major), so no product converts
-// an operand: G is widened once where it is staged, the result rounded
-// once where it leaves.  np = pad8(n), nb = np / 8 blocks; at np = 80 a
-// triangle takes 28,160 B, what a float32 square took.  The products are
-// m16n8k8 (16 x 8 tiles: two blocks of a column) and m8n8k4 on FP64 DMMA.
-// A product's K = 8 columns of a block row are taken in a permuted order,
-// the mma's k = t on column 2t and k = t + 4 on 2t + 1, so that a lane's
-// two operands of a row are one double2 and a C fragment (D[g][2t],
-// D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1]) is already the A fragment
-// of a product over its own columns, (c0, c2, c1, c3): a result feeds the
-// next product from registers.
-
-__host__ __device__ inline int tri_blocks(int nb) { return nb * (nb + 1) / 2; }
-__device__ __forceinline__ int bo(int i, int j) { return (i * (i + 1) / 2 + j) * 64; }
-
-// D = A B + D for one 16 x 8 x 8 tile on the FP64 tensor cores (sm_90's
-// shape): lane 4 g + t holds a = (A[g][t], A[g + 8][t], A[g][t + 4], A[g +
-// 8][t + 4]), b = (B[t][g], B[t + 4][g]), c = (D[g][2t], D[g][2t + 1],
-// D[g + 8][2t], D[g + 8][2t + 1]).
-__device__ __forceinline__ void mma16(double (&c)[4], const double (&a)[4], const double (&b)[2]) {
-#ifdef CUDA_EMU
-  emu_mma_m16n8k8_f64(c, a, b);
-#else
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};"
-      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
-      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
-#endif
-}
-
-// Named barrier ``id`` of ``count`` threads: bar.sync waits for the
-// count, bar.arrive adds its warp without waiting (a producer's release:
-// its earlier shared memory writes are seen by the threads that wait).
-__device__ __forceinline__ void named_sync(int id, int count) {
-#ifdef CUDA_EMU
-  emu_named_barrier(id, count, true);
-#else
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
-#endif
-}
-__device__ __forceinline__ void named_arrive(int id, int count) {
-#ifdef CUDA_EMU
-  emu_named_barrier(id, count, false);
-#else
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
-#endif
-}
-
-// A block's row r, columns c and c + 1 (c even), and their store.
-__device__ __forceinline__ double2 row_pair(const double* blk, int r, int c) {
-  return *reinterpret_cast<const double2*>(blk + r * 8 + c);
-}
-__device__ __forceinline__ void store_pair(double* blk, int r, int c, double x, double y) {
-  double2 v;
-  v.x = x;
-  v.y = y;
-  *reinterpret_cast<double2*>(blk + r * 8 + c) = v;
-}
-
-// One warp: the 128-byte lines of [p, p + bytes) into L2
-// (prefetch.global.L2).  The blocks of a launch run in step, so their
-// input and output phases meet at device memory's rate while no product
-// runs; a block that asks, while device memory is idle, for the input of
-// the node that the next block on its SM slot will take (``ahead``
-// nodes on: the launch's resident blocks) lets that block's loads find
-// L2.
-__device__ __forceinline__ void prefetch_l2(const void* p, long long bytes) {
-#ifndef CUDA_EMU
-  const char* c = static_cast<const char*>(p);
-  const long long first = (long long)(reinterpret_cast<uintptr_t>(c) & 127);
-  for (long long off = 128LL * (threadIdx.x & 31); off < first + bytes; off += 32 * 128)
-    asm volatile("prefetch.global.L2 [%0];" ::"l"(c - first + off));
-#endif
-}
-
-// One warp: the clamped Cholesky factor of diagonal block k, given as this
-// lane's entries a0 = S[g][2t], a1 = S[g][2t + 1] of the block (lane 4 g
-// + t; entries above the diagonal are not read), by 8 pivots of float32
-// shuffles, with no block barrier; the block's inverse by the same row
-// operations on the identity (M = L_unit^-1, L^-1 = diag(dinv) M).
-// Writes L's block into lp (below the diagonal and 1 / dinv on it),
-// dinv[8k..8k + 7], and the inverse (zeros above the diagonal) into inv.
-__device__ void diag_factor(float a0, float a1, double* lp, double* inv, int k, float tiny,
-                            float* dinv) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, j0 = 2 * t, j1 = j0 + 1;
-  float m0 = g == j0 ? 1.f : 0.f, m1 = g == j1 ? 1.f : 0.f;
-  float d0 = 1.f, d1 = 1.f, dg = 1.f;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int q = c >> 1;
-    const float v = (c & 1) ? a1 : a0;   // S[g][c] where t == q
-    const float piv = __shfl_sync(kFull, v, 4 * c + q);
-    const float lg = __shfl_sync(kFull, v, 4 * g + q);
-    const float l0 = __shfl_sync(kFull, v, 4 * j0 + q);
-    const float l1 = __shfl_sync(kFull, v, 4 * j1 + q);
-    const float mc0 = __shfl_sync(kFull, m0, 4 * c + t);   // M[c][j0], final
-    const float mc1 = __shfl_sync(kFull, m1, 4 * c + t);
-    const float d = rsqrtf(fmaxf(piv, tiny));
-    if (g == c) dg = d;
-    if (j0 == c) d0 = d;
-    if (j1 == c) d1 = d;
-    if (g > c) {
-      const float lgd = lg * d;   // L[g][c]
-      if (j0 > c && j0 <= g) a0 = fmaf(-lgd, l0 * d, a0);
-      if (j1 > c && j1 <= g) a1 = fmaf(-lgd, l1 * d, a1);
-      const float u = lgd * d;   // L_unit[g][c]
-      m0 = fmaf(-u, mc0, m0);
-      m1 = fmaf(-u, mc1, m1);
-    }
-  }
-  double* row = lp + bo(k, k) + g * 8;
-  if (j0 < g) row[j0] = a0 * d0;
-  else if (j0 == g) row[j0] = 1.f / d0;
-  if (j1 < g) row[j1] = a1 * d1;
-  else if (j1 == g) row[j1] = 1.f / d1;
-  store_pair(inv, g, j0, dg * m0, dg * m1);
-  if (g == 0) {
-    dinv[8 * k + j0] = d0;
-    dinv[8 * k + j1] = d1;
-  }
-}
-
-// One item of an update: S -= L[rows][K] L[cols][K]^T for block rows ib
-// and ib + 1 (the second where ib + 1 < nb) against block column jb and,
-// where nt == 2, jb + 1 (jb <= ib + 1), K the block columns [l0, l1):
-// one m16n8k8 a tile and K block, the A fragment loaded once for both
-// tiles, one accumulator chain a tile, started from S.  A tile's upper
-// block (jb > ib) is outside the triangle: neither read nor stored; with
-// ``lead``, neither is the first tile's upper block (the next diagonal
-// block, which the lead warp updates itself).
-template <bool kUnroll>
-__device__ void update_item(double* lp, int nb, int ib, int jb, int nt, int l0, int l1,
-                            bool lead) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const bool lo = ib + 1 < nb;
-  const double2 zero = {0.0, 0.0};
-  double c[2][4];
-#pragma unroll
-  for (int q = 0; q < 2; ++q)
-    if (q < nt) {
-      const int j = jb + q;
-      const double2 u = j <= ib && !(lead && q == 0) ? row_pair(lp + bo(ib, j), g, 2 * t) : zero;
-      const double2 v = lo ? row_pair(lp + bo(ib + 1, j), g, 2 * t) : zero;
-      c[q][0] = u.x;
-      c[q][1] = u.y;
-      c[q][2] = v.x;
-      c[q][3] = v.y;
-    }
-  auto product = [&](int l) {
-    const double2 u = row_pair(lp + bo(ib, l), g, 2 * t);
-    const double2 v = lo ? row_pair(lp + bo(ib + 1, l), g, 2 * t) : zero;
-    const double a[4] = {-u.x, -v.x, -u.y, -v.y};
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-      if (q < nt) {
-        const double2 w = row_pair(lp + bo(jb + q, l), g, 2 * t);
-        const double b[2] = {w.x, w.y};
-        mma16(c[q], a, b);
-      }
-  };
-  if constexpr (kUnroll) {
-    for (int l = l0; l < l1; ++l) product(l);
-  } else {
-#pragma unroll 1   // a K of several blocks: no loads in flight across blocks (registers)
-    for (int l = l0; l < l1; ++l) product(l);
-  }
-#pragma unroll
-  for (int q = 0; q < 2; ++q)
-    if (q < nt) {
-      const int j = jb + q;
-      if (j <= ib && !(lead && q == 0)) store_pair(lp + bo(ib, j), g, 2 * t, c[q][0], c[q][1]);
-      if (lo) store_pair(lp + bo(ib + 1, j), g, 2 * t, c[q][2], c[q][3]);
-    }
-}
-
-// The lead warp's step k (warp 0): L's block (k + 1, k) = S's times
-// Linv_kk^T (two m8n8k4), published to the workers by named barrier 1;
-// then diagonal block k + 1 updated by L's blocks (k + 1, l), l in [l0,
-// k] (block k from registers; two accumulator chains), and factored
-// (diag_factor) into lp, inv1 and dinv.
-__device__ void lead_step(double* lp, int k, const double* inv, int l0, double* inv1,
-                          float tiny, float* dinv) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, k1 = k + 1;
-  double* pk = lp + bo(k1, k);
-  const double2 u = row_pair(pk, g, 2 * t), w = row_pair(inv, g, 2 * t);
-  double x0 = 0.0, x1 = 0.0;
-  mma_f64(x0, x1, u.x, w.x);
-  mma_f64(x0, x1, u.y, w.y);
-  store_pair(pk, g, 2 * t, x0, x1);
-  named_arrive(1, kThreads);
-  const double2 s = row_pair(lp + bo(k1, k1), g, 2 * t);
-  double d0 = s.x, d1 = s.y, e0 = 0.0, e1 = 0.0;
-  mma_f64(d0, d1, -x0, x0);
-  mma_f64(d0, d1, -x1, x1);
-#pragma unroll 1
-  for (int l = l0; l < k; ++l) {
-    const double2 y = row_pair(lp + bo(k1, l), g, 2 * t);
-    mma_f64(e0, e1, -y.x, y.x);
-    mma_f64(e0, e1, -y.y, y.y);
-  }
-  diag_factor((float)(d0 + e0), (float)(d1 + e1), lp, inv1, k1, tiny, dinv);
-}
-
-// One panel tile: L's blocks (ib, k) and (ib + 1, k) (the second below
-// nb) = S's times Linv_kk^T (inv), one m16n8k8.
-__device__ void panel_tile(double* lp, int nb, int ib, int k, const double* inv) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const bool lo = ib + 1 < nb;
-  double* top = lp + bo(ib, k);
-  double* bot = lo ? lp + bo(ib + 1, k) : top;
-  const double2 u = row_pair(top, g, 2 * t);
-  const double2 v = lo ? row_pair(bot, g, 2 * t) : double2{0.0, 0.0};
-  const double2 w = row_pair(inv, g, 2 * t);
-  const double a[4] = {u.x, v.x, u.y, v.y}, b[2] = {w.x, w.y};
-  double c[4] = {0.0, 0.0, 0.0, 0.0};
-  mma16(c, a, b);
-  store_pair(top, g, 2 * t, c[0], c[1]);
-  if (lo) store_pair(bot, g, 2 * t, c[2], c[3]);
-}
-
-// One tile of L^-1's block row k (chol_linv_tc, ip packed as lp): its
-// blocks (k, jb) and (k, jb + 1) (the second where jb + 1 < k), Linv_kj =
-// -Linv_kk sum_{l = j}^{k - 1} L_kl Linv_lj, computed transposed so that
-// it reads L by rows: T^T = sum_l Linv_lj^T L_kl^T (the mma's natural K
-// order, two accumulator chains), then -T^T Linv_kk^T from T^T's
-// registers.  Linv_lj is 0 for l < j: block jb + 1's first K block is
-// zero operands.
-__device__ void inverse_tile(const double* lp, double* ip, int jb, int k) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  double e[2][4] = {{0.0, 0.0, 0.0, 0.0}, {0.0, 0.0, 0.0, 0.0}};
-  int q = 0;
-#pragma unroll 1
-  for (int l = jb; l < k; ++l, q ^= 1) {
-    const bool hi = l > jb;
-    const double* a0 = ip + bo(l, jb) + t * 8 + g;
-    const double* a1 = ip + bo(l, hi ? jb + 1 : jb) + t * 8 + g;
-    const double a[4] = {a0[0], hi ? a1[0] : 0.0, a0[32], hi ? a1[32] : 0.0};
-    const double* lk = lp + bo(k, l) + g * 8 + t;
-    const double b[2] = {lk[0], lk[4]};
-    if (q) mma16(e[1], a, b);
-    else mma16(e[0], a, b);
-  }
-  const double a[4] = {-(e[0][0] + e[1][0]), -(e[0][2] + e[1][2]), -(e[0][1] + e[1][1]),
-                       -(e[0][3] + e[1][3])};
-  const double2 w = row_pair(ip + bo(k, k), g, 2 * t);
-  const double b[2] = {w.x, w.y};
-  double c[4] = {0.0, 0.0, 0.0, 0.0};
-  mma16(c, a, b);   // Linv^T[8 jb + g][8 k + 2t], ...
-  double* out = ip + bo(k, jb) + 2 * t * 8 + g;
-  out[0] = c[0];
-  out[8] = c[1];
-  if (jb + 1 < k) {
-    out[64] = c[2];
-    out[72] = c[3];
-  }
-}
-
-// The clamped Cholesky factor of lp (the lower triangle of G on entry,
-// the identity past n; diagonal block 0 already factored by diag_factor
-// and a barrier passed), right-looking by 8-column steps, panels of kW.
-// Warp 0 leads (lead_step): at step k it forms L's block (k + 1, k),
-// updates diagonal block k + 1 and factors it, one step ahead of the other
-// seven warps, the workers, which at step k form L's blocks below it (one
-// m16n8k8 a 16-row tile against Linv_kk; with kInv also L^-1's block row
-// k, inverse_tile, into ip), wait on named barrier 1 (the workers' tiles
-// and the lead's block), then update the panel's later columns by block
-// column k (K = 8), or at the panel's last step every later column by the
-// whole panel (K = its width), the next diagonal block left to the lead.
-// One block barrier ends the step: two barriers a step, and the lead's
-// pivot chain runs beside the workers' products.  Diagonal block k's
-// inverse is ip's (kInv) or dp's block k.  At step 1 the last worker
-// asks L2 for ``next_g`` (prefetch_l2), when given.  On exit lp holds L
-// (1 / dinv on the diagonal), dinv[i] = d_i, and with kInv ip holds L^-1.
-template <int kW, bool kInv>
-__device__ void blocked_factor(double* lp, double* ip, double* dp, int nb, float tiny,
-                               float* dinv, const float* next_g = nullptr, long long next_bytes = 0) {
-  constexpr int kPB = kW / 8;   // blocks a panel
-  constexpr int kWorkers = kWarps - 1;
-  const int warp = threadIdx.x / 32;
-  for (int k = 0; k < nb; ++k) {
-    const int k1 = k + 1;
-    const double* inv = kInv ? ip + bo(k, k) : dp + 64 * k;
-    const int p0 = k / kPB * kPB, pe = min(p0 + kPB, nb);
-    const bool in_panel = k1 < pe;   // else k1 == pe
-    const int l0 = in_panel ? k : p0;
-    if (warp == 0) {
-      if (k1 < nb)
-        lead_step(lp, k, inv, l0, kInv ? ip + bo(k1, k1) : dp + 64 * k1, tiny, dinv);
-    } else {
-      if (k == 1 && warp == kWarps - 1 && next_g != nullptr) prefetch_l2(next_g, next_bytes);
-      const int ninv = kInv ? k1 / 2 : 0, npt = (nb - k1) / 2;
-      for (int it = warp - 1; it < ninv + npt; it += kWorkers) {
-        if (it < ninv) inverse_tile(lp, ip, 2 * it, k);
-        else panel_tile(lp, nb, k1 + 1 + 2 * (it - ninv), k, inv);
-      }
-      if (k1 < nb) {
-        named_sync(1, kThreads);
-        const int ncol = (in_panel ? pe : nb) - k1, gc = (ncol + 1) / 2;
-        const int nband = (nb - k1 + 1) / 2;
-        int items = 0;
-        for (int b = 0; b < nband; ++b) items += min(gc, b + 1);
-        // item it: band b (block rows k1 + 2b, + 1), block columns k1 + 2q
-        // and the next where it reaches the band's triangle
-        for (int it = warp - 1; it < items; it += kWorkers) {
-          int b = 0, q = it;
-          while (q >= min(gc, b + 1)) q -= min(gc, b + 1), ++b;
-          const int nt = min(2, min(ncol, 2 * b + 2) - 2 * q);
-          update_item<kW == 8>(lp, nb, k1 + 2 * b, k1 + 2 * q, nt, l0, k1, it == 0);
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
+// ---- the blocked factor's inputs (blocked_factor.cuh)
 
 // The workers (warps 1..7): G's lower triangle, widened, into lp, the
 // identity past n; block row 0 is left to factor_first, which warp 0 runs
@@ -510,9 +184,19 @@ __device__ inline void stage_lower(const float* __restrict__ Gb, double* lp, int
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
       const int c = lane + 32 * q;
-      if (c <= i) lp[bo(i >> 3, c >> 3) + (i & 7) * 8 + (c & 7)] = v[q];
+      if (c <= i) lp[packed_at(i, c)] = v[q];
     }
   }
+}
+
+// The lower triangle of P (chol_linv_tc's right factor), widened, into
+// lp: zeros above the diagonal of the diagonal blocks (lower_product
+// reads whole blocks), the identity past n.  A warp a row.
+__device__ inline void stage_right(const float* __restrict__ Pb, double* lp, int n, int np) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  for (int i = warp; i < np; i += kWarps)
+    for (int c = lane; c <= (i | 7); c += 32)
+      lp[packed_at(i, c)] = i < n && c <= i ? Pb[i * n + c] : i == c ? 1.f : 0.f;
 }
 
 // Warp 0: diagonal block 0 of G (the identity past n) straight from
@@ -787,7 +471,7 @@ chol_trsm_gram_kernel(const float* __restrict__ A, const float* __restrict__ G,
       for (int b = 0; b < kS; ++b) {
         const int i = tr + kGrid * a, c = tc + kGrid * b;
         if (i < np && c <= i)
-          lp[bo(i >> 3, c >> 3) + (i & 7) * 8 + (c & 7)] =
+          lp[packed_at(i, c)] =
               i >= n ? (i == c ? 1.f : 0.f) : c < i ? g[a][b] * dinv[c] : 1.f / dinv[c];
       }
     for (int i = n + t; i < np; i += kThreads) dinv[i] = 1.f;
@@ -843,11 +527,13 @@ __host__ __device__ inline long long linv_tc_bytes(int n) {
 }
 
 // blocked_factor with L^-1's block rows, then L^-1 out in rows, rounded,
-// zeros above the diagonal.
-template <int kW>
+// zeros above the diagonal; with kRight, L^-1 P instead (chol2 of the
+// route, Lc = L2^-1 L1^-1): P's lower triangle staged over L, which is read
+// no more, then lower_product's blocks straight to device memory.
+template <int kW, bool kRight>
 __global__ void __launch_bounds__(kThreads, 4)
-chol_linv_tc_kernel(const float* __restrict__ G, float* __restrict__ out, int n, float tiny,
-                    long long B, long long ahead) {
+chol_linv_tc_kernel(const float* __restrict__ G, const float* __restrict__ P,
+                    float* __restrict__ out, int n, float tiny, long long B, long long ahead) {
   extern __shared__ __align__(16) float smem[];
   const int np = pad8(n), nb = np / 8, warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   double* lp = reinterpret_cast<double*>(smem);
@@ -861,11 +547,20 @@ chol_linv_tc_kernel(const float* __restrict__ G, float* __restrict__ out, int n,
   blocked_factor<kW, true>(lp, ip, nullptr, nb, tiny, dinv,
                            node + ahead < B ? Gb + ahead * n * n : nullptr, (long long)n * n * 4);
   float* ob = out + node * n * n;
+  if constexpr (kRight) {
+    stage_right(P + node * n * n, lp, n, np);
+    __syncthreads();
+    lower_product(ip, lp, ob, n, n, nb);
+  }
   for (int i = warp; i < n; i += kWarps)
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
       const int c = lane + 32 * q;
-      if (c < n) ob[i * n + c] = c <= i ? (float)ip[bo(i >> 3, c >> 3) + (i & 7) * 8 + (c & 7)] : 0.f;
+      if (kRight) {
+        if (c > i && c < n) ob[i * n + c] = 0.f;
+      } else if (c < n) {
+        ob[i * n + c] = c <= i ? (float)ip[packed_at(i, c)] : 0.f;
+      }
     }
 }
 
@@ -1050,12 +745,14 @@ chol_trisolve_apply_kernel(const float* __restrict__ G, const float* __restrict_
 using FactorKernel = void (*)(const float*, float*, int, float);
 using TrsmKernel = void (*)(const float*, const float*, float*, int, int, float, int, long long,
                            long long);
-using LinvTcKernel = void (*)(const float*, float*, int, float, long long, long long);
+using LinvTcKernel = void (*)(const float*, const float*, float*, int, float, long long,
+                             long long);
 using TrisolveKernel = void (*)(const float*, const float*, const float*, float*, int, int,
                                 float);
 
-// The probes, by their ids in factor_probes_occupancy
-enum Probe { kFactor = 0, kTrsm = 1, kLinvTc = 2, kTrisolve = 3 };
+// The probes, by their ids in factor_probes_occupancy (4: chol_linv_tc
+// with a right factor)
+enum Probe { kFactor = 0, kTrsm = 1, kLinvTc = 2, kTrisolve = 3, kLinvTcRight = 4 };
 
 FactorKernel factor_kernel(int n) {
   if (n <= 3 * kGrid) return chol_factor_kernel<3>;
@@ -1083,15 +780,21 @@ TrsmKernel trsm_kernel(int n, int width) {
   return nullptr;
 }
 
-LinvTcKernel linv_tc_kernel(int n, int width) {
-  if (n > 10 * 8) return nullptr;
+template <bool kRight>
+LinvTcKernel linv_tc_kernel_of(int width) {
   switch (width) {
-    case 8: return chol_linv_tc_kernel<8>;
-    case 16: return chol_linv_tc_kernel<16>;
-    case 32: return chol_linv_tc_kernel<32>;
-    case 48: return chol_linv_tc_kernel<48>;
+    case 8: return chol_linv_tc_kernel<8, kRight>;
+    case 16: return chol_linv_tc_kernel<16, kRight>;
+    case 32: return chol_linv_tc_kernel<32, kRight>;
+    case 48: return chol_linv_tc_kernel<48, kRight>;
     default: return nullptr;
   }
+}
+
+// by the panel width, with or without the right factor
+LinvTcKernel linv_tc_kernel(int n, int width, bool right) {
+  if (n > 10 * 8) return nullptr;
+  return right ? linv_tc_kernel_of<true>(width) : linv_tc_kernel_of<false>(width);
 }
 
 // block 1: the column sweep; 8: blocks of 8 rows, their diagonal
@@ -1114,7 +817,9 @@ Launch launch_of(int probe, int m, int n, int width) {
   switch (probe) {
     case kFactor: return {(const void*)factor_kernel(n), 0};
     case kTrsm: return {(const void*)trsm_kernel(n, width), trsm_bytes(m, n)};
-    case kLinvTc: return {(const void*)linv_tc_kernel(n, width), linv_tc_bytes(n)};
+    case kLinvTc:
+    case kLinvTcRight:
+      return {(const void*)linv_tc_kernel(n, width, probe == kLinvTcRight), linv_tc_bytes(n)};
     case kTrisolve:
       return {(const void*)trisolve_kernel(n, width), trisolve_floats(n, width) * 4};
     default: return {nullptr, 0};
@@ -1149,7 +854,7 @@ long long resident(const Launch& l, size_t bytes) {
 }  // namespace
 
 // A probe's launch (0 chol_factor, 1 chol_trsm_gram, 2 chol_linv_tc, 3
-// chol_trisolve_apply) at (m, n), width (chol_trsm_gram: 0 the
+// chol_trisolve_apply, 4 chol_linv_tc with a right factor) at (m, n), width (chol_trsm_gram: 0 the
 // elimination, else the panel width; chol_linv_tc: the panel width;
 // chol_trisolve_apply: the solves' block of rows, 1 or 8), at a dynamic
 // shared memory request of ``request`` bytes (the larger of it and the
@@ -1204,17 +909,18 @@ extern "C" int chol_trsm_gram_launch(const float* A, const float* G, float* out,
   return (int)cudaGetLastError();
 }
 
-// L^-1 of G (lower triangular, zeros above), panels of `width` on DMMA;
-// dynamic shared memory of at least ``request`` bytes.
-extern "C" int chol_linv_tc_launch(const float* G, float* out, int B, int n, int width,
-                                   float tiny, long long request, void* stream) {
+// L^-1 of G, or L^-1 P where P is given (read as lower triangular), lower
+// triangular with zeros above; panels of `width` on DMMA; dynamic shared
+// memory of at least ``request`` bytes.
+extern "C" int chol_linv_tc_launch(const float* G, const float* P, float* out, int B, int n,
+                                   int width, float tiny, long long request, void* stream) {
   if (B <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  const Launch l = launch_of(kLinvTc, 0, n, width);
+  const Launch l = launch_of(P ? kLinvTcRight : kLinvTc, 0, n, width);
   size_t bytes = 0;
   cudaError_t err = prepare(l, request, &bytes);
   if (err != cudaSuccess) return (int)err;
-  const LinvTcKernel k = linv_tc_kernel(n, width);
-  k<<<B, kThreads, bytes, (cudaStream_t)stream>>>(G, out, n, tiny, (long long)B,
+  const LinvTcKernel k = linv_tc_kernel(n, width, P != nullptr);
+  k<<<B, kThreads, bytes, (cudaStream_t)stream>>>(G, P, out, n, tiny, (long long)B,
                                                   resident(l, bytes));
   return (int)cudaGetLastError();
 }

@@ -40,44 +40,61 @@
  * entry gls_solve_stage_launch; without it the library has the two
  * production instances and the entry gls_solve_launch.
  *
- * What bounds it on an H100: arithmetic on the CUDA cores, not memory.  An
- * interior tetrahedral node (E = 24, F = 36: m = 132, n = 73) reads about
- * 6 KB of inputs but does ~1.3 M float32 FMAs (three m n^2 / 2 products:
- * Gram1, Q, Gram2; plus the two factorizations and inverses), and the
- * Cholesky steps are sequential, one block-wide barrier per pivot.  Every
- * intermediate (A, the Gram matrices, the factors, the float64 vectors)
- * stays in shared memory, so device memory sees only the inputs and the
- * outputs; a class too large for shared memory puts A, X and Y (below) in
- * a per-node workspace the wrapper allocates.
+ * What bounds it on an H100: arithmetic and the factorizations' step
+ * chains, not memory.  An interior tetrahedral node (E = 24, F = 36: m =
+ * 132, n = 73) reads about 6 KB of inputs but does ~1.3 M float32 FMAs
+ * in three m n^2 / 2 products (Gram1, Q, Gram2) on the CUDA cores, and
+ * two factorizations whose steps are sequential.  Every intermediate (A,
+ * the Gram matrices, the factors, the float64 vectors) stays in shared
+ * memory, so device memory sees only the inputs and the outputs; a class
+ * too large for shared memory puts A and the two slots (below) in a
+ * per-node workspace the wrapper allocates, and runs the same code on it.
  *
- * The float32 stages run the device code of the unfused kernels
- * (cholqr_device.cuh), on three buffers at the row stride np = padded(n),
- * with zero pad columns:
- *   A  (padded m x np): A, then Q, then Lc;
- *   X  (np x np): G1 (4x4 register tiles, mirrored to its lower half),
- *      eliminated in place, then L1^-T (stored transposed so the Q tiles
- *      read it as consecutive float4s);
- *   Y  (np x np): L1^-1, then G2.
- * Each factorization (chol_linv_rows_inplace) has one barrier per pivot
- * and finishes a row of its inverse at that pivot, updating the later
- * rows right-looking, so no thread runs a chain of k dependent FMAs, and
- * every thread takes a slice of a column's rows at every pivot; it runs
- * over n, never over the pad, whose zero pivots would read as clamped.  The apply u = Lc v runs a warp per row, Lc^T u a thread per
- * column.  At (24, 36) this is 93 KB of shared
- * memory, two blocks an SM.  Tensor cores (3xTF32 at best: the Gram
- * products must be accurate to ~eps32) and several nodes per block are
- * left for later work.
+ * The products run the device code of the unfused kernels
+ * (cholqr_device.cuh: register tiles of 4 x 4, float32 FMAs); the two
+ * factorizations run blocked_factor.cuh's blocked factor, shared with
+ * the factorization probes of factor_probes.cu: G as a packed lower
+ * triangle of 8 x 8 float64 blocks (np8 = pad8(n) rows, the identity past
+ * n), factored right-looking 8 columns a step by panels of kFactorWidth,
+ * a lead warp factoring each diagonal block by shuffles a step ahead of
+ * the seven others, which form L^-1's block rows and the trailing update
+ * on FP64 m16n8k8; two block barriers a step, 2 np8 / 8 a factorization
+ * (20 at n = 73), where the elimination it replaced took one a pivot.
+ * The Gram tiles write G straight into the packed form (their upper
+ * tiles transposed, the diagonal shift added in float32); chol2's factor
+ * Lc = L2^-1 L1^-1 is lower_product's (the same products), rounded once
+ * into the float32 square that the sweeps' apply_M reads, which keeps
+ * apply_M's warp-a-row reads and its float32 preconditioner as the plain
+ * version has it.  Buffers, at (24, 36) (np = padded(n) = 76, np8 = 80;
+ * a packed triangle 28,160 B):
+ *   small   9,376 B: float64 pieces and vectors, float32 vectors (dinv1
+ *           and dinv2 np8 long), ints;
+ *   A      40,128 B: A (padded m x np float32), then Q in place, then
+ *           L2^-1 packed once Q is read no more;
+ *   slot 1 28,160 B: G1 -> L1 -> L1^-T (np x np float32, the Q tiles read
+ *           it as consecutive float4s) -> G2 -> L2 -> Lc (np x np float32);
+ *   slot 2 28,160 B: L1^-1, alive from chol1 through Q and G2 to Lc;
+ * 105,824 B in all, two blocks an SM.  At (12, 24) with Neumann rows (n =
+ * 37, np8 = 40) a slot is 7,680 B.  The apply u = Lc v runs a warp per
+ * row, Lc^T u a thread per column.  Left for later work: chol1 to gram2
+ * as one chol_trsm_gram (X = L1^-1 A^T, G2 = X X^T: no Q, no gram2
+ * stage), gram1 on the tensor cores, the floor's input stream, and
+ * several nodes a block.
  */
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "blocked_factor.cuh"
 #include "cholqr_device.cuh"
 
 namespace {
 
+using namespace blocked_factor_device;
 using namespace cholqr_device;
 
 constexpr int kThreads = 256;
+static_assert(kThreads == kFactorThreads, "blocked_factor runs on the kernel's blocks");
+constexpr int kFactorWidth = 16;   // blocked_factor's panel columns
 constexpr float kSickDinv = 3e4f;
 constexpr size_t kStaticSmemMargin = 64;
 
@@ -87,10 +104,10 @@ enum Stop : int {
   kFloor,    // 1. inputs and local incidence
   kRows,     // 2. float32 system rows A
   kGram1,    // 3. equilibration and G1
-  kChol1,    //    L1^-1
+  kChol1,    //    L1^-1 (packed float64)
   kQ,        //    L1^-T and Q = A L1^-T (two rounds only)
-  kGram2,    //    G2 (two rounds only)
-  kChol2,    //    Lc = L2^-1 L1^-1 (two rounds only)
+  kGram2,    //    G2 (packed float64; two rounds only)
+  kChol2,    //    L2^-1, then Lc = L2^-1 L1^-1 (two rounds only)
   kSweeps,   // 4. float64 refinement sweeps
   kAll       // 5. outputs: the production kernel
 };
@@ -107,9 +124,12 @@ struct Params {
 };
 
 struct Layout {
-  int n, m, np, rows;     // np: padded(n), the row stride of A, X and Y
+  int n, m, np, rows;     // np: padded(n), the row stride of A and the squares
+  int nb;                 // block rows of the packed triangles, pad8(n) / 8
   size_t small_bytes;     // float64 pieces + vectors, float32 vectors, ints
-  long long big_floats;   // A (rows x np), X and Y (np x np each)
+  long long a_floats;     // A (rows x np), later L2^-1's packed triangle
+  long long slot_floats;  // a packed float64 triangle or an np x np square
+  long long big_floats;   // A's region and the two slots
 };
 
 __host__ __device__ inline Layout make_layout(int E, int F, int wneu) {
@@ -117,34 +137,65 @@ __host__ __device__ inline Layout make_layout(int E, int F, int wneu) {
   lay.n = 3 * E + 1;
   lay.m = E + (wneu ? 4 : 3) * F;
   lay.np = padded(lay.n);
-  // A's rows, padded to whole tiles; at least np, so an np x np factor
-  // fits in A's storage once A is no longer needed
-  lay.rows = padded(lay.m) > lay.np ? padded(lay.m) : lay.np;
+  lay.nb = pad8(lay.n) / 8;
+  lay.rows = padded(lay.m);   // A's rows, padded to whole tiles
   const size_t n = lay.n;
   // dk; l1, l2, t1m, tt; lb, nm; y, r, dy; tcell; r1, r2, r3, tn
   const size_t nd = 3 * E + 12 * F + (wneu ? 4 * F : 0) + 3 * n + E + 4 * F;
-  // D, dead, dinv1, dinv2, v, u
-  const size_t nf = 6 * n;
+  // D, dead, v, u; dinv1, dinv2 (a pivot for each padded row)
+  const size_t nf = 4 * n + 2 * 8 * (size_t)lay.nb;
   const size_t ni = 3 * F;   // I1, I2, Ib
   lay.small_bytes = (nd * 8 + nf * 4 + ni * 4 + 15) / 16 * 16;
-  lay.big_floats = (long long)lay.rows * lay.np + 2LL * lay.np * lay.np;
+  const long long tri = 2LL * 64 * tri_blocks(lay.nb);   // floats
+  const long long a = (long long)lay.rows * lay.np, sq = (long long)lay.np * lay.np;
+  lay.a_floats = a > tri ? a : tri;
+  lay.slot_floats = sq > tri ? sq : tri;
+  lay.big_floats = lay.a_floats + 2 * lay.slot_floats;
   return lay;
 }
 
-// G = A^T A + diag(dead + diag_add), both triangles, into g (stride np,
-// zero on entry): the register-tiled upper tiles (gram_accumulate over
-// all m rows of A), then the upper triangle mirrored onto the lower one,
-// which the factorization reads.
-__device__ void gram(const float* A, float* g, const float* dead,
-                     float diag_add, int m, int n, int np) {
-  gram_accumulate(A, g, m, np);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < n * n; idx += kThreads) {
-    const int i = idx / n, j = idx - i * n;
-    if (i > j) g[i * np + j] = g[j * np + i];
-    else if (i == j) g[i * np + i] += dead[i] + diag_add;
+// G = A^T A + diag(dead + diag_add) into lp as a packed lower triangle,
+// the identity past n: each thread's register tiles of the upper triangle
+// (gram_tile over all m rows of A), written transposed into the lower
+// one; the diagonal's add in float32, as G's float32 entries take it.
+// Ends with a barrier.
+__device__ void gram(const float* A, double* lp, const float* dead, float diag_add, int m,
+                     int n, int np, int nb) {
+  const int nt = np / kTile;
+  for (int t = threadIdx.x; t < nt * (nt + 1) / 2; t += kThreads) {
+    int i0, j0;
+    upper_tile(t, nt, i0, j0);
+    float acc[kTile][kTile] = {};
+    gram_tile(A, m, np, i0, j0, acc);
+#pragma unroll
+    for (int p = 0; p < kTile; ++p)
+#pragma unroll
+      for (int q = 0; q < kTile; ++q) {
+        const int i = i0 + p, j = j0 + q;
+        if (i <= j && j < n)
+          lp[packed_at(j, i)] = i == j ? acc[p][q] + (dead[i] + diag_add) : acc[p][q];
+      }
+  }
+  const int np8 = 8 * nb;
+  for (int idx = threadIdx.x; idx < (np8 - n) * np8; idx += kThreads) {
+    const int r = n + idx / np8, c = idx % np8;
+    if (c <= r) lp[packed_at(r, c)] = r == c ? 1.0 : 0.0;
   }
   __syncthreads();
+}
+
+// The clamped Cholesky factor of the packed G in lp, in place, with L^-1
+// into ip and d_k = rsqrt(max(pivot_k, tiny)) into dinv (np8 of them):
+// warp 0 factors diagonal block 0, then blocked_factor's steps.  Starts
+// after a barrier and ends with one.
+__device__ void factor(double* lp, double* ip, int nb, float tiny, float* dinv) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+    const double2 s = row_pair(lp + bo(0, 0), g, 2 * t);
+    diag_factor((float)s.x, (float)s.y, lp, ip, 0, tiny, dinv);
+  }
+  __syncthreads();
+  blocked_factor<kFactorWidth, true>(lp, ip, nullptr, nb, tiny, dinv);
 }
 
 // out = D Lc^T Lc D rin: float32 preconditioner, float64 in and out, Lc
@@ -176,12 +227,25 @@ __device__ float warp_max(float v) {
 }
 
 // This thread's share, in float64, of the sum of the first `rows` x
-// `cols` entries of x (row stride ld).
-__device__ double part_sum(const float* x, int rows, int cols, int ld) {
+// `cols` entries of x (row stride ld), or with `lower` of its entries on
+// and below the diagonal.
+__device__ double part_sum(const float* x, int rows, int cols, int ld, bool lower = false) {
   double s = 0.0;
   for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
-    const int r = i / cols;
-    s += x[r * ld + i - r * cols];
+    const int r = i / cols, c = i - r * cols;
+    if (!lower || c <= r) s += x[r * ld + c];
+  }
+  return s;
+}
+
+// This thread's share of the sum of the n x n matrix whose lower triangle
+// lp packs (blocked_factor.cuh): of a lower-triangular one its entries,
+// of a symmetric one (`symmetric`) 2 (strict lower) + diagonal.
+__device__ double packed_sum(const double* lp, int n, bool symmetric) {
+  double s = 0.0;
+  for (int i = threadIdx.x; i < n * n; i += kThreads) {
+    const int r = i / n, c = i - r * n;
+    if (c <= r) s += (symmetric && c < r ? 2.0 : 1.0) * lp[packed_at(r, c)];
   }
   return s;
 }
@@ -273,7 +337,10 @@ __device__ void residual(const Node& nd, const double* y, double* r) {
   __syncthreads();
 }
 
-// two blocks an SM at the interior class: at most 128 registers a thread
+// two blocks an SM, all the interior class's shared memory allows: at
+// most 128 registers a thread, which hold the Neumann class (shared
+// memory for five) at two as well; at 64 the rounds = 2 instance spills
+// and the interior class runs slower
 template <int kRounds, int kStop = kAll>
 __global__ void __launch_bounds__(kThreads, 2) gls_solve_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -302,17 +369,21 @@ __global__ void __launch_bounds__(kThreads, 2) gls_solve_kernel(Params p) {
   double* tn = r3 + F;
   float* D = reinterpret_cast<float*>(tn + F);
   float* dead = D + n;
-  float* dinv1 = dead + n;
-  float* dinv2 = dinv1 + n;
-  float* v = dinv2 + n;
+  float* v = dead + n;
   float* u = v + n;
-  int* I1 = reinterpret_cast<int*>(u + n);
+  float* dinv1 = u + n;
+  float* dinv2 = dinv1 + 8 * lay.nb;
+  int* I1 = reinterpret_cast<int*>(dinv2 + 8 * lay.nb);
   int* I2 = I1 + F;
   int* Ib = I2 + F;
+  // A's region, then the two slots (the source note's table)
   float* A = p.ws ? p.ws + b * p.ws_stride
                   : reinterpret_cast<float*>(smem + lay.small_bytes);
-  float* X = A + (size_t)lay.rows * np;
-  float* Y = X + (size_t)np * np;
+  float* slot1 = A + lay.a_floats;
+  float* slot2 = slot1 + lay.slot_floats;
+  double* packed_a = reinterpret_cast<double*>(A);
+  double* packed1 = reinterpret_cast<double*>(slot1);
+  double* packed2 = reinterpret_cast<double*>(slot2);
 
   // ---- 1. inputs and local incidence
   const unsigned char* cvb = p.cv + b * E;
@@ -377,9 +448,8 @@ __global__ void __launch_bounds__(kThreads, 2) gls_solve_kernel(Params p) {
   }
 
   // ---- 2. float32 system rows
-  // A and the first Gram accumulator, pad rows and columns included
-  for (long long i = tid; i < (long long)lay.rows * np + np * np; i += kThreads)
-    A[i] = 0.f;
+  // A, pad rows and columns included
+  for (long long i = tid; i < (long long)lay.rows * np; i += kThreads) A[i] = 0.f;
   __syncthreads();
   for (int e = tid; e < E; e += kThreads) {
     float* row = A + (size_t)e * np;
@@ -412,7 +482,8 @@ __global__ void __launch_bounds__(kThreads, 2) gls_solve_kernel(Params p) {
     return;
   }
 
-  // ---- 3. shifted CholeskyQR2 preconditioner (float32)
+  // ---- 3. shifted CholeskyQR2 preconditioner (float32, its factors'
+  // products float64)
   for (int j = tid; j < n; j += kThreads) {
     float s = 0.f;
     for (int i = 0; i < m; ++i) {
@@ -428,39 +499,38 @@ __global__ void __launch_bounds__(kThreads, 2) gls_solve_kernel(Params p) {
     if (c < n) A[i] *= D[c];
   }
   __syncthreads();
-  gram(A, X, dead, p.shift, m, n, np);
+  gram(A, packed1, dead, p.shift, m, n, np, lay.nb);   // G1
   if constexpr (kStop == kGram1) {
-    cut_outputs(p, b, part_sum(X, n, n, np), y);
+    cut_outputs(p, b, packed_sum(packed1, n, true), y);
     return;
   }
-  chol_linv_rows_inplace(X, np, Y, np, true, n, p.tiny, dinv1);  // Y = L1^-1
+  factor(packed1, packed2, lay.nb, p.tiny, dinv1);   // L1 over G1, L1^-1
   if constexpr (kStop == kChol1) {
-    cut_outputs(p, b, part_sum(Y, n, n, np), y);
+    cut_outputs(p, b, packed_sum(packed2, n, false), y);
     return;
   }
-  // one round: M's factor is L1^-1 itself
-  const float* Lc = Y;
+  // M's factor, a float32 square at stride np in slot 1: one round, L1^-1
+  // itself; two rounds, Lc
+  const float* Lc = slot1;
   if constexpr (kRounds >= 2) {
-    // X <- L1^-T (G1 is dead): the Q tiles read it as consecutive float4s
-    for (int i = tid; i < np * np; i += kThreads) {
+    // slot 1 <- L1^-T (L1 is dead): the Q tiles read it as consecutive
+    // float4s
+    for (int i = tid; i < n * np; i += kThreads) {
       const int j = i / np, k = i - j * np;
-      X[i] = j < n && k < n ? Y[k * np + j] : 0.f;
+      slot1[i] = j <= k && k < n ? (float)packed2[packed_at(k, j)] : 0.f;
     }
     __syncthreads();
     {
       // Q = A L1^-T in place over A, `chunk` rows at a time: each thread
       // holds at most one kTile x kTile tile of the chunk in registers until
-      // every tile has read the chunk's rows of A.  Y (L1^-1, no longer
-      // read) is zeroed for the second Gram meanwhile.
+      // every tile has read the chunk's rows of A.
       const int nt = np / kTile;
       const int chunk = kTile * (kThreads / nt);
       for (int r0 = 0; r0 < m; r0 += chunk) {
         const int tiles = (min(chunk, m - r0) + kTile - 1) / kTile * nt;
         const int r0t = r0 + tid / nt * kTile, k0 = tid % nt * kTile;
         float acc[kTile][kTile];
-        if (tid < tiles) q_tile(A, X, r0t, k0, n, np, acc);
-        if (r0 == 0)
-          for (int i = tid; i < np * np; i += kThreads) Y[i] = 0.f;
+        if (tid < tiles) q_tile(A, slot1, r0t, k0, n, np, acc);
         __syncthreads();
         if (tid < tiles) store_tile(A, r0t, k0, m, np, acc);
         __syncthreads();
@@ -470,22 +540,23 @@ __global__ void __launch_bounds__(kThreads, 2) gls_solve_kernel(Params p) {
       cut_outputs(p, b, part_sum(A, m, n, np), y);
       return;
     }
-    gram(A, Y, dead, 0.f, m, n, np);
+    gram(A, packed1, dead, 0.f, m, n, np, lay.nb);   // G2 over L1^-T
     if constexpr (kStop == kGram2) {
-      cut_outputs(p, b, part_sum(Y, n, n, np), y);
+      cut_outputs(p, b, packed_sum(packed1, n, true), y);
       return;
     }
-    // Lc = L2^-1 L1^-1 in A's storage (Q is no longer read): L1^-1's rows
-    // from X, then the factorization in place over them
-    for (int i = tid; i < n * n; i += kThreads) {
-      const int k = i / n, c = i - k * n;
-      A[k * np + c] = X[c * np + k];
-    }
-    chol_linv_rows_inplace(Y, np, A, np, false, n, p.tiny, dinv2);
-    Lc = A;
+    factor(packed1, packed_a, lay.nb, p.tiny, dinv2);   // L2 over G2, L2^-1 over Q
+    lower_product(packed_a, packed2, slot1, np, n, lay.nb);   // Lc over L2
     if constexpr (kStop == kChol2) {
-      cut_outputs(p, b, part_sum(A, n, n, np), y);
+      cut_outputs(p, b, part_sum(slot1, n, n, np, true), y);
       return;
+    }
+  } else {
+    // slot 1 <- L1^-1 (L1 is dead), its lower triangle: all apply_M reads
+    // (the barrier before the sweeps' first apply_M orders it)
+    for (int i = tid; i < n * n; i += kThreads) {
+      const int r = i / n, c = i - r * n;
+      if (c <= r) slot1[r * np + c] = (float)packed2[packed_at(r, c)];
     }
   }
   if (tid < 32) {
@@ -540,7 +611,7 @@ __global__ void __launch_bounds__(kThreads, 2) gls_solve_kernel(Params p) {
   }
 }
 
-// Whether a class's A, X and Y fit in shared memory beside the rest.
+// Whether a class's A and two slots fit in shared memory beside the rest.
 bool fits_in_smem(const Layout& lay) {
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
@@ -549,24 +620,32 @@ bool fits_in_smem(const Layout& lay) {
   return all + kStaticSmemMargin <= (size_t)optin;
 }
 
-// Dynamic shared memory of a launch: all of it, or without A, X and Y
+// Dynamic shared memory of a launch: all of it, or without A and the slots
 // when they live in the device workspace.
 size_t launch_smem(const Layout& lay, bool workspace) {
   return lay.small_bytes + (workspace ? 0 : (size_t)lay.big_floats * sizeof(float));
 }
 
-// The dynamic shared memory bytes of a class's launch and the blocks of
-// the kernel's `rounds` instance an SM holds at once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); returns the cudaError_t
-// (0 on success).
+// The dynamic shared memory bytes of a class's launch, its threads, the
+// blocks of the kernel's `rounds` instance an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the instance's
+// registers and local memory (spill) bytes a thread
+// (cudaFuncGetAttributes); returns the cudaError_t (0 on success).
 template <int kRounds>
-int occupancy(const Layout& lay, long long* smem_bytes, int* blocks_per_sm) {
+int occupancy(const Layout& lay, long long* smem_bytes, int* threads, int* blocks_per_sm,
+              int* regs, long long* local_bytes) {
   const size_t smem = launch_smem(lay, !fits_in_smem(lay));
   *smem_bytes = (long long)smem;
+  *threads = kThreads;
   cudaError_t err = cudaFuncSetAttribute(
       gls_solve_kernel<kRounds>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, gls_solve_kernel<kRounds>);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *local_bytes = (long long)attr.localSizeBytes;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, gls_solve_kernel<kRounds>, kThreads, smem);
 }
@@ -636,11 +715,16 @@ extern "C" long long gls_solve_workspace_floats(int E, int F,
   return fits_in_smem(lay) ? 0 : lay.big_floats;
 }
 
+// The production instance of `rounds` at a class: its dynamic shared
+// memory, threads, blocks an SM, registers and local (spill) bytes a
+// thread (occupancy above).
 extern "C" int gls_solve_occupancy(int E, int F, int with_neumann, int rounds,
-                                   long long* smem_bytes, int* blocks_per_sm) {
+                                   long long* smem_bytes, int* threads, int* blocks_per_sm,
+                                   int* regs, long long* local_bytes) {
   const Layout lay = make_layout(E, F, with_neumann);
-  return rounds >= 2 ? occupancy<2>(lay, smem_bytes, blocks_per_sm)
-                     : occupancy<1>(lay, smem_bytes, blocks_per_sm);
+  return rounds >= 2
+             ? occupancy<2>(lay, smem_bytes, threads, blocks_per_sm, regs, local_bytes)
+             : occupancy<1>(lay, smem_bytes, threads, blocks_per_sm, regs, local_bytes);
 }
 
 #ifdef GLS_SOLVE_STAGE_CUTS

@@ -16,12 +16,15 @@ inputs):
         FP64 tensor-core products, G factored by the elimination
         (``width`` 0, the probe's variant B) or by chol_linv_tc's
         blocked factor with panels of ``width`` 8, 16 or 32 (variant C)
-  chol_linv_tc(G, tiny, width, smem_bytes)
-                                     (B,n,n) -> (B,n,n)
+  chol_linv_tc(G, tiny, width, smem_bytes, mul_right)
+                                     (B,n,n) [, (B,n,n)] -> (B,n,n)
         L^-1, as chol_linv_f32(G), by a blocked factor, 8 columns a
         step, right-looking by panels of ``width`` (8, 16, 32, 48), its
         products and L^-1's blocks on FP64 tensor cores
-        (chol_mxu_probe.py:73)
+        (chol_mxu_probe.py:73); with ``mul_right`` = P, lower
+        triangular, L^-1 P, as chol_linv_f32(G, mul_right=P): the
+        route's chol2, Lc = L2^-1 L1^-1 (trisolve_probe.py:95), the
+        product of the two triangles on the same tensor cores
   chol_trisolve_apply(G, Li, v, tiny, applies, block)
                                      (B,n,n), (B,n,n), (B,n) -> (B,n)
         ``applies`` times v <- Li^T L^-T L^-1 Li v with G = L L^T, by two
@@ -38,11 +41,12 @@ that.  Each wrapper runs its plain version for CPU tensors and launches
 its kernel (built with nvcc on first use, in a library of its own) for
 CUDA tensors, or raises; ``<wrapper>.launches`` counts kernel launches,
 ``<wrapper>.launches_by`` the same by the instance's ``width`` or
-``block`` (None for chol_factor).  ``smem_bytes`` requests that much
-dynamic shared memory a block (at least what the instance needs), to run
-at another kernel's occupancy (kernel 1's: ops/gls_solve.py::occupancy).
-``occupancy(name, m, n, ..., smem_bytes=)`` gives a launch's registers,
-spills, shared memory and blocks an SM.
+``block`` (None for chol_factor; ("mul_right", width) for chol_linv_tc
+with a right factor).  ``smem_bytes`` requests that much dynamic shared
+memory a block (at least what the instance needs), to run at another
+kernel's occupancy (kernel 1's: ops/gls_solve.py::occupancy).
+``occupancy(name, m, n, ..., smem_bytes=, mul_right=)`` gives a launch's
+registers, spills, shared memory and blocks an SM.
 """
 from __future__ import annotations
 
@@ -64,6 +68,7 @@ TRISOLVE_BLOCKS = (1, 8)
 # the probes' ids in the library's factor_probes_occupancy
 _IDS = {"chol_factor": 0, "chol_trsm_gram": 1, "chol_linv_tc": 2,
         "chol_trisolve_apply": 3}
+_RIGHT_ID = 4   # chol_linv_tc with a right factor
 
 
 # ---------------------------------------------------------------------------
@@ -79,8 +84,8 @@ def chol_trsm_gram_reference(A, G, tiny=1e-12):
     return X @ X.transpose(1, 2)
 
 
-def chol_linv_tc_reference(G, tiny=1e-12):
-    return chol_linv_f32_reference(G, tiny)
+def chol_linv_tc_reference(G, tiny=1e-12, mul_right=None):
+    return chol_linv_f32_reference(G, tiny, mul_right)
 
 
 def chol_trisolve_apply_reference(G, Li, v, tiny=1e-12, applies=4):
@@ -102,7 +107,7 @@ def _bind(lib):
     lib.chol_factor_launch.argtypes = [vp, vp, ci, ci, cf, vp]
     lib.chol_trsm_gram_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf, ll,
                                           vp]
-    lib.chol_linv_tc_launch.argtypes = [vp, vp, ci, ci, ci, cf, ll, vp]
+    lib.chol_linv_tc_launch.argtypes = [vp, vp, vp, ci, ci, ci, cf, ll, vp]
     lib.chol_trisolve_apply_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci,
                                                ci, cf, vp]
     for name in _IDS:
@@ -136,15 +141,19 @@ def _launch(wrapper, instance, what, fn, *args):
     wrapper.launches_by[instance] += 1
 
 
-def occupancy(name, m, n, width=0, block=None, smem_bytes=0):
+def occupancy(name, m, n, width=0, block=None, smem_bytes=0,
+              mul_right=False):
     """The launch of probe ``name`` at (m, n) with the wrapper's
     ``width`` or ``block`` and a shared memory request of ``smem_bytes``
-    on the current card (``cuda_lib.occupancy``)."""
+    on the current card (``cuda_lib.occupancy``); ``mul_right``:
+    chol_linv_tc's instance with a right factor."""
     width = block if block is not None else width
+    probe = _RIGHT_ID if mul_right else _IDS[name]
     return cuda_lib.occupancy(library.get().factor_probes_occupancy,
                               f"{name} occupancy query (m={m}, n={n}, "
-                              f"width={width}, smem={smem_bytes})",
-                              _IDS[name], m, n, width, int(smem_bytes))
+                              f"width={width}, smem={smem_bytes}, "
+                              f"mul_right={bool(mul_right)})",
+                              probe, m, n, width, int(smem_bytes))
 
 
 def _check_request(smem_bytes):
@@ -188,24 +197,29 @@ def chol_trsm_gram(A, G, tiny=1e-12, width=0, smem_bytes=0):
     return out
 
 
-def chol_linv_tc(G, tiny=1e-12, width=16, smem_bytes=0):
-    """(B, n, n) SPD float32 -> L^-1 with G = L L^T, by panels of
-    ``width`` on tensor cores; at least ``smem_bytes`` of shared memory a
-    block."""
+def chol_linv_tc(G, tiny=1e-12, width=16, smem_bytes=0, mul_right=None):
+    """(B, n, n) SPD float32 -> L^-1 with G = L L^T, or L^-1 @ mul_right
+    when that (B, n, n) lower-triangular float32 is given (its upper
+    triangle is not read), by panels of ``width`` on tensor cores; at
+    least ``smem_bytes`` of shared memory a block."""
     if width not in LINV_TC_WIDTHS:
         raise ValueError(f"width must be one of {LINV_TC_WIDTHS}, got "
                          f"{width}")
     _check_request(smem_bytes)
     B, n = _square("G", G)
     check_tensor("G", G, (B, n, n), _F32, G.device)
+    if mul_right is not None:
+        check_tensor("mul_right", mul_right, (B, n, n), _F32, G.device)
     if not on_card(G, "chol_linv_tc"):
-        return chol_linv_tc_reference(G, tiny)
+        return chol_linv_tc_reference(G, tiny, mul_right)
     out = torch.empty_like(G)
     if B:
-        _launch(chol_linv_tc, width,
-                f"chol_linv_tc (B={B}, n={n}, width={width})",
-                "chol_linv_tc_launch", G, out, B, n, width, float(tiny),
-                int(smem_bytes))
+        right = mul_right is not None
+        _launch(chol_linv_tc, ("mul_right", width) if right else width,
+                f"chol_linv_tc (B={B}, n={n}, width={width}, "
+                f"mul_right={right})",
+                "chol_linv_tc_launch", G, mul_right, out, B, n, width,
+                float(tiny), int(smem_bytes))
     return out
 
 

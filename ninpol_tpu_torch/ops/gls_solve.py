@@ -67,6 +67,7 @@ import ctypes
 import torch
 
 from .cholqr import PLAIN, cholqr_factors
+from . import cuda_lib
 from .cuda_lib import CudaLibrary, check_launch, check_tensor, on_card, stream
 
 _FLOAT_ARGS = ("dk", "l1", "l2", "t1m", "tt")
@@ -256,7 +257,8 @@ def _bind_common(lib):
     lib.gls_solve_workspace_floats.restype = ctypes.c_longlong
     lib.gls_solve_occupancy.argtypes = [
         ci, ci, ci, ci, ctypes.POINTER(ctypes.c_longlong),
-        ctypes.POINTER(ci)]
+        ctypes.POINTER(ci), ctypes.POINTER(ci), ctypes.POINTER(ci),
+        ctypes.POINTER(ctypes.c_longlong)]
     lib.gls_solve_occupancy.restype = ci
     # the inputs, outputs and workspace of a launch
     return [vp] * 13 + [vp] * 3 + [vp, ctypes.c_longlong]
@@ -284,15 +286,14 @@ stage_library = CudaLibrary("gls_solve", _bind_stages,
 
 
 def occupancy(E, F, with_neumann, rounds=2):
-    """(dynamic shared memory bytes, blocks an SM holds) of the kernel's
-    launch for one (E, F, with_neumann) class and preconditioner rounds,
-    on the current card."""
-    smem, blocks = ctypes.c_longlong(), ctypes.c_int()
-    check_launch(library.get().gls_solve_occupancy(
-        E, F, int(with_neumann), int(rounds), ctypes.byref(smem),
-        ctypes.byref(blocks)),
-        f"gls_solve occupancy query (E={E}, F={F})")
-    return smem.value, blocks.value
+    """The kernel's launch for one (E, F, with_neumann) class and
+    preconditioner rounds on the current card (``cuda_lib.occupancy``):
+    its dynamic shared memory bytes, threads, blocks an SM holds,
+    registers and local (spill) bytes a thread."""
+    return cuda_lib.occupancy(library.get().gls_solve_occupancy,
+                              f"gls_solve occupancy query (E={E}, F={F}, "
+                              f"rounds={rounds})", E, F, int(with_neumann),
+                              int(rounds))
 
 
 def _check_inputs(t):

@@ -24,11 +24,10 @@ SITES = {
     "trsm_probe.py:192": ("ported", "chol_trsm_gram (tensor-core factor)"),
     "chol_mxu_probe.py:73": ("ported", "chol_linv_tc"),
     "chol_tri_probe.py:59": ("answered", f"{_STAGES}: chol1 "
-                             "(chol_linv_rows_inplace keeps to the "
-                             "triangle)"),
+                             "(blocked_factor keeps to packed "
+                             "triangles)"),
     "trisolve_probe.py:79": ("ported", "chol_factor"),
-    "trisolve_probe.py:95": ("answered", "chol_linv_f32 with P; "
-                             f"{_STAGES}: chol2"),
+    "trisolve_probe.py:95": ("ported", "chol_linv_tc (mul_right)"),
     "trisolve_probe.py:115": ("answered", "4 x prec_apply_f32"),
     "trisolve_probe.py:162": ("ported", "chol_trisolve_apply"),
     # the Gram and Q stages on tensor cores (mxu_probes.py)

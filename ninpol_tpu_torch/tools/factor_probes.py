@@ -60,11 +60,14 @@ TOL = ks.CUT_TOL["chol1"]
 # (kernel, the wrapper's arguments) of every instance timed:
 # chol_trsm_gram after the elimination's factor (width 0, the TPU
 # probe's variant B) or tensor-core panels (variant C); chol_linv_tc's
-# panel widths (chol_mxu_probe.py's super-panels); chol_trisolve_apply's
-# rows a block of its solves (1: the TPU probe's column sweep)
+# panel widths (chol_mxu_probe.py's super-panels), and at kernel 1's
+# width with a right factor (mul_right: L2^-1 L1^-1 of G2 and L1^-1,
+# the route's chol2); chol_trisolve_apply's rows a block of its solves
+# (1: the TPU probe's column sweep)
 CONFIGS = (("chol_factor", {}),
            *(("chol_trsm_gram", {"width": w}) for w in (0, 8, 16, 32)),
            *(("chol_linv_tc", {"width": w}) for w in (8, 16, 32, 48)),
+           ("chol_linv_tc", {"width": 16, "mul_right": True}),
            *(("chol_trisolve_apply", {"block": b}) for b in (1, 8)))
 # the kernels also timed and held at kernel 1's shared memory request
 K1_KERNELS = ("chol_trsm_gram", "chol_linv_tc")
@@ -76,14 +79,30 @@ def label(kernel, kw):
                      if kw else "")
 
 
+def function(kernel, kw):
+    """The function an instance computes, the key of its plain version,
+    library call and work: its kernel, "chol_linv_tc (mul_right)" with a
+    right factor."""
+    return f"{kernel} (mul_right)" if kw.get("mul_right") else kernel
+
+
 def answer(kernel, kw):
     """The name under which ``tools.SITES`` lists the instance: its
-    kernel, or for chol_trsm_gram after tensor-core panels (the TPU
-    probe's variant C, a site of its own) "chol_trsm_gram (tensor-core
-    factor)"."""
+    ``function``, but "chol_trsm_gram (tensor-core factor)" for
+    chol_trsm_gram after tensor-core panels (the TPU probe's variant C, a
+    site of its own)."""
     if kernel == "chol_trsm_gram" and kw["width"]:
         return "chol_trsm_gram (tensor-core factor)"
-    return kernel
+    return function(kernel, kw)
+
+
+def instance(kw):
+    """The wrapper's ``launches_by`` key of an instance: its width or
+    block (None without either), ("mul_right", width) with a right
+    factor."""
+    if kw.get("mul_right"):
+        return ("mul_right", kw["width"])
+    return next(iter(kw.values()), None)
 
 
 def prepare(chunks):
@@ -122,8 +141,9 @@ def setup(prepared):
     from ..ops import gls_solve as gs
 
     for head, _ in prepared:
-        head["k1_smem"], head["k1_blocks_per_sm"] = gs.occupancy(
-            head["E"], head["F"], head["with_neumann"], 2)
+        occ = gs.occupancy(head["E"], head["F"], head["with_neumann"], 2)
+        head["k1_smem"] = occ["smem_bytes"]
+        head["k1_blocks_per_sm"] = occ["blocks_per_sm"]
     request = max(head["k1_smem"] for head, _ in prepared)
     for head, _ in prepared:
         head["k1_request"] = request
@@ -132,25 +152,34 @@ def setup(prepared):
 def run(kernel, kw, t, plain=False, smem_bytes=0):
     """One call of probe ``kernel`` with the arguments ``kw`` on the
     tensors ``t`` (the wrapper, or with ``plain`` its plain version), a
-    K1_KERNELS wrapper at a shared memory request of ``smem_bytes``."""
+    K1_KERNELS wrapper at a shared memory request of ``smem_bytes``;
+    chol_linv_tc with ``mul_right`` on G2 and L1^-1, as the route's
+    chol2."""
     from ..ops import factor_probes as fp
 
+    right = kw.get("mul_right")
+    kw = {k: v for k, v in kw.items() if k != "mul_right"}
     if smem_bytes:
-        kw = dict(kw, smem_bytes=smem_bytes)
+        kw["smem_bytes"] = smem_bytes
     fn = getattr(fp, f"{kernel}_reference") if plain else \
         functools.partial(getattr(fp, kernel), **kw)
     if kernel == "chol_trsm_gram":
         return fn(t["As"], t["G1"])
     if kernel == "chol_trisolve_apply":
         return fn(t["G2"], t["Li1"], t["v"], applies=APPLIES)
+    if right:
+        return fn(t["G2"], mul_right=t["Li1"])
     return fn(t["G1"])
 
 
-def library_call(kernel, t):
-    """The nearest composition of PyTorch library calls to ``kernel``'s
-    function on ``t``: cholesky_ex (chol_factor: the same function where
-    no pivot is clamped), then triangular solves and products."""
-    G = t["G2"] if kernel == "chol_trisolve_apply" else t["G1"]
+def library_call(name, t):
+    """The nearest composition of PyTorch library calls to the function
+    ``name`` (``function``) on ``t``: cholesky_ex (chol_factor: the same
+    function where no pivot is clamped), then triangular solves and
+    products."""
+    kernel = name.split(" ")[0]
+    G = t["G1"] if name in ("chol_factor", "chol_trsm_gram",
+                            "chol_linv_tc") else t["G2"]
     cholesky = torch.linalg.cholesky_ex
     if kernel == "chol_factor":
         return lambda: cholesky(G).L
@@ -162,8 +191,9 @@ def library_call(kernel, t):
         return trsm_gram
     if kernel == "chol_linv_tc":
         eye = torch.eye(G.shape[1], dtype=G.dtype, device=G.device)
+        rhs = t["Li1"] if name != kernel else eye.expand(G.shape)
         return lambda: torch.linalg.solve_triangular(
-            cholesky(G).L, eye.expand(G.shape), upper=False)
+            cholesky(G).L, rhs, upper=False)
 
     def trisolve():
         L, Li, v = cholesky(G).L, t["Li1"], t["v"][:, :, None]
@@ -174,23 +204,27 @@ def library_call(kernel, t):
     return trisolve
 
 
-def work(kernel, head):
-    """(FP32 FLOPs, device bytes) of ``kernel`` on the chunk: every node
-    is factored, each input read once and each output written once,
-    triangles counted as triangles: of G (symmetric) and of Li (lower
-    triangular) only the lower triangle is read, by every kernel; the
-    outputs are the dense (B, n, n) or (B, n) tensors they return."""
+def work(name, head):
+    """(FP32 FLOPs, device bytes) of the function ``name`` (``function``)
+    on the chunk: every node is factored, each input read once and each
+    output written once, triangles counted as triangles: of G (symmetric)
+    and of Li (lower triangular) only the lower triangle is read, by every
+    kernel; the outputs are the dense (B, n, n) or (B, n) tensors they
+    return.  L^-1 P needs the factor and one triangular solve of the
+    lower-triangular P, n^3 / 3 FLOPs each, as L^-1 does."""
     B, m, n = head["chunk"], head["m"], head["n"]
     square, tri = B * n * n * 4, B * n * (n + 1) // 2 * 4
     factor = n ** 3 / 3
-    if kernel == "chol_factor":
+    if name == "chol_factor":
         return B * factor, tri + square
-    if kernel == "chol_trsm_gram":
+    if name == "chol_trsm_gram":
         # the factor, X = L^-1 A^T (m n^2), the symmetric X X^T
         return (B * (factor + m * n * n + m * n * (n + 1)),
                 B * m * n * 4 + tri + square)
-    if kernel == "chol_linv_tc":
+    if name == "chol_linv_tc":
         return B * 2 * factor, tri + square
+    if name == "chol_linv_tc (mul_right)":
+        return B * 2 * factor, 2 * tri + square
     # the factor, then each apply: Li v and Li^T y on the triangle, two
     # triangular solves
     return (B * (factor + APPLIES * (2 * n * (n + 1) + 2 * n * n)),
@@ -225,17 +259,18 @@ def time_probes(prepared, cuts):
         row = dict(head, kernels={})
         plain, library = {}, {}
         for kernel, kw in CONFIGS:
-            f32, nbytes = work(kernel, head)
+            name = function(kernel, kw)
+            f32, nbytes = work(name, head)
             bound_ms, bound_by = bound(f32, nbytes)
-            if kernel not in plain:
-                plain[kernel] = ks.once_ms(
+            if name not in plain:
+                plain[name] = ks.once_ms(
                     lambda: run(kernel, kw, t, plain=True))
-                library[kernel] = ks.best_ms(library_call(kernel, t))
+                library[name] = ks.best_ms(library_call(name, t))
             row["kernels"][label(kernel, kw)] = {
                 "kernel": kernel, **kw,
                 "ms": ks.best_ms(lambda: run(kernel, kw, t)),
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "plain_ms": plain[kernel], "library_ms": library[kernel],
+                "plain_ms": plain[name], "library_ms": library[name],
                 "occupancy": fp.occupancy(kernel, head["m"], head["n"],
                                           **kw)}
             if kernel in K1_KERNELS:
@@ -293,16 +328,19 @@ def probe_errors(prepared):
                  "chol_trsm_gram": fp.chol_trsm_gram_reference(f64["As"],
                                                                f64["G1"]),
                  "chol_linv_tc": fp.chol_linv_tc_reference(f64["G1"]),
+                 "chol_linv_tc (mul_right)": fp.chol_linv_tc_reference(
+                     f64["G2"], mul_right=f64["Li1"]),
                  "chol_trisolve_apply": fp.chol_trisolve_apply_reference(
                      f64["G2"], f64["Li1"], f64["v"], applies=APPLIES)}
         refs, errs = {}, {}
         for kernel, kw in CONFIGS:
-            if kernel not in refs:
-                refs[kernel] = run(kernel, kw, t, plain=True)
-            ref = refs[kernel]
+            name = function(kernel, kw)
+            if name not in refs:
+                refs[name] = run(kernel, kw, t, plain=True)
+            ref = refs[name]
             got = run(kernel, kw, t)
-            scale = scales.get(kernel, ref)
-            plain_err = node_err(ref.double(), exact[kernel], scale, held)
+            scale = scales.get(name, ref)
+            plain_err = node_err(ref.double(), exact[name], scale, held)
             errs[label(kernel, kw)] = {
                 "max_err": node_err(got, ref, scale, held),
                 "plain_err": plain_err,
@@ -337,7 +375,10 @@ def verdicts(row):
                  chol_factor on G2, for each block of the solves (1: the
                  TPU probe's column sweep);
       chol_mxu   each chol_linv_tc width against chol_linv_f32's register
-                 body and against the chol1 cut."""
+                 body and against the chol1 cut;
+      chol2      chol_linv_tc with a right factor, at kernel 1's shared
+                 memory, against chol_linv_f32 with P and the chol2 cut
+                 (trisolve_probe.py:95's product, L2^-1 L1^-1)."""
     k, sa, st = row["kernels"], row["standalone"], row["stages"]
     a_standalone = sa["chol_linv_f32"] + sa["round2_gram_f32"]
 
@@ -350,6 +391,7 @@ def verdicts(row):
     explicit = APPLIES * sa["prec_apply_f32"] + sa["chol_linv_f32_p"] - chol
     solves = {str(b): k[label("chol_trisolve_apply", {"block": b})]["ms"]
               - chol for b in (1, 8)}
+    right = k[label("chol_linv_tc", {"width": 16, "mul_right": True})]
     return {
         "trsm": {"A_standalone_ms": a_standalone,
                  "A_stages_ms": st["chol1_to_gram2"], "C_width": c_width,
@@ -366,7 +408,11 @@ def verdicts(row):
             "over_chol_linv_f32": k[label("chol_linv_tc", {"width": w})]["ms"]
             / sa["chol_linv_f32"],
             "over_chol1_cut": k[label("chol_linv_tc", {"width": w})]["ms"]
-            / st["chol1"]} for w in (8, 16, 32, 48)}}
+            / st["chol1"]} for w in (8, 16, 32, 48)},
+        "chol2": {"ms": right["ms"], "ms_k1": right["ms_k1"],
+                  "over_chol_linv_f32_p": right["ms_k1"]
+                  / sa["chol_linv_f32_p"],
+                  "over_chol2_cut": right["ms_k1"] / st["chol2"]}}
 
 
 def report(table):
@@ -427,6 +473,12 @@ def report(table):
             f"width {w} {r['ms']:.4f} ms = {r['over_chol_linv_f32']:.2f}x "
             f"chol_linv_f32, {r['over_chol1_cut']:.2f}x the chol1 cut"
             for w, r in v["chol_mxu"].items()), flush=True)
+        c2 = v["chol2"]
+        print(f"#   verdict chol2: chol_linv_tc with P (width 16) "
+              f"{c2['ms']:.4f} ms, {c2['ms_k1']:.4f} ms at kernel 1's shared "
+              f"memory = {c2['over_chol_linv_f32_p']:.2f}x chol_linv_f32 "
+              f"with P, {c2['over_chol2_cut']:.2f}x the chol2 cut",
+              flush=True)
 
 
 def failed(table):
@@ -451,11 +503,11 @@ def unlaunched_k1(table):
 
 def launch_counts():
     """Each instance's launches ({label: count}), from its wrapper's
-    count by width or block."""
+    count by ``instance``."""
     from ..ops import factor_probes as fp
 
-    return {label(kernel, kw): getattr(fp, kernel).launches_by[
-        next(iter(kw.values()), None)] for kernel, kw in CONFIGS}
+    return {label(kernel, kw): getattr(fp, kernel).launches_by[instance(kw)]
+            for kernel, kw in CONFIGS}
 
 
 def reset_counts():

@@ -130,7 +130,8 @@ def k1_smem(head):
     """Kernel 1's dynamic shared memory and blocks an SM at the class."""
     from ..ops import gls_solve as gs
 
-    return gs.occupancy(head["E"], head["F"], head["with_neumann"], 2)
+    occ = gs.occupancy(head["E"], head["F"], head["with_neumann"], 2)
+    return occ["smem_bytes"], occ["blocks_per_sm"]
 
 
 def prepare(chunks):

@@ -88,3 +88,28 @@ def test_define_builds_a_library_of_its_own(csrc):
     stages, prod = gls_solve.stage_library, gls_solve.library
     assert stages.source == prod.source and stages.path() != prod.path()
     assert stages.define == "GLS_SOLVE_STAGE_CUTS" and prod.define is None
+
+
+@pytest.mark.parametrize("header,users", [
+    ("cholqr_device.cuh", ("cholqr", "gls_solve")),
+    ("blocked_factor.cuh", ("gls_solve", "factor_probes")),
+])
+def test_editing_a_package_header_renames_its_users(tmp_path, header, users):
+    """Each csrc/ header shared by two libraries: both sources include it,
+    and an edit of it alone renames both libraries (the stage cuts'
+    too), so a card builds them anew."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_lib.CSRC, csrc)
+    libs = [CudaLibrary(name, bind=None, csrc=str(csrc), define=define)
+            for name in users
+            for define in ((None, "GLS_SOLVE_STAGE_CUTS")
+                           if name == "gls_solve" else (None,))]
+    for lib in libs:
+        with open(lib.source) as f:
+            assert f'#include "{header}"' in f.read()
+    before = [lib.path() for lib in libs]
+    with open(csrc / header, "a") as f:
+        f.write("// edited\n")
+    assert all(lib.path() != p for lib, p in zip(libs, before))

@@ -25,6 +25,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 import ninpol_tpu  # noqa: F401  (x64 and the matmul precision)
 from ninpol_tpu.ops import pallas_chol
+from ninpol_tpu_torch.ops import cholqr as cq
 from ninpol_tpu_torch.ops import factor_probes as fp
 from ninpol_tpu_torch.tools import SITES, factor_probes as tool, site_of
 from ninpol_tpu_torch.tools import kernel_stages
@@ -40,7 +41,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = kernel_stages.CUT_TOL["chol1"]
 NT = pallas_chol.NT
 N_PAD = 16           # the interpret-mode tile: ~2 s a call at 16, ~33 s at 80
-K1_REQUEST = 95648   # kernel 1's dynamic shared memory at (24, 36)
+K1_REQUEST = 105824  # kernel 1's dynamic shared memory at (24, 36)
 APPLIES = tool.APPLIES
 
 
@@ -206,12 +207,17 @@ def test_chol_trisolve_apply_plain_matches_helper_factor(jax_tile):
                          ids=["24x36", "12x24"])
 def test_plain_versions_match_float64(m, n):
     """The TPU probes' own oracle, in float64: L = chol(G1), X = solve(L,
-    A^T), G2 = X X^T, L^-1, and M v through two solves with L2 of G2."""
+    A^T), G2 = X X^T, L^-1, L2^-1 L1^-1, and M v through two solves with
+    L2 of G2."""
     r = _route_inputs(m, n, 4)
     A, G1, G2, v = (_f32(r[k]) for k in ("A", "G1", "G2", "v"))
     Li1 = _f32(np.tril(r["Li1"]))
     assert _node_err(fp.chol_factor_reference(G1).numpy(), r["L1"]) < TOL
     assert _node_err(fp.chol_linv_tc_reference(G1).numpy(), r["Li1"]) < TOL
+    Li2 = np.linalg.inv(np.linalg.cholesky(r["G2"]))
+    want = Li2 @ np.tril(r["Li1"]).astype(np.float32).astype(np.float64)
+    assert _node_err(fp.chol_linv_tc_reference(G2, mul_right=Li1).numpy(),
+                     want) < TOL
     X = np.linalg.solve(r["L1"], _t(r["A"]))
     aQ = np.abs(r["A"]) @ np.abs(_t(r["Li1"]))
     assert _node_err(fp.chol_trsm_gram_reference(A, G1).numpy(), X @ _t(X),
@@ -224,7 +230,9 @@ def test_plain_versions_match_float64(m, n):
 
 def test_wrappers_run_plain_versions_on_cpu():
     """On CPU tensors each wrapper is its plain version and launches
-    nothing; widths outside the kernels' instances raise."""
+    nothing (chol_linv_tc with a right factor chol_linv_f32's L^-1 P);
+    widths outside the kernels' instances and a right factor of another
+    shape raise."""
     r = _route_inputs(30, 19, 2)
     A, G1, G2, v = (_f32(r[k]) for k in ("A", "G1", "G2", "v"))
     Li1 = _f32(np.tril(r["Li1"]))
@@ -234,6 +242,8 @@ def test_wrappers_run_plain_versions_on_cpu():
                        fp.chol_trsm_gram_reference(A, G1))
     assert torch.equal(fp.chol_linv_tc(G1, width=8),
                        fp.chol_linv_tc_reference(G1))
+    assert torch.equal(fp.chol_linv_tc(G2, mul_right=Li1),
+                       cq.chol_linv_f32_reference(G2, mul_right=Li1))
     assert torch.equal(fp.chol_trisolve_apply(G2, Li1, v, block=1),
                        fp.chol_trisolve_apply_reference(G2, Li1, v))
     assert [w.launches for w in fp.KERNELS] == before
@@ -247,6 +257,8 @@ def test_wrappers_run_plain_versions_on_cpu():
         fp.chol_trsm_gram(A[:, :, :-1], G1)
     with pytest.raises(ValueError):
         fp.chol_linv_tc(G1, width=8, smem_bytes=-1)
+    with pytest.raises(ValueError):
+        fp.chol_linv_tc(G2, mul_right=Li1[:, :, :-1].contiguous())
     assert torch.equal(fp.chol_linv_tc(G1, width=8, smem_bytes=95648),
                        fp.chol_linv_tc_reference(G1))
 
@@ -270,7 +282,8 @@ def _call(fn, *args):
 def _emulated(lib, kernel, kw, t, smem=0):
     """One emulated launch of ``kernel`` with the wrapper's arguments
     ``kw`` on the float32 tensors ``t`` (As, G1, Li1, G2, v), chol_trsm_gram
-    and chol_linv_tc at a shared memory request of ``smem`` bytes."""
+    and chol_linv_tc at a shared memory request of ``smem`` bytes
+    (chol_linv_tc with ``mul_right`` on G2 and Li1)."""
     B, m, n = t["As"].shape
     out = torch.empty_like(t["v"] if kernel == "chol_trisolve_apply"
                            else t["G1"])
@@ -279,8 +292,11 @@ def _emulated(lib, kernel, kw, t, smem=0):
     elif kernel == "chol_trsm_gram":
         _call(lib.chol_trsm_gram_launch, t["As"], t["G1"], out, B, m, n,
               kw["width"], 1e-12, smem)
+    elif kernel == "chol_linv_tc" and kw.get("mul_right"):
+        _call(lib.chol_linv_tc_launch, t["G2"], t["Li1"], out, B, n,
+              kw["width"], 1e-12, smem)
     elif kernel == "chol_linv_tc":
-        _call(lib.chol_linv_tc_launch, t["G1"], out, B, n, kw["width"],
+        _call(lib.chol_linv_tc_launch, t["G1"], None, out, B, n, kw["width"],
               1e-12, smem)
     else:
         _call(lib.chol_trisolve_apply_launch, t["G2"], t["Li1"], t["v"], out,
@@ -321,14 +337,15 @@ def test_kernel_matches_plain_version(emu, kernel, kw, m, n, B):
 _BLOCKED = [(k, kw) for k, kw in tool.CONFIGS if k in tool.K1_KERNELS]
 
 
-def _clamped(r, pivots):
+def _clamped(r, pivots, key="G1"):
     """Route inputs with node b's row and column ``pivots[b]`` of G1 (and
-    that column of A) zeroed: an exact zero pivot, clamped at tiny, in
-    block 0 (factored before the loop) or a later block (factored by the
-    update's lookahead)."""
+    that column of A), or of ``key``, zeroed: an exact zero pivot, clamped
+    at tiny, in block 0 (factored before the loop) or a later block
+    (factored by the update's lookahead)."""
     for b, k in enumerate(pivots):
-        r["A"][b, :, k] = 0.0
-        r["G1"][b, k, :] = r["G1"][b, :, k] = 0.0
+        if key == "G1":
+            r["A"][b, :, k] = 0.0
+        r[key][b, k, :] = r[key][b, :, k] = 0.0
     return r
 
 
@@ -337,18 +354,20 @@ def _clamped(r, pivots):
 @pytest.mark.parametrize("case", ["clamped", "n80", "n37"])
 def test_blocked_kernels_edge_cases(emu, kernel, kw, case):
     """Every instance of chol_trsm_gram and chol_linv_tc against its plain
-    version (emulated) on a clamped pivot (a zero row and column of G1:
-    L^-1 takes 1/sqrt(tiny) there, held apart, the rest within TOL), at n
-    = 80 (n a multiple of 8, no padding, the most blocks the kernels
-    take) and at n = 37 (the Neumann class: padded to 40, A by one bulk
-    copy)."""
+    version (emulated) on a clamped pivot (a zero row and column of G1,
+    of G2 with a right factor: L^-1 takes 1/sqrt(tiny) there, so row k
+    of L^-1 P is 1/sqrt(tiny) times P's, held apart, the rest within
+    TOL), at n = 80 (n a multiple of 8, no padding, the most blocks the
+    kernels take) and at n = 37 (the Neumann class: padded to 40, A by
+    one bulk copy)."""
     m, n, B = {"clamped": (40, 21, 2), "n80": (96, 80, 1),
                "n37": (108, 37, 2)}[case]
     r = _route_inputs(m, n, B, seed=3)
     pivots = (9, 3)
+    right = kw.get("mul_right", False)
     if case == "clamped":
-        r = _clamped(r, pivots)
-    t = {"As": _f32(r["A"]), "G1": _f32(r["G1"]),
+        r = _clamped(r, pivots, "G2" if right else "G1")
+    t = {"As": _f32(r["A"]), "G1": _f32(r["G1"]), "G2": _f32(r["G2"]),
          "Li1": _f32(np.tril(r["Li1"])), "v": _f32(r["v"])}
     got = _emulated(emu, kernel, kw, t)
     ref = tool.run(kernel, kw, t, plain=True)
@@ -360,10 +379,16 @@ def test_blocked_kernels_edge_cases(emu, kernel, kw, case):
         return
     if case == "clamped":
         for b, k in enumerate(pivots):
-            assert ref[b, k, k] == pytest.approx(1e6, rel=1e-6)
-            assert got[b, k, k] == pytest.approx(float(ref[b, k, k]),
-                                                 rel=TOL)
-            got[b, k, k] = ref[b, k, k] = 0.0
+            p = float(t["Li1"][b, k, k]) if right else 1.0
+            assert ref[b, k, k] == pytest.approx(1e6 * p, rel=1e-6)
+            if right:
+                row = slice(k, k + 1)
+                assert _node_err(got[b, row], ref[b, row]) < TOL
+                got[b, row] = ref[b, row] = 0.0
+            else:
+                assert got[b, k, k] == pytest.approx(float(ref[b, k, k]),
+                                                     rel=TOL)
+                got[b, k, k] = ref[b, k, k] = 0.0
     assert _node_err(got, ref) < TOL
     assert (torch.triu(got, 1) == 0).all()
 
@@ -378,21 +403,26 @@ def test_blocked_kernels_at_kernel1_shared_memory(emu, kernel, kw):
     query's shared memory and 2 blocks an SM there."""
     for m, n, B in ((30, 19, 2), (132, 73, 1)):
         r = _route_inputs(m, n, B)
-        t = {"As": _f32(r["A"]), "G1": _f32(r["G1"])}
+        t = {"As": _f32(r["A"]), "G1": _f32(r["G1"]), "G2": _f32(r["G2"]),
+             "Li1": _f32(np.tril(r["Li1"]))}
         assert torch.equal(_emulated(emu, kernel, kw, t),
                            _emulated(emu, kernel, kw, t, smem=K1_REQUEST))
-    occ = cuda_emu_occupancy(emu, kernel, 132, 73, kw["width"], 0)
-    k1 = cuda_emu_occupancy(emu, kernel, 132, 73, kw["width"], K1_REQUEST)
+    right = kw.get("mul_right", False)
+    occ = cuda_emu_occupancy(emu, kernel, 132, 73, kw["width"], 0, right)
+    k1 = cuda_emu_occupancy(emu, kernel, 132, 73, kw["width"], K1_REQUEST,
+                            right)
     assert occ["smem_bytes"] < K1_REQUEST == k1["smem_bytes"]
     assert k1["blocks_per_sm"] == 2 < occ["blocks_per_sm"]
 
 
-def cuda_emu_occupancy(lib, kernel, m, n, width, request):
-    """The emulated library's occupancy query of an instance."""
+def cuda_emu_occupancy(lib, kernel, m, n, width, request, right=False):
+    """The emulated library's occupancy query of an instance (``right``:
+    chol_linv_tc with a right factor)."""
     from ninpol_tpu_torch.ops import cuda_lib
 
     return cuda_lib.occupancy(lib.factor_probes_occupancy, kernel,
-                              fp._IDS[kernel], m, n, width, request)
+                              fp._RIGHT_ID if right else fp._IDS[kernel],
+                              m, n, width, request)
 
 
 _NAMED_BARRIER = r"""
@@ -449,8 +479,6 @@ def test_emulated_named_barrier(tmp_path):
 def test_trisolve_matches_prec_apply_chain(emu):
     """chol_trisolve_apply computes what the route applies with the
     explicit factor: APPLIES times prec_apply_f32(L2^-1 Li1, v)."""
-    from ninpol_tpu_torch.ops import cholqr as cq
-
     r = _route_inputs(132, 73, 1)
     t = {"As": _f32(r["A"]), "G1": _f32(r["G1"]), "G2": _f32(r["G2"]),
          "Li1": _f32(np.tril(r["Li1"])), "v": _f32(r["v"])}
@@ -500,19 +528,21 @@ def test_tool_errors_on_route_chunks(emu, monkeypatch):
 
 
 def test_verdicts_follow_the_tpu_rules():
-    """The three verdicts on made-up times: trsm's B and C (its fastest
+    """The four verdicts on made-up times: trsm's B and C (its fastest
     width) against A standalone and A's stages, trisolve_probe.py:173's
-    rule, and each chol_linv_tc width against chol_linv_f32 and the
-    chol1 cut."""
-    assert len(tool.CONFIGS) == 11
+    rule, each chol_linv_tc width against chol_linv_f32 and the chol1
+    cut, and chol_linv_tc with a right factor, at kernel 1's shared
+    memory, against chol_linv_f32 with P and the chol2 cut."""
+    assert len(tool.CONFIGS) == 12
     k = {tool.label(kn, kw): {"ms": ms} for (kn, kw), ms in zip(
         tool.CONFIGS, (2.0, 9.5, 9.0, 7.5, 9.2, 6.0, 5.0, 4.0, 5.5,
-                       9.0, 4.5))}
+                       1.5, 9.0, 4.5))}
     k["chol_factor"]["ms_on_g2"] = 2.5
+    k["chol_linv_tc[width=16,mul_right=True]"]["ms_k1"] = 2.4
     row = {"kernels": k,
            "standalone": {"chol_linv_f32": 4.8, "chol_linv_f32_p": 4.8,
                           "round2_gram_f32": 3.1, "prec_apply_f32": 0.2},
-           "stages": {"chol1": 8.4, "chol1_to_gram2": 13.0}}
+           "stages": {"chol1": 8.4, "chol2": 9.6, "chol1_to_gram2": 13.0}}
     v = tool.verdicts(row)
     assert not v["trsm"]["B_beats_A_standalone"]          # 9.5
     assert v["trsm"]["B_beats_A_stages"]                  # 9.5 < 13.0
@@ -523,6 +553,9 @@ def test_verdicts_follow_the_tpu_rules():
     assert not v["trisolve"]["blocks"]["1"]["solves_win"]
     assert v["trisolve"]["explicit_ms"] == pytest.approx(3.1)
     assert v["chol_mxu"]["32"]["over_chol_linv_f32"] == pytest.approx(4 / 4.8)
+    assert v["chol2"]["ms"] == 1.5 and v["chol2"]["ms_k1"] == 2.4
+    assert v["chol2"]["over_chol_linv_f32_p"] == pytest.approx(0.5)
+    assert v["chol2"]["over_chol2_cut"] == pytest.approx(0.25)
     assert tool.failed([{"E": 24, "F": 36, "kernels": {
         "chol_factor": {"max_err": 2e-5, "tol": 1e-5}}}])
 
@@ -551,8 +584,8 @@ def test_k1_checks_flag_errors_and_missing_launches():
 
 def test_work_counts_what_the_functions_need():
     """The bounds' FLOPs and bytes at the interior class: G's and Li's
-    lower triangles read (all every kernel reads of them), A and v read
-    whole, the dense outputs written whole."""
+    (and P's) lower triangles read (all every kernel reads of them), A
+    and v read whole, the dense outputs written whole."""
     head = {"chunk": 2, "m": 132, "n": 73}
     tri, square = 2 * 73 * 74 // 2 * 4, 2 * 73 * 73 * 4
     f, b = tool.work("chol_factor", head)
@@ -562,6 +595,8 @@ def test_work_counts_what_the_functions_need():
     assert b == 2 * 132 * 73 * 4 + tri + square
     assert tool.work("chol_linv_tc", head) == (2 * 2 * 73 ** 3 / 3,
                                                tri + square)
+    assert tool.work("chol_linv_tc (mul_right)", head) == (
+        2 * 2 * 73 ** 3 / 3, 2 * tri + square)
     f, b = tool.work("chol_trisolve_apply", head)
     assert f == 2 * (73 ** 3 / 3 + APPLIES * (2 * 73 * 74 + 2 * 73 * 73))
     assert b == 2 * tri + 2 * 2 * 73 * 4
@@ -570,8 +605,9 @@ def test_work_counts_what_the_functions_need():
 def test_kernels_line_names_each_site():
     """chip_smoke.py's kernels-line entries of the probes: one a tools/
     site, chol_trsm_gram's variants B (width 0) and C (its panel widths)
-    apart, each with its own instances' launches and its fastest
-    instance's numbers."""
+    apart, chol_linv_tc with a right factor (trisolve_probe.py:95) apart
+    from its L^-1 instances, each with its own instances' launches and
+    its fastest instance's numbers."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -580,7 +616,7 @@ def test_kernels_line_names_each_site():
     spec.loader.exec_module(smoke)
     labels = [tool.label(k, kw) for k, kw in tool.CONFIGS]
     ms = dict(zip(labels, (3.2, 6.9, 6.2, 6.4, 7.2, 4.1, 4.6, 5.9, 6.7,
-                           7.2, 7.5)))
+                           1.6, 7.2, 7.5)))
 
     def row(chunk, scale):
         return {"E": 24, "F": 36, "with_neumann": False, "chunk": chunk,
@@ -597,6 +633,7 @@ def test_kernels_line_names_each_site():
     assert set(by_site) == {
         "tools/trisolve_probe.py:79", "tools/trsm_probe.py:129",
         "tools/trsm_probe.py:192", "tools/chol_mxu_probe.py:73",
+        "tools/trisolve_probe.py:95",
         "tools/trisolve_probe.py:162"}
     b, c = by_site["tools/trsm_probe.py:129"], by_site[
         "tools/trsm_probe.py:192"]
@@ -606,6 +643,12 @@ def test_kernels_line_names_each_site():
     assert c["launches"] == sum(launches[f"chol_trsm_gram[width={w}]"]
                                 for w in (8, 16, 32))
     assert len(c["classes"]) == 2 * 3
+    d, x = by_site["tools/trisolve_probe.py:95"], by_site[
+        "tools/chol_mxu_probe.py:73"]
+    assert d["instance"] == "chol_linv_tc[width=16,mul_right=True]"
+    assert d["ms"] == 1.6 and d["launches"] == launches[d["instance"]]
+    assert x["launches"] == sum(launches[f"chol_linv_tc[width={w}]"]
+                                for w in (8, 16, 32, 48))
     assert sum(e["launches"] for e in entries) == sum(launches.values())
     for e in entries:
         assert e["source"] == "ninpol_tpu_torch/csrc/factor_probes.cu"

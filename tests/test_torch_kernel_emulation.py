@@ -12,6 +12,7 @@ import torch
 
 from chip_smoke import pad_class
 from ninpol_tpu_torch.ops import cholqr as cq
+from ninpol_tpu_torch.ops import cuda_lib
 from ninpol_tpu_torch.ops import gls_solve as gs
 from ninpol_tpu_torch.tools import kernel_stages
 from tests.test_torch_gls_solve import RNORM_TOL, TOL, _port_chunk
@@ -138,7 +139,8 @@ def test_prec_apply_does_not_read_the_upper_triangle(emu, path):
         < TOL_F32
 
 
-def _solve(lib, inp, ws_floats=0, sweeps=3, rounds=2, stop=None):
+def _solve(lib, inp, ws_floats=0, sweeps=3, rounds=2, stop=None,
+           tiny=1e-12):
     """The fused kernel on CPU tensors, as ops/gls_solve.py launches it;
     with ``stop`` (a name of gls_solve.STAGES) its stage cut, through the
     stage entry of ``lib``, the stage-cut library."""
@@ -153,10 +155,10 @@ def _solve(lib, inp, ws_floats=0, sweeps=3, rounds=2, stop=None):
     head = [*args, w, wn, rnorm, ws, ws_floats, B, E, F,
             int(inp["lb"] is not None), sweeps, rounds]
     if stop is None:
-        _call(lib.gls_solve_launch, *head, 1e-12, 1.5e-5)
+        _call(lib.gls_solve_launch, *head, tiny, 1.5e-5)
     else:
         _call(lib.gls_solve_stage_launch, *head, gs.STAGES.index(stop),
-              1e-12, 1.5e-5)
+              tiny, 1.5e-5)
     return w, wn, rnorm
 
 
@@ -213,6 +215,71 @@ def test_gls_solve_one_round_matches_plain_version(emu, neumann):
     assert (rk[conv] > r2[conv]).any()
 
 
+def _duplicate_cell(inp, b, e):
+    """Node b's x- and y-gradient columns of cell e made equal (its cell
+    row and every row of a face it is on): A loses rank by one there, so
+    G1's pivot at column 3 e + 1 falls to about twice the shift."""
+    S1, S2, Sb = gs.incidence(inp["pair"], inp["ks"], inp["cv"], inp["fv"],
+                              inp["isneu"])
+    faces = (S1[b, :, e] + S2[b, :, e] + Sb[b, :, e]) > 0
+    inp["dk"][b, e, 1] = inp["dk"][b, e, 0]
+    for key in ("l1", "l2", "t1m", "tt", "lb"):
+        if inp[key] is not None:
+            inp[key][b, faces, 1] = inp[key][b, faces, 0]
+
+
+@pytest.mark.parametrize("rounds", [2, 1])
+def test_gls_solve_clamped_pivots_in_first_and_later_blocks(emu, emu_stages,
+                                                            rounds):
+    """Clamped pivots in diagonal block 0 (factored before the blocked
+    factor's loop) and in a later block (by its lookahead), at the
+    Neumann class (n = 37, padded to 40): node 0 has cell 0's gradient
+    columns made equal (pivot 1), node 1 its last valid cell's (pivot
+    22, block 2), node 2 is untouched.  At tiny = 1e-3 both pivots clamp
+    in both versions (the plain version's dinv1 there is 1/sqrt(tiny)),
+    no node is flagged and every node converges at the route's sweeps:
+    the kernel's weights within TOL of the plain version's (phase 4's
+    rule), the same rnorm > RNORM_TOL sets.  The weights do not depend on
+    the preconditioner, so the factors are held too: the chol1 (and chol2)
+    cut's checksum to the plain version's as kernel_stages.cut_errors
+    holds it, over the sum of the factor's magnitudes."""
+    inp = {k: None if v is None else v[:3].clone()
+           for k, v in _port_chunk(neumann=True).items()}
+    last = int(inp["cv"][1].nonzero().max())
+    _duplicate_cell(inp, 0, 0)
+    _duplicate_cell(inp, 1, last)
+    tiny, sweeps = 1e-3, 3 if rounds == 2 else 5
+    S1, S2, Sb = gs.incidence(inp["pair"], inp["ks"], inp["cv"], inp["fv"],
+                              inp["isneu"])
+    A = gs.assemble(inp["dk"], inp["l1"], inp["l2"], inp["t1m"], inp["tt"],
+                    inp["lb"], S1, S2, Sb, inp["cv"], inp["valid"])
+    pc = cq.cholqr_factors(A, cq.PLAIN, tiny=tiny, rounds=rounds)
+    dinv1 = pc["Li1"].diagonal(dim1=1, dim2=2)
+    clamped = (dinv1 == torch.rsqrt(torch.tensor(tiny))).nonzero().tolist()
+    assert clamped == [[0, 1], [1, 3 * last + 1]] and 3 * last + 1 >= 16
+    exact = cq.chol_linv_f32_reference(pc["G1"].double(), tiny).sum((1, 2))
+    for stop, factor in (("chol1", "Li1"), ("chol2", "Lc"))[:rounds]:
+        _, _, got = _solve(emu_stages, inp, sweeps=sweeps, rounds=rounds,
+                           stop=stop, tiny=tiny)
+        _, _, ref = gs.gls_solve_reference(**inp, sweeps=sweeps,
+                                           rounds=rounds, stop=stop,
+                                           tiny=tiny)
+        scale = pc[factor].abs().sum((1, 2)).double()
+        tol = kernel_stages.CUT_TOL[stop]
+        if stop == "chol1":
+            tol = max(tol, kernel_stages.CHOL_RATIO * float(
+                ((ref - exact).abs() / scale).max()))
+        assert float(((got - ref).abs() / scale).max()) <= tol, stop
+    wk, wnk, rk = _solve(emu["gls_solve"], inp, sweeps=sweeps, rounds=rounds,
+                         tiny=tiny)
+    wp, wnp, rp = gs.gls_solve_reference(**inp, sweeps=sweeps, rounds=rounds,
+                                         tiny=tiny)
+    assert (rk <= RNORM_TOL).all() and (rp <= RNORM_TOL).all()
+    scale = max(wp.abs().max().item(), 1.0)
+    assert (wk - wp).abs().max().item() / scale < TOL
+    assert (wnk - wnp).abs().max().item() / scale < TOL
+
+
 @pytest.mark.parametrize("neumann", [False, True])
 def test_gls_solve_workspace_path(emu, neumann):
     """Nodes padded to (E, F) = (64, 96), too wide for an H100's shared
@@ -235,21 +302,23 @@ def test_gls_solve_workspace_path(emu, neumann):
 
 
 @pytest.mark.parametrize("E,F,neumann,smem,blocks", [
-    (24, 36, 0, 95648, 2),     # the interior tet class
-    (12, 24, 1, 36368, 6),     # the Neumann tet class
-    (64, 96, 1, 27824, 8),     # A, X and Y in the device workspace
+    (24, 36, 0, 105824, 2),    # the interior tet class
+    (12, 24, 1, 38960, 5),     # the Neumann tet class
+    (64, 96, 1, 27888, 8),     # A and the two slots in the device workspace
 ])
 def test_gls_solve_shared_memory_per_class(emu, E, F, neumann, smem, blocks):
     """The kernel's dynamic shared memory per class and the blocks an
     H100 SM holds by shared memory and threads (228 KB, 2048 threads):
-    the interior class keeps two.  Registers, which the emulator does
-    not model, can lower the count: at 128 a thread the card holds two
-    blocks of every class."""
-    got_smem, got_blocks = ctypes.c_longlong(), ctypes.c_int()
-    assert emu["gls_solve"].gls_solve_occupancy(
-        E, F, neumann, 2, ctypes.byref(got_smem),
-        ctypes.byref(got_blocks)) == 0
-    assert (got_smem.value, got_blocks.value) == (smem, blocks)
+    the interior class keeps two, with A, two packed float64 triangles
+    (28,160 B each at n = 73) and dinv1, dinv2 padded to pad8(n).
+    Registers, which the emulator does not model (it reads 0), can lower
+    the count: at 128 a thread the card holds two blocks of every
+    class."""
+    occ = cuda_lib.occupancy(emu["gls_solve"].gls_solve_occupancy,
+                             "gls_solve occupancy", E, F, neumann, 2)
+    assert (occ["smem_bytes"], occ["blocks_per_sm"]) == (smem, blocks)
+    assert occ["threads"] == 256
+    assert (occ["registers"], occ["local_bytes"]) == (0, 0)
 
 
 class CutRuns:
