@@ -1598,11 +1598,15 @@ def mxu_phase(chunks, stage_table):
 
 
 def mxu_entries(table, sweep, launches):
-    """Phase 12's entries: ``probe_entries`` of the route's chunks, and the
-    shape sweep's (r5_mxu_shapes.py:84), its fastest instance at (132,
-    80) with every shape in "classes"."""
+    """Phase 12's entries: ``probe_entries`` of the route's chunks (the
+    redesigned sites' with "status" and "design"), and the shape sweep's
+    (r5_mxu_shapes.py:84), its fastest instance at (132, 80) with every
+    shape in "classes"."""
     mx = mxu_probes
     out = probe_entries(mx, "mxu_probes.cu", table, launches)
+    for e in out:
+        if e["name"] in mx.REDESIGNED:
+            e.update(status="redesigned", design=mx.REDESIGNED[e["name"]])
     at = [r for r in sweep if (r["m"], r["n"], r["split"]) == (132, 80, 0)]
     best = min(at, key=lambda r: r["ms"])
     out.append({"name": mx.SHAPES_ANSWER, "route": "cuda",

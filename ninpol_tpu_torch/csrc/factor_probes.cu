@@ -82,15 +82,16 @@
 #include <stdint.h>
 
 #include "blocked_factor.cuh"
+#include "bulk_copy.cuh"
 
 namespace {
 
 using namespace blocked_factor_device;
+using namespace bulk_copy;
 
 constexpr int kGrid = 16;                 // the register grid: kGrid x kGrid threads
 constexpr int kThreads = kGrid * kGrid, kWarps = kThreads / 32;
 static_assert(kThreads == kFactorThreads, "blocked_factor runs on the probes' blocks");
-constexpr unsigned kSpinLimit = 1u << 22;   // tries of an mbarrier wait before __trap
 
 // ---- the elimination in registers (chol_factor, chol_trsm_gram with kW =
 // 0, chol_trisolve_apply)
@@ -246,72 +247,6 @@ __host__ __device__ inline long long trsm_region_bytes(int n) {
 __host__ __device__ inline long long trsm_bytes(int m, int n) {
   const long long np = pad8(n);
   return trsm_region_bytes(n) + np * 64 + (long long)m * n * 4 + np * 4;
-}
-
-// The mbarrier of chol_trsm_gram's copy of A, and the copy.
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-#ifdef CUDA_EMU
-  return 0;
-#else
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-#endif
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-#ifdef CUDA_EMU
-  emu_mbarrier_init(bar, count);
-#else
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-#endif
-}
-
-// One thread: expect ``bytes`` on ``bar`` (its one arrival) and copy them
-// from device memory to shared memory (both 16-byte aligned, bytes a
-// multiple of 16) by cp.async.bulk, completing on ``bar``.  The fence
-// orders the block's earlier accesses of dst (generic proxy) before the
-// copy's writes (async proxy).
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-#ifdef CUDA_EMU
-  emu_mbarrier_arrive_expect_tx(bar, bytes);
-  emu_cp_async_bulk(dst, src, bytes, bar);
-#else
-  const uint32_t b = smem_addr(bar);
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(b)
-      : "memory");
-#endif
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, unsigned parity) {
-#ifdef CUDA_EMU
-  return emu_mbarrier_try_wait_parity(bar, parity);
-#else
-  uint32_t done;
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-      "selp.u32 %0, 1, 0, p;\n\t}"
-      : "=r"(done)
-      : "r"(smem_addr(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-#endif
-}
-
-// Wait for the phase of ``bar`` with this parity to complete; trap after
-// kSpinLimit tries, so a wrong parity ends the launch with an error
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  for (unsigned tries = 0; !mbar_try_wait(bar, parity); ++tries)
-    if (tries == kSpinLimit) __trap();
 }
 
 // X^T = A L^-T in place over the staged A (xt: m x n), L packed in lp, the

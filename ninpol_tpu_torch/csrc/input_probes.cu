@@ -74,14 +74,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 namespace {
+
+using namespace bulk_copy;
 
 constexpr int kThreads = 256, kWarps = kThreads / 32;
 constexpr int kMinorThreads = 128;     // kMinor: one thread a node
 constexpr int kMultiNodes = kWarps;    // kMulti: a warp a node
 constexpr int kSlots = 128;            // the dummy work's columns
 constexpr int kMaxE = 2 * 16;          // its rows: two halves of 128 threads, 16 rows each
-constexpr unsigned kSpinLimit = 1u << 22;
 constexpr int kFields = 13;
 
 enum { kNatural = 0, kPacked = 1, kWide = 2, kBulk = 3, kMulti = 4, kMinor = 5 };
@@ -191,71 +194,6 @@ __device__ __forceinline__ double block_sum(double d, long long n, double* sd, l
     n += sn[q];
   }
   return d + (double)n;
-}
-
-// ---- mbarrier and the bulk copy
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-#ifdef CUDA_EMU
-  return 0;
-#else
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-#endif
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-#ifdef CUDA_EMU
-  emu_mbarrier_init(bar, count);
-#else
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-#endif
-}
-
-// One thread: expect ``bytes`` on ``bar`` (its one arrival) and copy them
-// from device memory to shared memory, completing on ``bar``.  The fence
-// orders the block's earlier reads of dst (generic proxy) before the copy's
-// writes (async proxy).
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-#ifdef CUDA_EMU
-  emu_mbarrier_arrive_expect_tx(bar, bytes);
-  emu_cp_async_bulk(dst, src, bytes, bar);
-#else
-  const uint32_t b = smem_addr(bar);
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(b)
-      : "memory");
-#endif
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, unsigned parity) {
-#ifdef CUDA_EMU
-  return emu_mbarrier_try_wait_parity(bar, parity);
-#else
-  uint32_t done;
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-      "selp.u32 %0, 1, 0, p;\n\t}"
-      : "=r"(done)
-      : "r"(smem_addr(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-#endif
-}
-
-// Wait for the phase of ``bar`` with this parity to complete; trap after
-// kSpinLimit tries.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  for (unsigned tries = 0; !mbar_try_wait(bar, parity); ++tries)
-    if (tries == kSpinLimit) __trap();
 }
 
 // ---- input_sum

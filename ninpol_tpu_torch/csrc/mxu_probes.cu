@@ -22,30 +22,78 @@
  *            pass into float32 sums: the TPU's DEFAULT on float32 (989
  *            TFLOP/s; the Gram only).
  *
- * mxu_kernel<P, kWhat, kMinor, kST> replaces tools/mxu_probe.py:123 and
- *   :138 (kWhat = kGram, node-major), :166 (kGram, node-minor: the
- *   transposes in and out are its reads and writes), :185 (kQ) and :215
- *   (kComposite, node-minor or node-major), and r5_mxu_shapes.py:84
- *   (kGram, node-minor, any (m, n), a split row).  One block of 8 warps a
- *   node.  A comes in row blocks of kRows = 32: each block's raw copy
- *   (16 bytes a copy where node-major rows allow) is in flight two blocks
- *   ahead, and at its turn is converted once into a plane that the
- *   products read without converting again: float64 (DMMA), TF32 hi and
- *   lo, or bf16 pairs of rows (one register of a fragment).  n is padded
- *   with zeros to 16 (the 16 x 8 MMA tiles).  A warp owns up to kST
- *   16 x 16 super tiles of the Gram's lower triangle for the whole kernel,
- *   their sums in registers (two 16 x 8 tiles: each A fragment serves
- *   two products), so G leaves once, mirrored.  Q = A Li^T is taken a row
- *   block at a time against Li staged whole (converted at each read); the
- *   composite rounds it to float32 into a plane of its own (as the TPU's
- *   preferred_element_type=f32 does) and folds it into G2 in the same
- *   step, so Q never reaches device memory.  Plane strides: w + 4
- *   float64s, w + 8 words (w = n padded to 16), so the Gram's fragments
- *   (rows t, columns g) meet no bank conflict; Q's row reads of a TF32
- *   plane meet 2-way ones.  Bound at (132, 73), a 32,768-node chunk, by
- *   bytes for the Gram (A's and G's 0.59 ms, its products on the triangle
- *   0.35 ms of DMMA) and Q (0.96 ms against 0.69), by DMMA operations for
- *   the composite (1.39 ms against 1.00).
+ * gram_kernel<P, kMinor, kST> replaces tools/mxu_probe.py:123 and :138
+ *   (node-major), :166 (node-minor: the transposes in and out are its
+ *   reads and writes) and r5_mxu_shapes.py:84 (node-minor, any (m, n), a
+ *   split row).  One block of 8 warps a node.  A comes in row blocks of
+ *   kRows = 32: each block's raw copy (16 bytes a copy where node-major
+ *   rows allow) is in flight two blocks ahead, and at its turn is
+ *   converted once into a plane that the products read without converting
+ *   again: float64 (DMMA), TF32 hi and lo, or bf16 pairs of rows (one
+ *   register of a fragment).  n is padded with zeros to 16 (the 16 x 8 MMA
+ *   tiles).  A warp owns up to kST 16 x 16 super tiles of the Gram's lower
+ *   triangle for the whole kernel, their sums in registers (two 16 x 8
+ *   tiles: each A fragment serves two products), so G leaves once,
+ *   mirrored.  Plane strides: w + 4 float64s, w + 8 words (w = n padded
+ *   to 16), so the Gram's fragments (rows t, columns g) meet no bank
+ *   conflict.  Bound by bytes at (132, 73) on a 32,768-node chunk (A's and
+ *   G's 0.59 ms, its products on the triangle 0.35 ms of DMMA).
+ *
+ * q_kernel<P> replaces tools/mxu_probe.py:185: Q = A Li^T, node-major, Li
+ *   general.  Persistent blocks of 8 warps (the card's SMs x the blocks an
+ *   SM holds, unless the launch gives the grid) walk the nodes blockIdx,
+ *   blockIdx + grid, ...; a node's A and its Li arrive each by one
+ *   cp.async.bulk of the 16-byte-aligned span that covers it, on an
+ *   mbarrier.  Li is converted once a node into an operand plane (below)
+ *   and its span is then free, so the next node's Li is in flight while
+ *   this one computes.  A warp takes a row tile of 16 rows at a time: its A
+ *   fragments for all k from the raw span into registers, converted once
+ *   (kKS = 10 k steps, n <= 80; past that in chunks, reloaded per column
+ *   tile), then the column tiles against the plane, kQT = 2 chains at
+ *   once, so each fragment of Li costs one 8-byte load a product.  Row
+ *   tiles go a warp each in passes of 8, and the rest of them (at m = 132
+ *   the ninth, its 4 real rows) a column tile a unit over all the warps, so
+ *   no warp idles a pass.  The passes write Q, rounded to float32, over
+ *   their own rows of A's span, which leave by one bulk store a node (the
+ *   at most 3 floats either side of its aligned interior by plain stores);
+ *   the units write theirs to device memory.  Two spans of A where two
+ *   blocks an SM still fit, so the next node's A is in flight too; else
+ *   one, refilled once the store has read it.  Two blocks an SM at (132,
+ *   73) (113,688 bytes, one span) and (108, 37), 122-126 registers: a
+ *   block's copies, conversions and barriers overlap the other's products.
+ *   Bound by bytes (A, Li and Q: 0.96 ms on a 32,768-node (132, 73) chunk,
+ *   its DMMA work 0.69 ms).
+ *
+ * composite_kernel<P, kMinor> replaces tools/mxu_probe.py:215: (G1, G2) =
+ *   (A^T A, Q^T Q), Q = A Li^T rounded to float32 (the TPU's
+ *   preferred_element_type=f32), node-minor or node-major.  Persistent
+ *   blocks of 16 warps, one an SM (n <= kCNarrow = 48, the Neumann class:
+ *   8 warps, two an SM, so a block's barriers overlap the other's
+ *   products); A's and Li's node streams as q_kernel's
+ *   (node-minor: 4-byte asynchronous copies, which the layout's stride
+ *   leaves), A double-buffered where two spans fit (the next node's A in
+ *   flight for the whole node), else after the last rows are converted.
+ *   A node goes in steps of kStep = 48 rows: the step's rows converted once
+ *   into A's plane; then G1 += the step's Gram and, at once, the step's Q
+ *   (3 row tiles x the column pairs: 16 x 16 units, warp W - 1 - u % W
+ *   takes unit u, one each at n = 73) into Q's plane, rounded; a barrier; then G2 += Q's Gram while
+ *   the next step's rows are converted; a barrier.  A warp owns one 16 x
+ *   16 super tile of both Grams' lower triangles (15 at n <= 80, 6 at n <=
+ *   48; one on
+ *   the diagonal takes its B fragments from its A fragment), so G1's and
+ *   G2's sums live in registers together and no unit waits on an idle
+ *   warp.  G1 and G2 leave through the two planes by one bulk store each
+ *   (node-minor: by plain 4-byte stores).  216,760 bytes at (132, 73): the
+ *   Li plane alone is 53,760, so one block an SM, whose barriers (two a
+ *   step) stall the SM's tensor cores.  Bound by its DMMA operations (1.39
+ *   ms on the chunk; its bytes 1.00 ms).
+ *
+ * The operand planes of q_kernel and composite_kernel hold 8-byte entries
+ * (Form<P>): a float64 (DMMA) or the TF32 pair (hi, lo) of a float32, so
+ * one load fetches both halves of a split.  Row stride w + 4 entries (4
+ * modulo 16): a fragment's reads along a row (rows g, columns t) and down
+ * a column (rows t, columns g) fall in distinct bank pairs for each half
+ * warp.
  *
  * node_transpose_kernel replaces tools/mxu_probe.py:108 (direction 0:
  *   node-minor (T, E, 128) -> node-major (B, E)) and :150 (direction 1,
@@ -56,8 +104,8 @@
  * Node-minor is the TPU's VPU layout, (B / 128, rows, cols, 128) with a
  * node's entry (r, c) at ((tile rows + r) cols + c) 128 + node % 128;
  * node-major (B, rows, cols), the port's.  A node-minor block still takes
- * one node: its 4-byte reads share 32-byte sectors with the tile's other
- * nodes, which the blocks beside it read through L2.
+ * one node at a time: its 4-byte reads share 32-byte sectors with the
+ * tile's other nodes, which the blocks beside it read through L2.
  *
  * Every launch function returns a cudaError_t as int (0 on success).
  */
@@ -65,43 +113,85 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 namespace {
 
+using namespace bulk_copy;
+
 constexpr int kWarps = 8, kThreads = 32 * kWarps;
-constexpr int kRows = 32;   // rows of A a block step stages
-constexpr int kQT = 2;      // Q super tiles a warp takes a row block (2 x w / 16 <= 16)
+constexpr int kRows = 32;    // rows of A a Gram block step stages
+constexpr int kMaxN = 128;   // widest n of the Gram and Q
+constexpr int kMaxNComposite = 80;
+constexpr int kQWarps = 8, kQThreads = 32 * kQWarps;   // q_kernel: a row tile a warp
+constexpr int kKS = 10;      // q_kernel: k steps of A a warp holds (n <= 80 at once)
+constexpr int kQT = 2;       // q_kernel: column tiles a warp sums at once
+constexpr int kCNarrow = 48;  // composite_kernel: 8 warps (2 blocks an SM) up to this n, else 16
+constexpr int kStep = 48;    // composite_kernel: rows of A a step takes (3 row tiles)
 
 enum { kDmma = 0, kTf32x3 = 1, kBf16 = 2 };
 enum { kGram = 0, kQ = 1, kComposite = 2, kTranspose = 3 };
 
 __host__ __device__ inline int pad_to(int x, int k) { return (x + k - 1) / k * k; }
-// The planes' row stride (w = n padded to 16).  A Gram fragment reads
-// rows t < 4 (bf16: pairs t) at columns g < 8: float64 at w + 4 (4 or 12
-// modulo 16 doubles: each half warp's 16 doubles in distinct bank pairs),
-// 32-bit words at w + 8 (8 or 24 modulo 32: the four rows 8 banks apart).
-// Q's row reads of A (rows g, columns t) then fall in distinct banks for
-// float64 and meet 2-way conflicts for TF32.
+// The Gram's planes' row stride (w = n padded to 16).  A Gram fragment
+// reads rows t < 4 (bf16: pairs t) at columns g < 8: float64 at w + 4 (4
+// or 12 modulo 16 doubles: each half warp's 16 doubles in distinct bank
+// pairs), 32-bit words at w + 8 (8 or 24 modulo 32: the four rows 8 banks
+// apart).
 __host__ __device__ inline int a_ld(int prec, int w) { return prec == kDmma ? w + 4 : w + 8; }
-// Li's row stride: w + 4, an odd multiple of 4, so rows g < 8 fall in 8
-// distinct groups of 4 banks
-__host__ __device__ inline int li_ld(int w) { return w + 4; }
-// A plane of kRows rows (floats): float64, TF32 hi and lo, or bf16 pairs
+// A Gram plane of kRows rows (floats): float64, TF32 hi and lo, or bf16 pairs
 __host__ __device__ inline int plane_floats(int prec, int w) {
   const int ld = a_ld(prec, w);
   return prec == kBf16 ? kRows / 2 * ld : 2 * kRows * ld;
 }
 
-// A block's shared memory (floats): A's two raw row blocks, its plane, Q's
-// plane (kComposite), Li (kQ, kComposite), the split's first part (w x w).
-struct Layout {
-  long long ap, qp, lis, part, total;
-  __host__ __device__ Layout(int what, int prec, int n, int split) {
-    const int w = pad_to(n, 16), pf = plane_floats(prec, w);
+// A Gram block's shared memory (floats): A's two raw row blocks, its
+// plane, the split's first part (w x w).
+struct GramLayout {
+  long long ap, part, total;
+  __host__ __device__ GramLayout(int prec, int n, int split) {
+    const int w = pad_to(n, 16);
     ap = 2LL * kRows * n;
-    qp = ap + pf;
-    lis = qp + (what == kComposite ? pf : 0);
-    part = lis + (what != kGram ? (long long)w * li_ld(w) : 0);
+    part = ap + plane_floats(prec, w);
     total = part + (split > 0 ? (long long)w * w : 0);
+  }
+};
+
+// The 8-byte operand planes' row stride (q_kernel, composite_kernel): w +
+// 4 entries, 4 modulo 16.
+__host__ __device__ inline int plane_ld(int n) { return pad_to(n, 16) + 4; }
+// Floats of a span that covers ``count`` floats from any 4-byte boundary:
+// whole 16-byte words, one more than ``count`` needs at most.
+__host__ __device__ inline long long span_floats(long long count) { return (count + 3) / 4 * 4 + 4; }
+
+// q_kernel's shared memory (floats): ``nbuf`` spans of A (Q written over
+// A), Li's span, Li's plane (n8 x ld entries), three mbarriers (A's two
+// spans, Li).
+struct QLayout {
+  long long araw, lraw, lplane, bars, total;
+  __host__ __device__ QLayout(int m, int n, int nbuf) {
+    araw = span_floats((long long)m * n);
+    lraw = nbuf * araw;
+    lplane = lraw + span_floats((long long)n * n);
+    bars = lplane + 2LL * pad_to(n, 8) * plane_ld(n);
+    total = bars + 6;
+  }
+};
+
+// composite_kernel's shared memory (floats): ``nbuf`` spans of A, Li's
+// span, Li's plane (n8 x ld entries), A's and Q's step planes (kStep x
+// ld), three mbarriers (A's two buffers, Li).
+struct CompositeLayout {
+  long long araw, lraw, lplane, aplane, qplane, bars, total;
+  __host__ __device__ CompositeLayout(int m, int n, int nbuf) {
+    const long long ld = plane_ld(n);
+    araw = span_floats((long long)m * n);
+    lraw = nbuf * araw;
+    lplane = lraw + span_floats((long long)n * n);
+    aplane = lplane + 2LL * pad_to(n, 8) * ld;
+    qplane = aplane + 2LL * kStep * ld;
+    bars = qplane + 2LL * kStep * ld;
+    total = bars + 6;
   }
 };
 
@@ -187,16 +277,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 #endif
 }
 
-// The operands of a product, read as at(r, k): r the output's row (A
-// operand) or column (B operand), k the contraction index.  FloatOp is
-// float32 in shared memory, converted at each read (Li); the planes hold
-// a row block converted once (to_plane): DoubleOp float64 for DMMA,
-// SplitOp TF32 hi and lo, PairOp bf16 pairs along k, p[(k / 2) ks + r rs]
-// = (X(r, k), X(r, k + 1)), each pair one register of a fragment.
-struct FloatOp {
-  const float* p;
-  int rs, ks;
-};
+// The Gram's operands, read as at(r, k): r the output's row (A operand)
+// or column (B operand), k the contraction index.  Its planes hold a row
+// block converted once (to_plane): DoubleOp float64 for DMMA, SplitOp TF32
+// hi and lo, PairOp bf16 pairs along k, p[(k / 2) ks + r rs] = (X(r, k),
+// X(r, k + 1)), each pair one register of a fragment.
 struct DoubleOp {
   const double* p;
   int rs, ks;
@@ -210,14 +295,8 @@ struct PairOp {
   int rs, ks;
 };
 
-__device__ __forceinline__ double dget(const FloatOp& o, int r, int k) {
-  return (double)o.p[r * o.rs + k * o.ks];
-}
 __device__ __forceinline__ double dget(const DoubleOp& o, int r, int k) {
   return o.p[r * o.rs + k * o.ks];
-}
-__device__ __forceinline__ void tget(const FloatOp& o, int r, int k, uint32_t& hi, uint32_t& lo) {
-  split_tf32(o.p[r * o.rs + k * o.ks], hi, lo);
 }
 __device__ __forceinline__ void tget(const SplitOp& o, int r, int k, uint32_t& hi, uint32_t& lo) {
   const int i = r * o.rs + k * o.ks;
@@ -396,14 +475,12 @@ __device__ void to_plane(const float* raw, int rows, int n, int w, int ld, float
   }
 }
 
-// The operand of a plane: the Gram's (X(i, k) at row k, column i) or Q's
-// (X(r, j) at row r, column j).
+// The Gram operand of a plane: X(i, k) at row k, column i.
 template <int P>
 struct PlaneOp;
 template <>
 struct PlaneOp<kDmma> {
   __device__ static DoubleOp gram(const float* p, int ld) { return {reinterpret_cast<const double*>(p), 1, ld}; }
-  __device__ static DoubleOp rows(const float* p, int ld) { return {reinterpret_cast<const double*>(p), ld, 1}; }
 };
 template <>
 struct PlaneOp<kTf32x3> {
@@ -411,27 +488,11 @@ struct PlaneOp<kTf32x3> {
     const uint32_t* hi = reinterpret_cast<const uint32_t*>(p);
     return {hi, hi + kRows * ld, 1, ld};
   }
-  __device__ static SplitOp rows(const float* p, int ld) {
-    const uint32_t* hi = reinterpret_cast<const uint32_t*>(p);
-    return {hi, hi + kRows * ld, ld, 1};
-  }
 };
 template <>
 struct PlaneOp<kBf16> {
   __device__ static PairOp gram(const float* p, int ld) { return {reinterpret_cast<const uint32_t*>(p), 1, ld}; }
 };
-
-// The node's n x n Li into s (w x ld), zeros past n.
-template <bool kMinor>
-__device__ void stage_square(const float* Li, long long node, int n, int w, int ld, float* s) {
-  for (int idx = threadIdx.x; idx < w * w; idx += kThreads) {
-    const int r = idx / w, c = idx - r * w;
-    if (r < n && c < n)
-      __pipeline_memcpy_async(s + r * ld + c, Li + entry<kMinor>(node, n, n, r, c), sizeof(float));
-    else
-      s[r * ld + c] = 0.f;
-  }
-}
 
 // The warp's Gram super tiles into out (n x n a node), each entry of the
 // lower triangle written at (i, j) and (j, i); where ``part`` is not null
@@ -470,32 +531,24 @@ struct RowBlocks {
   }
 };
 
-// kWhat = kGram: O1 = A^T A, rows [0, split) and [split, m) summed apart
-//   (split 0: none); kQ: O1 = A Li^T (node-major); kComposite: O1 = A^T A,
-//   O2 = Q^T Q with Q = A Li^T rounded to float32.  One block a node.  Row
-//   block b's raw copy is in flight two blocks ahead (two raw buffers);
-//   at its turn it is converted once into the plane the products read.
-//   Q is taken a row block at a time, into a plane of its own for G2
-//   (kComposite) or out to device memory (kQ).
-// Three blocks an SM for the Gram up to n = 80 (at most 85 registers; its
-// DMMA instance ran faster that way than with two), two for the others.
-template <int P, int kWhat, bool kMinor, int kST>
-__global__ void __launch_bounds__(kThreads, kWhat == kGram && kST == 2 ? 3 : 2)
-    mxu_kernel(const float* __restrict__ A, const float* __restrict__ Li, float* __restrict__ O1,
-               float* __restrict__ O2, int m, int n, int split) {
-  constexpr bool kHasG1 = kWhat != kQ, kHasQ = kWhat != kGram, kHasG2 = kWhat == kComposite;
+// G = A^T A, rows [0, split) and [split, m) summed apart (split 0: none).
+// One block a node.  Row block b's raw copy is in flight two blocks ahead
+// (two raw buffers); at its turn it is converted once into the plane the
+// products read.  Three blocks an SM up to n = 80 (at most 85 registers;
+// its DMMA instance ran faster that way than with two), two past it.
+template <int P, bool kMinor, int kST>
+__global__ void __launch_bounds__(kThreads, kST == 2 ? 3 : 2)
+    gram_kernel(const float* __restrict__ A, float* __restrict__ G, int m, int n, int split) {
   constexpr int kK = Tile<P>::kK;
   extern __shared__ __align__(16) float smem[];
   const long long node = blockIdx.x;
   const int w = pad_to(n, 16), n8 = pad_to(n, 8), S = w / 16;
-  const int ld = a_ld(P, w), ldl = li_ld(w), pf = plane_floats(P, w);
+  const int ld = a_ld(P, w);
   const RowBlocks rb(m, split);
-  const Layout lay(kWhat, P, n, split);
+  const GramLayout lay(P, n, split);
   float* const raw0 = smem;
   float* const raw1 = raw0 + kRows * n;
   float* const Ap = smem + lay.ap;
-  float* const Qp = smem + lay.qp;
-  float* const Lis = smem + lay.lis;
   float* const part = smem + lay.part;
   const int warp = threadIdx.x / 32;
 
@@ -506,22 +559,16 @@ __global__ void __launch_bounds__(kThreads, kWhat == kGram && kST == 2 ? 3 : 2)
   for (int q = 0; q < kST; ++q) {
     int s = warp + kWarps * q, si = 0;
     gi[q] = gj[q] = gm[q] = 0;
-    if (!kHasG1 || s >= nst) continue;
+    if (s >= nst) continue;
     while (s > si) s -= ++si;
     gi[q] = 16 * si;
     gj[q] = 16 * s;
     gm[q] = tile_mask(gi[q], gj[q], n8, n8);
   }
-  Tile<P> g1[kST], g2[kST];
+  Tile<P> g1[kST];
 #pragma unroll
-  for (int q = 0; q < kST; ++q) {
-    g1[q].zero();
-    g2[q].zero();
-  }
+  for (int q = 0; q < kST; ++q) g1[q].zero();
 
-  if constexpr (kHasQ) stage_square<kMinor>(Li, node, n, w, ldl, Lis);
-  if constexpr (kHasG2)
-    for (int i = threadIdx.x; i < pf; i += kThreads) Qp[i] = 0.f;
   for (int b = 0; b < 2; ++b) {
     if (b < rb.nb) {
       int r0;
@@ -536,7 +583,7 @@ __global__ void __launch_bounds__(kThreads, kWhat == kGram && kST == 2 ? 3 : 2)
     const int rows = rb.rows(b, r0), rp = pad_to(rows, kK);
     float* const raw = (b & 1) ? raw1 : raw0;
     __pipeline_wait_prior(1);
-    __syncthreads();   // block b staged; every warp is done with block b - 1's planes
+    __syncthreads();   // block b staged; every warp is done with block b - 1's plane
     to_plane<P>(raw, rows, n, w, ld, Ap);
     __syncthreads();   // the plane is ready and raw is free
     if (b + 2 < rb.nb) {
@@ -545,57 +592,14 @@ __global__ void __launch_bounds__(kThreads, kWhat == kGram && kST == 2 ? 3 : 2)
       stage_raw<kMinor>(A, node, m, n, s0, rows2, raw);
     }
     __pipeline_commit();
-    if constexpr (kHasG1) {
-      const auto X = PlaneOp<P>::gram(Ap, ld);
+    const auto X = PlaneOp<P>::gram(Ap, ld);
 #pragma unroll
-      for (int q = 0; q < kST; ++q) {
-        if (!gm[q]) continue;
+    for (int q = 0; q < kST; ++q) {
+      if (!gm[q]) continue;
 #pragma unroll 2
-        for (int k0 = 0; k0 < rp; k0 += kK) g1[q].step(X, X, gi[q], gj[q], k0, gm[q]);
-      }
+      for (int k0 = 0; k0 < rp; k0 += kK) g1[q].step(X, X, gi[q], gj[q], k0, gm[q]);
     }
-    if constexpr (kHasQ) {
-      const auto X = PlaneOp<P>::rows(Ap, ld);
-      const FloatOp Y{Lis, ldl, 1};
-      const int kq = pad_to(n, kK);
-#pragma unroll
-      for (int q = 0; q < kQT; ++q) {
-        const int s = warp + kWarps * q;
-        if (s >= 2 * S) break;
-        const int i0 = 16 * (s / S), j0 = 16 * (s % S);
-        const int mask = tile_mask(i0, j0, rp, n8);
-        if (!mask) continue;
-        Tile<P> t;
-        t.zero();
-#pragma unroll 2
-        for (int k0 = 0; k0 < kq; k0 += kK) t.step(X, Y, i0, j0, k0, mask);
-        if constexpr (kHasG2)
-          t.visit(i0, j0, mask, [&](int i, int j, auto v) {
-            const float f = (float)v;   // Q rounded to float32
-            if (P == kDmma) {
-              reinterpret_cast<double*>(Qp)[i * ld + j] = f;
-            } else {
-              uint32_t* hi = reinterpret_cast<uint32_t*>(Qp);
-              split_tf32(f, hi[i * ld + j], hi[kRows * ld + i * ld + j]);
-            }
-          });
-        else
-          t.visit(i0, j0, mask, [&](int i, int j, auto v) {
-            if (i < rows && j < n) O1[entry<false>(node, m, n, r0 + i, j)] = (float)v;
-          });
-      }
-    }
-    if constexpr (kHasG2) {
-      __syncthreads();   // Q's row block in its plane
-      const auto X = PlaneOp<P>::gram(Qp, ld);
-#pragma unroll
-      for (int q = 0; q < kST; ++q) {
-        if (!gm[q]) continue;
-#pragma unroll 2
-        for (int k0 = 0; k0 < rp; k0 += kK) g2[q].step(X, X, gi[q], gj[q], k0, gm[q]);
-      }
-    }
-    if (kHasG1 && split > 0 && b == rb.nb1 - 1) {   // the first part, rounded
+    if (split > 0 && b == rb.nb1 - 1) {   // the first part, rounded
 #pragma unroll
       for (int q = 0; q < kST; ++q) {
         if (!gm[q]) continue;
@@ -604,9 +608,385 @@ __global__ void __launch_bounds__(kThreads, kWhat == kGram && kST == 2 ? 3 : 2)
       }
     }
   }
-  if constexpr (kHasG1)
-    store_gram<kMinor>(g1, gi, gj, gm, O1, node, n, split > 0 ? part : nullptr, w);
-  if constexpr (kHasG2) store_gram<kMinor>(g2, gi, gj, gm, O2, node, n, nullptr, w);
+  store_gram<kMinor>(g1, gi, gj, gm, G, node, n, split > 0 ? part : nullptr, w);
+}
+
+// ---- q_kernel and composite_kernel: persistent blocks on 8-byte planes
+
+// An operand in the planes and registers, by precision: a float64 (DMMA)
+// or the TF32 pair (hi, lo) of a float32, and the sums' type.
+template <int P>
+struct Form;
+template <>
+struct Form<kDmma> {
+  typedef double T;
+  typedef double C;
+  __device__ static T from(float x) { return x; }
+};
+template <>
+struct Form<kTf32x3> {
+  typedef uint2 T;
+  typedef float C;
+  __device__ static T from(float x) {
+    uint2 r;
+    split_tf32(x, r.x, r.y);
+    return r;
+  }
+};
+
+// D = A B + D for one 16 x 8 x 8 tile of operand entries: one DMMA, or the
+// three TF32 products of the pairs, the small terms first.
+__device__ __forceinline__ void mma(double (&c)[4], const double (&a)[4], const double (&b)[2]) {
+  mma_f64_16x8x8(c, a, b);
+}
+__device__ __forceinline__ void mma(float (&c)[4], const uint2 (&a)[4], const uint2 (&b)[2]) {
+  const uint32_t ah[4] = {a[0].x, a[1].x, a[2].x, a[3].x}, al[4] = {a[0].y, a[1].y, a[2].y, a[3].y};
+  const uint32_t bh[2] = {b[0].x, b[1].x}, bl[2] = {b[0].y, b[1].y};
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+// The super tile s at rows i0.., columns j0.. (column tiles by ``mask``,
+// as Tile's): s(i, j) += sum_{k0 <= k < k0 + 8} X(i, k) Y(j, k), X(i, k) =
+// x[i xr + k xk] and Y(j, k) = y[j yr + k yk] in plane entries.
+// ``diag`` (a Gram's super tile on the diagonal: x is y, i0 is j0): column
+// tile q's B fragment is rows 8q.. of the A fragment, so it is not loaded.
+template <int P>
+__device__ __forceinline__ void plane_step(Tile16<typename Form<P>::C>& s,
+                                           const typename Form<P>::T* x, int xr, int xk,
+                                           const typename Form<P>::T* y, int yr, int yk, int i0,
+                                           int j0, int k0, int mask, bool diag = false) {
+  typedef typename Form<P>::T T;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const T a[4] = {x[(i0 + g) * xr + (k0 + t) * xk], x[(i0 + g + 8) * xr + (k0 + t) * xk],
+                  x[(i0 + g) * xr + (k0 + t + 4) * xk], x[(i0 + g + 8) * xr + (k0 + t + 4) * xk]};
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+    if (mask >> q & 1) {
+      const int j = j0 + 8 * q + g;
+      T b[2];
+      if (diag) {
+        b[0] = a[q];
+        b[1] = a[q + 2];
+      } else {
+        b[0] = y[j * yr + (k0 + t) * yk];
+        b[1] = y[j * yr + (k0 + t + 4) * yk];
+      }
+      mma(s.c[q], a, b);
+    }
+}
+
+// Rows [0, prow) x columns [0, pcol) of the plane p (stride ld): entry (r,
+// c) of x (rows x cols, row-major), zeros past it; a warp a row, a lane a
+// column.
+template <int P>
+__device__ void to_operand_plane(const float* x, int rows, int cols, int prow, int pcol, int ld,
+                                 typename Form<P>::T* p) {
+  const int lane = threadIdx.x & 31, warps = blockDim.x / 32;
+  for (int r = threadIdx.x / 32; r < prow; r += warps) {
+    const float* const xr = x + r * cols;
+    typename Form<P>::T* const pr = p + r * ld;
+    for (int c = lane; c < pcol; c += 32) pr[c] = Form<P>::from(r < rows && c < cols ? xr[c] : 0.f);
+  }
+}
+
+// The floats of p past its 16-byte boundary.
+__device__ __forceinline__ int span_head(const float* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// Thread 0: the 16-byte span that covers x[0, count) into dst, on bar;
+// dst[span_head(x)] is then x[0].
+__device__ __forceinline__ void load_span(float* dst, const float* x, long long count,
+                                          uint64_t* bar) {
+  if (threadIdx.x != 0) return;
+  const int h = span_head(x);
+  bulk_load(dst, x - h, (unsigned)((h + count + 3) / 4 * 16), bar);
+}
+
+// The calling thread: x[0, count) from s (s and x equal modulo 16 bytes)
+// to device memory, its 16-byte-aligned interior by one bulk store in the
+// open group, the at most 3 floats either side of it by plain stores.
+__device__ __forceinline__ void store_span(float* x, const float* s, long long count) {
+  const long long lo = min((long long)((4 - span_head(x)) & 3), count);
+  const long long hi = lo + (count - lo) / 4 * 4;
+  for (long long i = 0; i < lo; ++i) x[i] = s[i];
+  for (long long i = hi; i < count; ++i) x[i] = s[i];
+  if (hi > lo) bulk_store(x + lo, s + lo, (unsigned)(4 * (hi - lo)));
+}
+
+// A warp's A fragments of rows r0.. (a row tile) at k steps [kKS c, kKS (c
+// + 1)), from the raw rows x (m x n, row-major), zeros past m and n.
+template <int P>
+__device__ __forceinline__ void load_rows(typename Form<P>::T (&a)[kKS][4], const float* x,
+                                          int r0, int c, int m, int n) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int ks = 0; ks < kKS; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + g + 8 * (e & 1), k = 8 * (kKS * c + ks) + t + 4 * (e >> 1);
+      a[ks][e] = Form<P>::from(r < m && k < n ? x[r * n + k] : 0.f);
+    }
+}
+
+// Q's column tiles from j0 up to kQT of them, below ``jend``, of the
+// warp's row tile from its fragments ``a`` (chunk ``ch`` of kKS k steps;
+// all of k when n8 <= 8 kKS) against Li's plane, each column tile its own
+// sums.
+template <int P>
+__device__ __forceinline__ void q_tiles(typename Form<P>::C (&c)[kQT][4],
+                                        const typename Form<P>::T (&a)[kKS][4],
+                                        const typename Form<P>::T* Lp, int ld, int n8, int jend,
+                                        int j0, int ch) {
+  typedef typename Form<P>::T T;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int ks = 0; ks < kKS; ++ks) {
+    const int k0 = 8 * (kKS * ch + ks);
+    if (k0 >= n8) break;
+#pragma unroll
+    for (int q = 0; q < kQT; ++q)
+      if (j0 + 8 * q < jend) {
+        const T* y = Lp + (j0 + 8 * q + g) * ld + k0 + t;
+        const T b[2] = {y[0], y[4]};
+        mma(c[q], a[ks], b);
+      }
+  }
+}
+
+// Q = A Li^T on B node-major nodes (the file's head says how); ``nbuf``
+// spans of A.
+template <int P>
+__global__ void __launch_bounds__(kQThreads, 2)
+    q_kernel(const float* __restrict__ A, const float* __restrict__ Li, float* __restrict__ Q,
+             long long B, int m, int n, int nbuf) {
+  typedef typename Form<P>::T T;
+  typedef typename Form<P>::C C;
+  extern __shared__ __align__(16) float smem[];
+  const QLayout lay(m, n, nbuf);
+  float* const Lraw = smem + lay.lraw;
+  T* const Lp = reinterpret_cast<T*>(smem + lay.lplane);
+  uint64_t* const bar = reinterpret_cast<uint64_t*>(smem + lay.bars);   // A's two, Li's
+  const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int n8 = pad_to(n, 8), nct = n8 / 8, ld = plane_ld(n), chunks = (nct + kKS - 1) / kKS;
+  // row tiles [0, full) a warp each, in passes, Q over their rows of A; the
+  // rest a column tile a unit, units [k warp, k warp + k), Q to device memory
+  const int tiles = (m + 15) / 16, full = chunks == 1 ? tiles / kQWarps * kQWarps : 0;
+  const int units = (tiles - full) * nct, k = (units + kQWarps - 1) / kQWarps;
+  const long long mn = (long long)m * n, nn = (long long)n * n, staged = min(16LL * full, (long long)m) * n;
+  long long node = blockIdx.x;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 3; ++b) mbar_init(&bar[b], 1);
+    if (node < B) {   // every copy is issued before the barrier that precedes its wait
+      load_span(smem, A + node * mn, mn, &bar[0]);
+      load_span(Lraw, Li + node * nn, nn, &bar[2]);
+    }
+  }
+  __syncthreads();
+  for (unsigned it = 0; node < B; ++it, node += gridDim.x) {
+    const long long next = node + gridDim.x;
+    const int buf = nbuf == 2 ? it & 1 : 0;
+    mbar_wait(&bar[2], it & 1);
+    to_operand_plane<P>(Lraw + span_head(Li + node * nn), n, n, n8, n8, ld, Lp);
+    __syncthreads();   // Li's plane is in; its span is free for the next node's
+    if (threadIdx.x == 0 && next < B) {
+      load_span(Lraw, Li + next * nn, nn, &bar[2]);
+      if (nbuf == 2) {   // into the other span, once the last node's Q has left it
+        if (it > 0) bulk_wait_read();
+        load_span(smem + (buf ^ 1) * lay.araw, A + next * mn, mn, &bar[buf ^ 1]);
+      }
+    }
+    mbar_wait(&bar[buf], (it / nbuf) & 1);
+    float* const An = smem + buf * lay.araw + span_head(A + node * mn);   // A, then Q over it
+    float* const Qn = Q + node * mn;
+    T a[kKS][4];
+    for (int r0 = 16 * warp; r0 < 16 * full; r0 += 16 * kQWarps) {
+      load_rows<P>(a, An, r0, 0, m, n);
+      __syncwarp();   // the warp's fragments are in before Q is written over its rows
+      for (int j0 = 0; j0 < n8; j0 += 8 * kQT) {
+        C c[kQT][4] = {};
+        q_tiles<P>(c, a, Lp, ld, n8, n8, j0, 0);
+#pragma unroll
+        for (int q = 0; q < kQT; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = r0 + g + 8 * (e >> 1), col = j0 + 8 * q + 2 * t + (e & 1);
+            if (r < m && col < n) An[r * n + col] = (float)c[q][e];
+          }
+      }
+    }
+    for (int u = k * warp, r0 = -1; u < min(k * (warp + 1), units); ++u) {
+      const int r1 = 16 * (full + u / nct), j0 = 8 * (u % nct);
+      C c[kQT][4] = {};
+      for (int ch = 0; ch < chunks; ++ch) {
+        if (chunks > 1 || r1 != r0) load_rows<P>(a, An, r1, ch, m, n);
+        q_tiles<P>(c, a, Lp, ld, n8, j0 + 8, j0, ch);   // the one column tile j0
+      }
+      r0 = r1;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r1 + g + 8 * (e >> 1), col = j0 + 2 * t + (e & 1);
+        if (r < m && col < n) Qn[r * n + col] = (float)c[0][e];
+      }
+    }
+    fence_async_shared();
+    __syncthreads();   // Q's staged rows are in; every warp is done with A's span and Li's plane
+    if (threadIdx.x == 0) {
+      if (staged > 0) {
+        store_span(Qn, An, staged);
+        bulk_commit();
+      }
+      if (nbuf == 1) {   // one span: the next node's A once Q has left it
+        bulk_wait_read();
+        if (next < B) load_span(smem, A + next * mn, mn, &bar[0]);
+      }
+    }
+  }
+  if (threadIdx.x == 0) bulk_wait();
+}
+
+// The node's rows x cols matrix of x into dst: node-major by load_span
+// (thread 0, on bar: from dst[span_head]), node-minor by every thread's
+// 4-byte asynchronous copies, row-major from dst[0], one committed group.
+template <bool kMinor>
+__device__ void fetch(float* dst, const float* x, long long node, int rows, int cols,
+                      uint64_t* bar) {
+  const long long count = (long long)rows * cols;
+  if (!kMinor) {
+    load_span(dst, x + node * count, count, bar);
+    return;
+  }
+  // entry i = r cols + c of the node at ((tile rows cols + i) 128 + node % 128
+  const float* const xn = x + (node >> 7) * count * 128 + (node & 127);
+  for (int i = threadIdx.x; i < count; i += blockDim.x)
+    __pipeline_memcpy_async(dst + i, xn + (long long)i * 128, sizeof(float));
+  __pipeline_commit();
+}
+// This thread's copies of fetch are in (node-minor; a block barrier then
+// shows every thread's), or the phase of bar with this parity (node-major).
+template <bool kMinor>
+__device__ __forceinline__ void await(uint64_t* bar, unsigned parity) {
+  if (kMinor)
+    __pipeline_wait_prior(0);
+  else
+    mbar_wait(bar, parity);
+}
+// Where fetch put the node's first entry (and where a node-major output
+// starts in its staging span).
+template <bool kMinor>
+__device__ __forceinline__ int head(const float* x, long long node, long long count) {
+  return kMinor ? 0 : span_head(x + node * count);
+}
+
+// (G1, G2) = (A^T A, Q^T Q), Q = A Li^T rounded to float32, on B nodes
+// (the file's head says how); W warps a block.
+template <int P, bool kMinor, int W>
+__global__ void __launch_bounds__(32 * W, 16 / W)
+    composite_kernel(const float* __restrict__ A, const float* __restrict__ Li,
+                     float* __restrict__ G1, float* __restrict__ G2, long long B, int m, int n,
+                     int nbuf) {
+  typedef typename Form<P>::T T;
+  typedef typename Form<P>::C C;
+  extern __shared__ __align__(16) float smem[];
+  const CompositeLayout lay(m, n, nbuf);
+  const int n8 = pad_to(n, 8), w = pad_to(n, 16), ld = plane_ld(n), S = w / 16;
+  const long long mn = (long long)m * n, nn = (long long)n * n;
+  float* const Lraw = smem + lay.lraw;
+  T* const Lp = reinterpret_cast<T*>(smem + lay.lplane);
+  T* const Ap = reinterpret_cast<T*>(smem + lay.aplane);
+  T* const Qp = reinterpret_cast<T*>(smem + lay.qplane);
+  uint64_t* const bar = reinterpret_cast<uint64_t*>(smem + lay.bars);   // A's two, Li's
+  const int warp = threadIdx.x / 32;
+  // the warp's super tile (si, sj) of both Grams' lower triangles (W of
+  // them at most)
+  int si = 0, sj = warp;
+  while (sj > si) sj -= ++si;
+  const int gi = 16 * si, gj = 16 * sj, gm = warp < S * (S + 1) / 2 ? tile_mask(gi, gj, n8, n8) : 0;
+  if (threadIdx.x == 0)
+    for (int b = 0; b < 3; ++b) mbar_init(&bar[b], 1);
+  long long node = blockIdx.x;
+  if (node < B) {   // every copy is issued before the barrier that precedes its wait
+    fetch<kMinor>(smem, A, node, m, n, &bar[0]);
+    fetch<kMinor>(Lraw, Li, node, n, n, &bar[2]);
+  }
+  __syncthreads();
+  const int steps = (m + kStep - 1) / kStep;
+  for (unsigned it = 0; node < B; ++it, node += gridDim.x) {
+    const long long next = node + gridDim.x;
+    const int buf = it % nbuf;
+    const float* const An = smem + buf * lay.araw + head<kMinor>(A, node, mn);
+    if (!kMinor && threadIdx.x == 0) bulk_wait_read();   // the last node's G has left the planes
+    await<kMinor>(&bar[2], it & 1);
+    await<kMinor>(&bar[buf], (it / nbuf) & 1);
+    __syncthreads();
+    const int rows0 = min(m, kStep);
+    to_operand_plane<P>(Lraw + head<kMinor>(Li, node, nn), n, n, n8, n8, ld, Lp);
+    to_operand_plane<P>(An, rows0, n, pad_to(rows0, 16), w, ld, Ap);
+    __syncthreads();   // the planes are in; Li's span is free for the next node's
+    if (next < B) {
+      fetch<kMinor>(Lraw, Li, next, n, n, &bar[2]);
+      if (nbuf == 2) fetch<kMinor>(smem + (buf ^ 1) * lay.araw, A, next, m, n, &bar[buf ^ 1]);
+    }
+    Tile16<C> g1, g2;
+    g1.zero();
+    g2.zero();
+    for (int s = 0; s < steps; ++s) {
+      const int rows = min(kStep, m - kStep * s), kp = pad_to(rows, 8), tiles = (rows + 15) / 16;
+      // one buffer: A's last rows are in their plane, so its span is free
+      if (nbuf == 1 && s == steps - 1 && next < B) fetch<kMinor>(smem, A, next, m, n, &bar[0]);
+      if (gm)
+#pragma unroll 2
+        for (int k0 = 0; k0 < kp; k0 += 8)
+          plane_step<P>(g1, Ap, 1, ld, Ap, 1, ld, gi, gj, k0, gm, gi == gj);
+      // warp W - 1 - u % W takes unit u of the step's Q: row tile u / S, column pair u % S
+      for (int u = W - 1 - warp; u < tiles * S; u += W) {
+        const int qi = 16 * (u / S), qj = 16 * (u % S), mask = tile_mask(qi, qj, 16 * tiles, n8);
+        Tile16<C> q;
+        q.zero();
+#pragma unroll 2
+        for (int k0 = 0; k0 < n8; k0 += 8) plane_step<P>(q, Ap, ld, 1, Lp, ld, 1, qi, qj, k0, mask);
+        q.visit(qi, qj, mask, [&](int i, int j, C v) { Qp[i * ld + j] = Form<P>::from((float)v); });
+      }
+      __syncthreads();   // the step's Q is in its plane; A's plane is free
+      if (gm)
+#pragma unroll 2
+        for (int k0 = 0; k0 < kp; k0 += 8)
+          plane_step<P>(g2, Qp, 1, ld, Qp, 1, ld, gi, gj, k0, gm, gi == gj);
+      if (s + 1 < steps) {
+        const int r1 = kStep * (s + 1), rows1 = min(kStep, m - r1);
+        to_operand_plane<P>(An + r1 * n, rows1, n, pad_to(rows1, 16), w, ld, Ap);
+      }
+      __syncthreads();   // the next step's rows are in; Q's plane is free
+    }
+    // G1 and G2 out through the planes, each entry of the lower triangle at
+    // (i, j) and (j, i)
+    float* const S1 = reinterpret_cast<float*>(Ap) + head<kMinor>(G1, node, nn);
+    float* const S2 = reinterpret_cast<float*>(Qp) + head<kMinor>(G2, node, nn);
+    if (gm) {
+      g1.visit(gi, gj, gm, [&](int i, int j, C v) {
+        if (i < n && j <= i) S1[i * n + j] = S1[j * n + i] = (float)v;
+      });
+      g2.visit(gi, gj, gm, [&](int i, int j, C v) {
+        if (i < n && j <= i) S2[i * n + j] = S2[j * n + i] = (float)v;
+      });
+    }
+    if (!kMinor) fence_async_shared();
+    __syncthreads();
+    if (kMinor) {
+      const long long at = (node >> 7) * nn * 128 + (node & 127);
+      for (int i = threadIdx.x; i < nn; i += blockDim.x) {
+        G1[at + (long long)i * 128] = S1[i];
+        G2[at + (long long)i * 128] = S2[i];
+      }
+    } else if (threadIdx.x == 0) {
+      store_span(G1 + node * nn, S1, nn);
+      store_span(G2 + node * nn, S2, nn);
+      bulk_commit();
+    }
+  }
+  if (!kMinor && threadIdx.x == 0) bulk_wait();
 }
 
 // direction 0: x node-minor (T, E, 128) -> y node-major (nodes, E);
@@ -650,7 +1030,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-typedef void (*MxuKernel)(const float*, const float*, float*, float*, int, int, int);
+typedef void (*GramKernel)(const float*, float*, int, int, int);
+typedef void (*QKernel)(const float*, const float*, float*, long long, int, int, int);
+typedef void (*CompositeKernel)(const float*, const float*, float*, float*, long long, int, int,
+                                int);
+
+template <int P, bool kMinor>
+CompositeKernel composite_instance(int n) {
+  return n <= kCNarrow ? composite_kernel<P, kMinor, 8> : composite_kernel<P, kMinor, 16>;
+}
 
 // Super tiles a warp holds for the Gram of n columns: 2 up to n = 80 (15
 // super tiles over 8 warps), 5 up to 128 (36).
@@ -659,45 +1047,74 @@ inline int super_tiles(int n) {
   return nst <= 2 * kWarps ? 2 : nst <= 5 * kWarps ? 5 : 0;
 }
 
-template <int P, int kWhat, bool kMinor>
-MxuKernel pick(int st) {
-  return st == 2 ? mxu_kernel<P, kWhat, kMinor, 2> : st == 5 ? mxu_kernel<P, kWhat, kMinor, 5> : nullptr;
+template <int P, bool kMinor>
+GramKernel pick(int st) {
+  return st == 2 ? gram_kernel<P, kMinor, 2> : st == 5 ? gram_kernel<P, kMinor, 5> : nullptr;
 }
 
-// The instance for a probe (kGram any n <= 128, DMMA and TF32 in either
-// layout, bf16 node-major; kQ node-major; kComposite n <= 80 in either
-// layout), or nullptr.
-MxuKernel mxu_instance(int what, int prec, int minor, int n) {
+// The Gram's instance (any n <= 128, DMMA and TF32 in either layout, bf16
+// node-major n <= 80), or nullptr.
+GramKernel gram_instance(int prec, int minor, int n) {
   const int st = super_tiles(n);
-  if (n <= 0 || st == 0 || prec < kDmma || prec > kBf16) return nullptr;
-  switch (what) {
-    case kGram:
-      if (prec == kBf16) return minor || st != 2 ? nullptr : mxu_kernel<kBf16, kGram, false, 2>;
-      if (prec == kDmma) return minor ? pick<kDmma, kGram, true>(st) : pick<kDmma, kGram, false>(st);
-      return minor ? pick<kTf32x3, kGram, true>(st) : pick<kTf32x3, kGram, false>(st);
-    case kQ:
-      if (minor || prec == kBf16) return nullptr;
-      return prec == kDmma ? mxu_kernel<kDmma, kQ, false, 1> : mxu_kernel<kTf32x3, kQ, false, 1>;
-    case kComposite:
-      if (prec == kBf16 || st != 2) return nullptr;
-      if (prec == kDmma)
-        return minor ? mxu_kernel<kDmma, kComposite, true, 2> : mxu_kernel<kDmma, kComposite, false, 2>;
-      return minor ? mxu_kernel<kTf32x3, kComposite, true, 2>
-                   : mxu_kernel<kTf32x3, kComposite, false, 2>;
-    default:
-      return nullptr;
+  if (st == 0) return nullptr;
+  if (prec == kBf16) return minor || st != 2 ? nullptr : gram_kernel<kBf16, false, 2>;
+  if (prec == kDmma) return minor ? pick<kDmma, true>(st) : pick<kDmma, false>(st);
+  return minor ? pick<kTf32x3, true>(st) : pick<kTf32x3, false>(st);
+}
+
+int smem_optin() {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return optin;
+}
+
+// A probe's launch: its kernel (one of the three forms), threads, dynamic
+// shared memory (floats) and A's buffers (the composite); no kernel where
+// the probe has no instance.
+struct Plan {
+  GramKernel gram = nullptr;
+  QKernel q = nullptr;
+  CompositeKernel composite = nullptr;
+  int threads = kThreads, nbuf = 1;
+  long long floats = 0;
+  const void* kernel() const {
+    return gram ? (const void*)gram : q ? (const void*)q : (const void*)composite;
   }
+};
+
+Plan plan(int what, int prec, int minor, int m, int n, int split) {
+  Plan p;
+  if (m <= 0 || n <= 0 || n > kMaxN || prec < kDmma || prec > kBf16) return p;
+  if (what == kGram) {
+    p.gram = gram_instance(prec, minor, n);
+    p.floats = GramLayout(prec, n, split).total;
+  } else if (what == kQ && !minor && prec != kBf16) {
+    p.q = prec == kDmma ? q_kernel<kDmma> : q_kernel<kTf32x3>;
+    p.threads = kQThreads;
+    // two spans of A where two blocks an SM still fit
+    p.nbuf = 2 * QLayout(m, n, 2).total * (long long)sizeof(float) <= smem_optin() ? 2 : 1;
+    p.floats = QLayout(m, n, p.nbuf).total;
+  } else if (what == kComposite && prec != kBf16 && n <= kMaxNComposite) {
+    if (prec == kDmma)
+      p.composite = minor ? composite_instance<kDmma, true>(n) : composite_instance<kDmma, false>(n);
+    else
+      p.composite = minor ? composite_instance<kTf32x3, true>(n) : composite_instance<kTf32x3, false>(n);
+    // 8 warps two blocks an SM, 16 one: two spans of A where those still fit
+    const int per_sm = n <= kCNarrow ? 2 : 1;
+    p.threads = 32 * 16 / per_sm;
+    p.nbuf = per_sm * CompositeLayout(m, n, 2).total * (long long)sizeof(float) <= smem_optin() ? 2 : 1;
+    p.floats = CompositeLayout(m, n, p.nbuf).total;
+  }
+  return p;
 }
 
 // The launch's dynamic shared memory, set on its kernel; an error where
 // there is no instance or the node does not fit.
 cudaError_t prepare(const void* kernel, long long floats, size_t* bytes) {
   if (kernel == nullptr) return cudaErrorInvalidValue;
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   *bytes = (size_t)floats * sizeof(float);
-  if (*bytes > (size_t)optin) return cudaErrorInvalidValue;
+  if (*bytes > (size_t)smem_optin()) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
 }
 
@@ -706,44 +1123,73 @@ cudaError_t prepare(const void* kernel, long long floats, size_t* bytes) {
 // A launch's dynamic shared memory, threads, the blocks an SM holds, and
 // its registers and local memory bytes (spills) a thread: ``what`` 0 the
 // Gram, 1 Q, 2 the composite (precision 0 DMMA, 1 TF32x3, 2 bf16; minor
-// the node-minor layout) at n columns with the split row, 3
-// node_transpose; returns the cudaError_t.
-extern "C" int mxu_probes_occupancy(int what, int prec, int minor, int n, int split,
-                                    long long* smem_bytes,
-                                    int* threads, int* blocks_per_sm, int* regs,
-                                    long long* local_bytes) {
-  const void* kernel = what == kTranspose ? (const void*)node_transpose_kernel
-                                          : (const void*)mxu_instance(what, prec, minor, n);
+// the node-minor layout) at m x n with the split row, 3 node_transpose;
+// returns the cudaError_t.
+extern "C" int mxu_probes_occupancy(int what, int prec, int minor, int m, int n, int split,
+                                    long long* smem_bytes, int* threads, int* blocks_per_sm,
+                                    int* regs, long long* local_bytes) {
+  Plan p;
+  const void* kernel = (const void*)node_transpose_kernel;
+  if (what != kTranspose) {
+    p = plan(what, prec, minor, m, n, split);
+    kernel = p.kernel();
+  }
   size_t bytes = 0;
-  cudaError_t err =
-      prepare(kernel, what == kTranspose ? 0 : Layout(what, prec, n, split).total, &bytes);
+  cudaError_t err = prepare(kernel, p.floats, &bytes);
   if (err != cudaSuccess) return (int)err;
   *smem_bytes = (long long)bytes;
-  *threads = kThreads;
+  *threads = p.threads;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (long long)attr.localSizeBytes;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, bytes);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, p.threads, bytes);
 }
 
-// The product probes on B nodes of m x n A (and n x n Li; A whole in
-// shared memory, so m up to ~600 at n = 80): ``what`` 0
-// O1 = A^T A (split: the row where the second part starts, 0 none), 1
-// O1 = A Li^T, 2 O1 = A^T A and O2 = Q^T Q, Q = A Li^T; node-minor
-// tensors (minor) hold ceil(B / 128) tiles of 128, and only the first B
-// nodes' slots are written.
+// The product probes on B nodes of m x n A (and n x n Li): ``what`` 0 O1
+// = A^T A (split: the row where the second part starts, 0 none), one block
+// a node; 1 O1 = A Li^T (node-major; A and O1 equal modulo 16 bytes, as
+// torch's allocations are), 2 O1 = A^T A and O2 = Q^T Q, Q = A Li^T, each
+// on ``blocks`` persistent blocks (0: the card's SMs x the blocks an SM
+// holds), at most B; A whole and Li in shared memory (q: m up to ~475 at n
+// = 80; the composite ~270, ~135 with two spans of A).  Node-minor tensors
+// (minor) hold ceil(B / 128) tiles of 128, and only the first B nodes'
+// slots are written.
 extern "C" int mxu_probe_launch(int what, int prec, int minor, const float* A, const float* Li,
                                 float* O1, float* O2, long long B, int m, int n, int split,
-                                void* stream) {
-  if (B <= 0 || m <= 0 || n <= 0 || split < 0 || split >= m || (split && what != kGram))
+                                long long blocks, void* stream) {
+  if (B <= 0 || m <= 0 || n <= 0 || split < 0 || split >= m || (split && what != kGram) ||
+      blocks < 0 ||
+      (what == kQ && (reinterpret_cast<uintptr_t>(A) - reinterpret_cast<uintptr_t>(O1)) % 16))
     return (int)cudaErrorInvalidValue;
-  const MxuKernel k = mxu_instance(what, prec, minor, n);
+  const Plan p = plan(what, prec, minor, m, n, split);
   size_t bytes = 0;
-  cudaError_t err = prepare((const void*)k, Layout(what, prec, n, split).total, &bytes);
+  cudaError_t err = prepare(p.kernel(), p.floats, &bytes);
   if (err != cudaSuccess) return (int)err;
-  k<<<B, kThreads, bytes, (cudaStream_t)stream>>>(A, Li, O1, O2, m, n, split);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (p.gram) {
+    const GramKernel k = p.gram;
+    k<<<B, kThreads, bytes, s>>>(A, O1, m, n, split);
+    return (int)cudaGetLastError();
+  }
+  long long grid = blocks;
+  if (grid == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p.kernel(), p.threads, bytes);
+    if (err != cudaSuccess) return (int)err;
+    grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  }
+  if (grid > B) grid = B;
+  if (p.q) {
+    const QKernel k = p.q;
+    k<<<grid, p.threads, bytes, s>>>(A, Li, O1, B, m, n, p.nbuf);
+  } else {
+    const CompositeKernel k = p.composite;
+    k<<<grid, p.threads, bytes, s>>>(A, Li, O1, O2, B, m, n, p.nbuf);
+  }
   return (int)cudaGetLastError();
 }
 

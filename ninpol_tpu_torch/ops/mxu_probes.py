@@ -14,9 +14,9 @@ times them on the route's inputs):
         node-minor (T, m, n, 128) -> (T, n, n, 128) (:166; the shape sweep
         r5_mxu_shapes.py:84, which may ``split`` the rows: G = A[:s]^T
         A[:s] + A[s:]^T A[s:], each part rounded to float32, then added)
-  q_tc(A, Li, precision)
+  q_tc(A, Li, precision, blocks)
         Q = A Li^T, (B, m, n), (B, n, n) -> (B, m, n) (:185); Li general
-  gram_q_gram_tc(A, Li, precision, layout, nodes)
+  gram_q_gram_tc(A, Li, precision, layout, nodes, blocks)
         (G1, G2) = (A^T A, Q^T Q) with Q = A Li^T rounded to float32
         (:215), in either layout
 
@@ -32,16 +32,21 @@ cores take them:
 Each plain version applies the same rounding, bit for bit, so a kernel
 and its plain version differ only in the order of their sums.
 
-All float32; n <= 128 (gram_q_gram_tc and bf16 n <= 80), m as far as A
-fits in shared memory (~600 rows at n = 80).  Node-minor
+All float32; n <= 128 (gram_q_gram_tc and bf16 n <= 80); m any for
+gram_tc, and for q_tc and gram_q_gram_tc as far as a node's A and Li fit
+in shared memory with their operand planes (at n = 80: ~475 rows for
+q_tc, ~270 for gram_q_gram_tc).  q_tc and gram_q_gram_tc run persistent
+blocks that walk the nodes (``blocks``, default the card's SMs times the
+blocks an SM holds); q_tc's A and output agree modulo 16 bytes on the
+card, as torch's allocations do.  Node-minor
 tensors hold 128 nodes a tile; ``nodes`` (default all the tiles' slots)
 says how many are real: the kernels compute those and the wrappers zero
 the others.  Each wrapper runs its plain version for CPU tensors and
 launches its kernel (built with nvcc on first use, in a library of its
 own) for CUDA tensors, or raises.  ``<wrapper>.launches`` counts kernel
 launches, ``<wrapper>.launches_by`` the same by ``instance(...)``.
-``occupancy(kernel, n, precision, layout, split)`` gives a launch's registers,
-spills, shared memory and blocks an SM.
+``occupancy(kernel, n, precision, layout, split, m)`` gives a launch's
+registers, spills, shared memory and blocks an SM.
 """
 from __future__ import annotations
 
@@ -161,12 +166,12 @@ def gram_q_gram_tc_reference(A, Li, precision="dmma"):
 def _bind(lib):
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.mxu_probe_launch.argtypes = [ci, ci, ci, vp, vp, vp, vp, ll, ci, ci,
-                                     ci, vp]
+                                     ci, ll, vp]
     lib.mxu_probe_launch.restype = ci
     lib.node_transpose_launch.argtypes = [vp, vp, ll, ci, ci, vp]
     lib.node_transpose_launch.restype = ci
     lib.mxu_probes_occupancy.argtypes = [
-        ci, ci, ci, ci, ci, ctypes.POINTER(ll), ctypes.POINTER(ci),
+        ci, ci, ci, ci, ci, ci, ctypes.POINTER(ll), ctypes.POINTER(ci),
         ctypes.POINTER(ci), ctypes.POINTER(ci), ctypes.POINTER(ll)]
     lib.mxu_probes_occupancy.restype = ci
 
@@ -195,14 +200,14 @@ def _launch(wrapper, name, what, fn, device, *args):
     wrapper.launches_by[name] += 1
 
 
-def occupancy(kernel, n, precision="dmma", layout="major", split=0):
-    """The launch of ``kernel`` at n columns (node_transpose: any) on the
-    current card (``cuda_lib.occupancy``)."""
+def occupancy(kernel, n, precision="dmma", layout="major", split=0, m=1):
+    """The launch of ``kernel`` at m x n (node_transpose: any; gram_tc: any
+    m) on the current card (``cuda_lib.occupancy``)."""
     return cuda_lib.occupancy(
         library.get().mxu_probes_occupancy,
-        f"{kernel} occupancy query (n={n}, {precision}, {layout}, "
+        f"{kernel} occupancy query (m={m}, n={n}, {precision}, {layout}, "
         f"split={split})",
-        _WHAT[kernel], _PREC[precision], int(layout == "minor"), n, split)
+        _WHAT[kernel], _PREC[precision], int(layout == "minor"), m, n, split)
 
 
 def _check_precision(precision, allowed=PRECISIONS):
@@ -275,11 +280,17 @@ def node_transpose(x, direction, nodes=None):
     return out
 
 
-def _product(wrapper, name, prec, layout, A, Li, outs, B, m, n, split):
+def _product(wrapper, name, prec, layout, A, Li, outs, B, m, n, split,
+             blocks=None):
     _launch(wrapper, name, f"{wrapper.__name__} ({prec}, {layout}, B={B}, "
                            f"m={m}, n={n}, split={split})",
             "mxu_probe_launch", A.device, _WHAT[wrapper.__name__], _PREC[prec],
-            int(layout == "minor"), A, Li, *outs, B, m, n, split)
+            int(layout == "minor"), A, Li, *outs, B, m, n, split, blocks or 0)
+
+
+def _check_blocks(blocks):
+    if blocks is not None and blocks < 1:
+        raise ValueError(f"blocks must be >= 1, got {blocks}")
 
 
 def _check_n(n, limit):
@@ -314,9 +325,12 @@ def gram_tc(A, precision="dmma", layout="major", split=0, nodes=None):
     return out
 
 
-def q_tc(A, Li, precision="dmma"):
-    """A Li^T on the tensor cores: (B, m, n), (B, n, n) -> (B, m, n)."""
+def q_tc(A, Li, precision="dmma", blocks=None):
+    """A Li^T on the tensor cores: (B, m, n), (B, n, n) -> (B, m, n);
+    ``blocks`` persistent blocks (default: the card's SMs x the blocks an
+    SM holds)."""
     _check_precision(precision, PRECISIONS[:2])
+    _check_blocks(blocks)
     m, n = _matrix_dims("A", A, "major")
     _check_n(n, MAX_N)
     B = A.shape[0]
@@ -327,16 +341,20 @@ def q_tc(A, Li, precision="dmma"):
     out = torch.empty_like(A)
     if B:
         _product(q_tc, instance("q_tc", precision=precision), precision,
-                 "major", A, Li, (out, None), B, m, n, 0)
+                 "major", A, Li, (out, None), B, m, n, 0, blocks)
     return out
 
 
-def gram_q_gram_tc(A, Li, precision="dmma", layout="major", nodes=None):
+def gram_q_gram_tc(A, Li, precision="dmma", layout="major", nodes=None,
+                   blocks=None):
     """(A^T A, Q^T Q), Q = A Li^T rounded to float32, on the tensor cores,
     node-major ((B, m, n), (B, n, n) -> 2 x (B, n, n)) or node-minor
-    ((T, m, n, 128), (T, n, n, 128) -> 2 x (T, n, n, 128))."""
+    ((T, m, n, 128), (T, n, n, 128) -> 2 x (T, n, n, 128)); ``blocks``
+    persistent blocks (default: the card's SMs x the blocks an SM
+    holds)."""
     _check_precision(precision, PRECISIONS[:2])
     _check_layout(layout)
+    _check_blocks(blocks)
     m, n = _matrix_dims("A", A, layout)
     _check_n(n, MAX_N_COMPOSITE)
     B = _node_count(A, layout, nodes)
@@ -354,7 +372,7 @@ def gram_q_gram_tc(A, Li, precision="dmma", layout="major", nodes=None):
     if B:
         _product(gram_q_gram_tc, instance("gram_q_gram_tc",
                                           precision=precision, layout=layout),
-                 precision, layout, A, Li, outs, B, m, n, 0)
+                 precision, layout, A, Li, outs, B, m, n, 0, blocks)
     return outs
 
 

@@ -78,6 +78,17 @@ _ANSWERS = {("node_transpose", "in"): "node_transpose (in)",
             ("gram_tc", "bf16"): "gram_tc (bf16)",
             ("gram_tc", "minor"): "gram_tc (node-minor)"}
 SHAPES_ANSWER = "gram_tc (shapes)"
+# the sites whose kernels were designed a second time, for the card: how
+REDESIGNED = {
+    "q_tc": "persistent blocks; a node's A and Li each by one cp.async.bulk, "
+            "the next node's Li in flight; Li converted once a node into an "
+            "operand plane, A's fragments once into registers (a warp a row "
+            "tile); Q out by one bulk store a node",
+    "gram_q_gram_tc": "persistent blocks of 16 warps; A (double-buffered) "
+                      "and Li by cp.async.bulk node-major; 48-row steps, "
+                      "each operand converted once; a warp one super tile "
+                      "of G1 and of G2 and one Q unit a step; G1 and G2 out "
+                      "by bulk stores"}
 
 
 def label(kernel, kw):
@@ -288,7 +299,8 @@ def time_probes(prepared, cuts):
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "occupancy": mp.occupancy(kernel, head["n"], prec,
-                                          kw.get("layout", "major"))}
+                                          kw.get("layout", "major"),
+                                          m=head["m"])}
         row["standalone"] = {
             "gram_f32": ks.best_ms(lambda: cq.gram_f32(t["As"])),
             "round2_gram_f32": ks.best_ms(

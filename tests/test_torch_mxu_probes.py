@@ -9,6 +9,7 @@ tests/utils/cuda_emu (its exact copies of the DMMA, TF32 and bf16 MMA
 fragments) against its plain version; the tool's error, verdict and bound
 paths; chip_smoke.py's kernels-line entries."""
 import contextlib
+import ctypes
 import importlib.util
 import os
 
@@ -387,6 +388,167 @@ def test_kernel_matches_plain_version(emu, kernel, kw, m, n, B):
             assert not mp.node_transpose_reference(o, "in")[B:].any()
 
 
+# the persistent bodies of q_tc and gram_q_gram_tc on a grid of ``blocks``
+# blocks: (30, 19) on 3 and 5 nodes over 2 blocks (uneven node counts, spans
+# from every 4-byte boundary), the interior class on 3 nodes over 2 blocks
+# (q_tc's Q staged over A and stored in bulk), a node-minor composite whose
+# second tile holds 3 real nodes, q_tc past n = 80 (A's fragments by chunks)
+# and at m = 61 (row tiles split into column units)
+PERSISTENT = [(k, p, lay, m, n, B, blocks)
+              for m, n, B, blocks in ((30, 19, 3, 2), (30, 19, 5, 2))
+              for k, lay in (("q_tc", "major"), ("gram_q_gram_tc", "major"),
+                             ("gram_q_gram_tc", "minor"))
+              for p in tool.FLOAT32_TRUE] + [
+    ("q_tc", "dmma", "major", 132, 73, 3, 2),
+    ("q_tc", "tf32x3", "major", 132, 73, 3, 2),
+    ("gram_q_gram_tc", "dmma", "major", 132, 73, 3, 2),
+    ("gram_q_gram_tc", "dmma", "minor", 30, 19, NT + 3, 3),
+    ("gram_q_gram_tc", "tf32x3", "minor", 30, 19, NT + 3, 3),
+    ("q_tc", "dmma", "major", 20, 90, 3, 2),
+    ("q_tc", "tf32x3", "major", 61, 33, 3, 2)]
+
+
+@pytest.mark.parametrize(
+    "kernel,precision,layout,m,n,B,blocks", PERSISTENT,
+    ids=[f"{k}-{p}-{lay}-{m}x{n}-B{B}-g{g}"
+         for k, p, lay, m, n, B, g in PERSISTENT])
+def test_persistent_bodies_match_plain(emu, kernel, precision, layout, m, n,
+                                       B, blocks):
+    """q_tc and gram_q_gram_tc on ``blocks`` persistent blocks against their
+    plain versions within TOL of the operands' magnitude product, DMMA also
+    against float64; node-minor slots past B zero; one launch counted."""
+    A, Li, scales = _inputs(m, n, B, seed=B)
+    A, Li = _t(A), _t(Li)
+    scales = {k: torch.from_numpy(v) for k, v in scales.items()}
+    kw = {"precision": precision} if kernel == "q_tc" else {
+        "precision": precision, "layout": layout}
+    name = tool.label(kernel, kw)
+    before = getattr(mp, kernel).launches_by[name]
+    if kernel == "q_tc":
+        got = (mp.q_tc(A, Li, precision, blocks=blocks),)
+    else:
+        if layout == "minor":
+            X, L = (mp.node_transpose_reference(x, "out") for x in (A, Li))
+            outs = mp.gram_q_gram_tc(X, L, precision, "minor", nodes=B,
+                                     blocks=blocks)
+            for o in outs:
+                assert not mp.node_transpose_reference(o, "in")[B:].any()
+            got = tuple(mp.node_transpose_reference(o, "in", B) for o in outs)
+        else:
+            got = mp.gram_q_gram_tc(A, Li, precision, blocks=blocks)
+    assert getattr(mp, kernel).launches_by[name] == before + 1
+    ref = ((mp.q_tc_reference(A, Li, precision),) if kernel == "q_tc"
+           else mp.gram_q_gram_tc_reference(A, Li, precision))
+    A64, Li64 = A.double(), Li.double()
+    Q64 = A64 @ Li64.transpose(1, 2)
+    e = tool.errors(kernel, kw, got, ref, scales,
+                    {"gram": A64.transpose(1, 2) @ A64, "q": Q64,
+                     "gram2": Q64.transpose(1, 2) @ Q64})
+    assert e["max_err"] <= TOL, e
+    if precision == "dmma":
+        assert e["f64_err"] < 1e-7, e
+
+
+def test_persistent_launch_checks(emu):
+    """blocks below 1 raise; on the card q_tc's A and output must agree
+    modulo 16 bytes (its Q is staged over A's span): a launch that breaks
+    it is refused, not run."""
+    A, Li, _ = _inputs(30, 19, 2)
+    A, Li = _t(A), _t(Li)
+    with pytest.raises(ValueError):
+        mp.q_tc(A, Li, blocks=0)
+    with pytest.raises(ValueError):
+        mp.gram_q_gram_tc(A, Li, blocks=-1)
+    buf = torch.zeros(A.numel() + 1)
+    shifted = buf[1:].view(A.shape)
+    shifted.copy_(A)
+    with pytest.raises(RuntimeError):
+        mp.q_tc(shifted, Li)
+
+
+_BULK = r"""
+#include <cuda_runtime.h>
+#include "bulk_copy.cuh"
+using namespace bulk_copy;
+
+// two nodes of ``count`` floats each, from x + off[k]: thread 0 brings the
+// 16-byte span that covers node k into shared memory on one mbarrier
+// (phases 0 and 1), every thread doubles its share into a staging area at
+// the same offset modulo 16 bytes, and thread 0 stores the node to y +
+// off[k] by one bulk store of the aligned interior and plain stores of the
+// floats either side
+__global__ void span_kernel(const float* x, float* y, const long long* off, int count) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t bar[1];
+  float* const raw = smem;
+  float* const stage = smem + (count + 11) / 4 * 4;   // 16-byte aligned, past raw's span
+  // every copy is issued before the barrier that precedes its wait
+  auto load = [&](int k) {
+    const float* src = x + off[k];
+    const int h = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+    bulk_load(raw, src - h, (unsigned)((h + count + 3) / 4 * 16), bar);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    load(0);
+  }
+  __syncthreads();
+  for (int k = 0; k < 2; ++k) {
+    mbar_wait(bar, k & 1);
+    const int h = (int)((reinterpret_cast<uintptr_t>(x + off[k]) >> 2) & 3);
+    float* const out = stage + (int)((reinterpret_cast<uintptr_t>(y + off[k]) >> 2) & 3);
+    for (int i = threadIdx.x; i < count; i += blockDim.x) out[i] = 2.f * raw[h + i];
+    fence_async_shared();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float* const dst = y + off[k];
+      const int lo = min((4 - (int)((reinterpret_cast<uintptr_t>(dst) >> 2) & 3)) & 3, count);
+      const int hi = lo + (count - lo) / 4 * 4;
+      for (int i = 0; i < lo; ++i) dst[i] = out[i];
+      for (int i = hi; i < count; ++i) dst[i] = out[i];
+      if (hi > lo) bulk_store(dst + lo, out + lo, 4 * (hi - lo));
+      bulk_commit();
+      bulk_wait_read();
+      if (k == 0) load(1);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) bulk_wait();
+}
+
+extern "C" int span_copy(const float* x, float* y, const long long* off, int count) {
+  span_kernel<<<1, 64, (2 * count + 24) * sizeof(float), nullptr>>>(x, y, off, count);
+  return 0;
+}
+"""
+
+
+def test_emulated_bulk_store_and_span_helpers(tmp_path):
+    """csrc/bulk_copy.cuh in a block under the emulator: a node's span in
+    by cp.async.bulk on an mbarrier whose phase flips node by node, out by
+    a bulk store of the 16-byte-aligned interior and plain stores either
+    side, with the fence, the group commit and its waits; spans from each
+    4-byte boundary come back doubled and nothing outside them changes."""
+    if cuda_emu.gxx() is None:
+        pytest.skip("needs g++ to build the emulated kernels")
+
+    def bind(lib):
+        vp = ctypes.c_void_p
+        lib.span_copy.argtypes = [vp, vp, vp, ctypes.c_int]
+
+    lib = cuda_emu.build_text(_BULK, "bulk", str(tmp_path), bind)
+    x = torch.arange(256, dtype=torch.float32) + 1
+    for count in (3, 21, 64):
+        for first, second in ((0, 101), (1, 150), (2, 7), (3, 170)):
+            y = torch.full((256,), -1.0)
+            off = torch.tensor([first, second], dtype=torch.int64)
+            lib.span_copy(x.data_ptr(), y.data_ptr(), off.data_ptr(), count)
+            want = torch.full((256,), -1.0)
+            for o in (first, second):
+                want[o:o + count] = 2 * x[o:o + count]
+            assert torch.equal(y, want), (count, first, second)
+
+
 def test_tool_errors_on_route_chunks(emu_lib, monkeypatch):
     """The tool's inputs and error path on the route's own chunks
     (tetra_mesh(3)): the unfused route's tensors from ``prepare`` for both
@@ -557,6 +719,10 @@ def test_kernels_line_names_each_site():
     assert len(c["classes"]) == 2 * 4
     s = by_site["tools/r5_mxu_shapes.py:84"]
     assert s["ms"] == 5.0 and s["launches"] == 84
+    for site in (185, 215):
+        e = by_site[f"tools/mxu_probe.py:{site}"]
+        assert e["status"] == "redesigned" and e["design"]
+    assert "status" not in g
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for e in entries:

@@ -52,8 +52,14 @@ def build(name, out_dir, bind, define=None):
 
 def build_text(text, name, out_dir, bind):
     """A CUDA source given as text (a test's own kernels, which may call
-    the emulator's ``emu_*`` primitives directly), built as ``build``
-    builds a file of csrc/."""
+    the emulator's ``emu_*`` primitives directly or include csrc/'s
+    headers), built as ``build`` builds a file of csrc/."""
+    for f in os.listdir(CSRC):
+        if f.endswith(".cuh"):
+            with open(os.path.join(CSRC, f)) as src:
+                header = to_cpp(src.read())
+            with open(os.path.join(out_dir, f), "w") as dst:
+                dst.write(header)
     with open(os.path.join(out_dir, f"{name}.cu"), "w") as dst:
         dst.write(to_cpp(text))
     return _compile(name, name, out_dir, bind)

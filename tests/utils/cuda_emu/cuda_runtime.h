@@ -312,6 +312,18 @@ inline void emu_cp_async_bulk(void* dst, const void* src, unsigned bytes, uint64
   std::memcpy(dst, src, bytes);
   emu_mbarrier_update(bar, 0, -(int32_t)bytes);
 }
+// cp.async.bulk.global.shared::cta.bulk_group: the store is made at issue,
+// so its bulk group's commit and waits have nothing left to wait for.
+// Both ends 16-byte aligned and the bytes a multiple of 16, as the card
+// requires; anything else aborts.
+inline void emu_cp_async_bulk_store(void* dst, const void* src, unsigned bytes) {
+  if (reinterpret_cast<uintptr_t>(dst) % 16 || reinterpret_cast<uintptr_t>(src) % 16 ||
+      bytes % 16) {
+    std::fprintf(stderr, "cuda_emu: a bulk store of %u bytes is not 16-byte aligned\n", bytes);
+    std::abort();
+  }
+  std::memcpy(dst, src, bytes);
+}
 // bar.sync / bar.arrive on named barrier ``id`` (1-15) of ``count``
 // threads, a warp-wide call: the warp's lanes meet, then lane 0 adds the
 // warp's 32 threads to the barrier's count; the arrival that completes it
