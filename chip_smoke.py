@@ -157,13 +157,15 @@ hexahedral one, and checks them all:
      node-major and node-minor; q_tc; gram_q_gram_tc in both layouts),
      each timed as phase 10 times a cut, beside its bound, the library
      call, phase 10's gram1, q and gram2 cuts and the unfused Gram
-     kernels; registers, spills, shared memory and blocks per SM; then
-     the node-minor Gram at r5_mxu_shapes.py's seven shapes on 16,384
-     synthetic nodes; the TPU probes' verdicts (mxu, precision, shapes);
-     every instance launched in the timed run and held to its plain
-     version (node_transpose bit for bit, the products within 1e-5 of
-     the operands' magnitude product a node), with its distance from
-     float64; one {"mxu_probes": ...} JSON line;
+     kernels; registers, spills, shared memory and blocks per SM; the
+     DMMA node-major Gram also at kernel 1's shared memory request (the
+     gram1 verdict); then the node-minor Gram at r5_mxu_shapes.py's seven
+     shapes on 16,384 synthetic nodes; the TPU probes' verdicts (mxu,
+     precision, shapes); every instance, at both requests, launched in
+     the timed run and held to its plain version (node_transpose bit for
+     bit, the products within 1e-5 of the operands' magnitude product a
+     node), with its distance from float64; one {"mxu_probes": ...} JSON
+     line;
  13. kernel 1's input stream (tools/input_probes.py) on phase 4's chunks:
      the two kernels of csrc/input_probes.cu, input_sum (each node's
      kernel-1 inputs summed: the thirteen tensors as the route gathers
@@ -1575,7 +1577,8 @@ def mxu_phase(chunks, stage_table):
     (tools/mxu_probes.py) on phase 4's chunks, beside phase 10's cuts
     (``stage_table``), then the shape sweep: the timed runs, with every
     probe kernel's launch counts set to 0 just before and read just after
-    (each instance must have launched), then each instance held to its
+    (each instance must have launched, the DMMA node-major Gram also at
+    kernel 1's shared memory request), then each instance held to its
     plain version.  Returns (table, sweep, launches)."""
     mx = mxu_probes
     chunks = [(c, {k: None if v is None else v.cuda()
@@ -1594,14 +1597,16 @@ def mxu_phase(chunks, stage_table):
     for name, count in launches.items():
         check(count > 0, f"phase 12: {name} was not launched in the timed "
                          f"run: {launches}")
+    for msg in mx.unlaunched_k1(table):
+        check(False, f"phase 12: {msg}")
     return table, sweep, launches
 
 
 def mxu_entries(table, sweep, launches):
     """Phase 12's entries: ``probe_entries`` of the route's chunks (the
     redesigned sites' with "status" and "design"), and the shape sweep's
-    (r5_mxu_shapes.py:84), its fastest instance at (132, 80) with every
-    shape in "classes"."""
+    (r5_mxu_shapes.py:84, redesigned), its fastest instance at (132, 80)
+    with every shape in "classes"."""
     mx = mxu_probes
     out = probe_entries(mx, "mxu_probes.cu", table, launches)
     for e in out:
@@ -1610,6 +1615,8 @@ def mxu_entries(table, sweep, launches):
     at = [r for r in sweep if (r["m"], r["n"], r["split"]) == (132, 80, 0)]
     best = min(at, key=lambda r: r["ms"])
     out.append({"name": mx.SHAPES_ANSWER, "route": "cuda",
+                "status": "redesigned",
+                "design": mx.REDESIGNED[mx.SHAPES_ANSWER],
                 "source": "ninpol_tpu_torch/csrc/mxu_probes.cu",
                 "replaces": site_of(mx.SHAPES_ANSWER),
                 "launches": launches[mx.SHAPES_ANSWER],

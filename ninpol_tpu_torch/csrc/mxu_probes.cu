@@ -22,22 +22,57 @@
  *            pass into float32 sums: the TPU's DEFAULT on float32 (989
  *            TFLOP/s; the Gram only).
  *
- * gram_kernel<P, kMinor, kST> replaces tools/mxu_probe.py:123 and :138
- *   (node-major), :166 (node-minor: the transposes in and out are its
- *   reads and writes) and r5_mxu_shapes.py:84 (node-minor, any (m, n), a
- *   split row).  One block of 8 warps a node.  A comes in row blocks of
- *   kRows = 32: each block's raw copy (16 bytes a copy where node-major
- *   rows allow) is in flight two blocks ahead, and at its turn is
- *   converted once into a plane that the products read without converting
- *   again: float64 (DMMA), TF32 hi and lo, or bf16 pairs of rows (one
- *   register of a fragment).  n is padded with zeros to 16 (the 16 x 8 MMA
- *   tiles).  A warp owns up to kST 16 x 16 super tiles of the Gram's lower
- *   triangle for the whole kernel, their sums in registers (two 16 x 8
- *   tiles: each A fragment serves two products), so G leaves once,
- *   mirrored.  Plane strides: w + 4 float64s, w + 8 words (w = n padded
- *   to 16), so the Gram's fragments (rows t, columns g) meet no bank
- *   conflict.  Bound by bytes at (132, 73) on a 32,768-node chunk (A's and
- *   G's 0.59 ms, its products on the triangle 0.35 ms of DMMA).
+ * The Gram G = A^T A replaces tools/mxu_probe.py:123 and :138 (node-major),
+ *   :166 (node-minor: the transposes in and out are its reads and writes)
+ *   and r5_mxu_shapes.py:84 (node-minor, any (m, n), a split row).  Both
+ *   layouts convert A once into planes that the products read without
+ *   converting again: float64 (DMMA), TF32 hi and lo, or bf16 pairs of
+ *   rows (one register of a fragment); n is padded with zeros to 16 (the
+ *   16 x 8 MMA tiles).  Plane strides w + 4 float64s, w + 8 words (w = n
+ *   padded to 16), so the fragments (rows t, columns g) meet no bank
+ *   conflict.  A warp sums 16 x 16 super tiles of the lower triangle (two
+ *   16 x 8 tiles: each A fragment serves two products; on the diagonal the
+ *   B fragments are rows of the A fragment, not loaded again) in registers
+ *   until its node's last row.
+ *
+ * gram_major_kernel<P, kST> (node-major): persistent blocks, one an SM, of
+ *   kGWarps = 16 MMA warps and kCWarps = 8 converting warps.  A step is a
+ *   node (a node too tall for shared memory: chunks of its rows): its rows
+ *   arrive by one cp.async.bulk of their 16-byte span into the raw span,
+ *   on an mbarrier, a step ahead; the converting warps turn them into the
+ *   step's plane (each thread's loads of 32 rows in flight at once) while
+ *   the MMA warps run the previous step's products over all its rows with
+ *   no barrier between k steps, then refill the raw span.  Two planes, one
+ *   block barrier a step.  A node's G is assembled mirrored over its plane
+ *   once every MMA warp is done with it, and leaves by one bulk store
+ *   (plain stores for the at most 3 floats either side of its aligned
+ *   interior) while the next conversion fills first the rows whose entries
+ *   lie past G's span.  221,360 bytes at (132, 73) in DMMA: two
+ *   136-row planes and a 38,560-byte span.  The products ran at half the
+ *   DMMA rate when every warp both converted and multiplied with a barrier
+ *   every 32 rows (the two phases do not overlap inside a block), which the
+ *   split of roles and the node-sized step remove.  Bound by bytes at (132,
+ *   73) on a 32,768-node chunk (A's and G's 0.59 ms, its padded DMMA
+ *   products 0.51 ms).
+ *
+ * gram_minor_kernel<P> (node-minor) takes a group of kGroup = 8
+ *   consecutive nodes of one 128-node tile, so every (r, c) entry of A and
+ *   of G that it moves is one whole 32-byte sector: A by 16-byte cp.async
+ *   copies, kMRows = 8 rows of the group a step, two steps ahead (three
+ *   buffers, two at n > 80), each node's rows converted into its own plane;
+ *   G by stores of whole sectors (a warp store that fills half of each of
+ *   its sectors ran several times slower on the card): each
+ *   lane's values through a small buffer of the warps that share the super
+ *   tile, then two lanes an entry.  The group's sums do not fit in
+ *   registers (8 nodes x 15 super tiles at n = 73 are 245 KB in float64),
+ *   so a block of 16 warps takes kSpp = 8 super tiles of every node of the
+ *   group (a work item), a warp one super tile of kMNodes = 4 nodes (64
+ *   registers of DMMA sums, at 128 a thread; TF32 at 8 nodes a warp
+ *   spilled); the group's other super tiles are further items, which
+ *   neighbouring blocks run at the same time, so A's second read comes
+ *   from L2.  Persistent blocks walk the items.  A split row (its own
+ *   instance) rounds the first part's sums into G and adds the second's to
+ *   them by atomic additions.
  *
  * q_kernel<P> replaces tools/mxu_probe.py:185: Q = A Li^T, node-major, Li
  *   general.  Persistent blocks of 8 warps (the card's SMs x the blocks an
@@ -103,9 +138,10 @@
  *
  * Node-minor is the TPU's VPU layout, (B / 128, rows, cols, 128) with a
  * node's entry (r, c) at ((tile rows + r) cols + c) 128 + node % 128;
- * node-major (B, rows, cols), the port's.  A node-minor block still takes
- * one node at a time: its 4-byte reads share 32-byte sectors with the
- * tile's other nodes, which the blocks beside it read through L2.
+ * node-major (B, rows, cols), the port's.  The composite's node-minor
+ * blocks take one node at a time: their 4-byte reads share 32-byte
+ * sectors with the tile's other nodes, which the blocks beside it read
+ * through L2.
  *
  * Every launch function returns a cudaError_t as int (0 on success).
  */
@@ -120,7 +156,12 @@ namespace {
 using namespace bulk_copy;
 
 constexpr int kWarps = 8, kThreads = 32 * kWarps;
-constexpr int kRows = 32;    // rows of A a Gram block step stages
+constexpr int kRows = 32;    // rows of A a node-major Gram step converts
+constexpr int kGWarps = 16, kCWarps = 8;   // the node-major Gram's MMA and converting warps
+constexpr int kGThreads = 32 * (kGWarps + kCWarps);
+constexpr int kGroup = 8;    // nodes a node-minor Gram block takes: a 32-byte sector an entry
+constexpr int kMWarps = 16, kMThreads = 32 * kMWarps;   // the node-minor Gram's block
+constexpr int kMRows = 8;    // rows of A a node-minor Gram step stages (one k step)
 constexpr int kMaxN = 128;   // widest n of the Gram and Q
 constexpr int kMaxNComposite = 80;
 constexpr int kQWarps = 8, kQThreads = 32 * kQWarps;   // q_kernel: a row tile a warp
@@ -139,23 +180,12 @@ __host__ __device__ inline int pad_to(int x, int k) { return (x + k - 1) / k * k
 // pairs), 32-bit words at w + 8 (8 or 24 modulo 32: the four rows 8 banks
 // apart).
 __host__ __device__ inline int a_ld(int prec, int w) { return prec == kDmma ? w + 4 : w + 8; }
-// A Gram plane of kRows rows (floats): float64, TF32 hi and lo, or bf16 pairs
-__host__ __device__ inline int plane_floats(int prec, int w) {
+// A Gram plane of ``rows`` rows (floats): float64, TF32 hi then lo, or
+// bf16 pairs of rows
+__host__ __device__ inline int plane_floats(int prec, int w, int rows) {
   const int ld = a_ld(prec, w);
-  return prec == kBf16 ? kRows / 2 * ld : 2 * kRows * ld;
+  return prec == kBf16 ? rows / 2 * ld : 2 * rows * ld;
 }
-
-// A Gram block's shared memory (floats): A's two raw row blocks, its
-// plane, the split's first part (w x w).
-struct GramLayout {
-  long long ap, part, total;
-  __host__ __device__ GramLayout(int prec, int n, int split) {
-    const int w = pad_to(n, 16);
-    ap = 2LL * kRows * n;
-    part = ap + plane_floats(prec, w);
-    total = part + (split > 0 ? (long long)w * w : 0);
-  }
-};
 
 // The 8-byte operand planes' row stride (q_kernel, composite_kernel): w +
 // 4 entries, 4 modulo 16.
@@ -163,6 +193,58 @@ __host__ __device__ inline int plane_ld(int n) { return pad_to(n, 16) + 4; }
 // Floats of a span that covers ``count`` floats from any 4-byte boundary:
 // whole 16-byte words, one more than ``count`` needs at most.
 __host__ __device__ inline long long span_floats(long long count) { return (count + 3) / 4 * 4 + 4; }
+
+// Row blocks of A: [0, p1) then [p1, m) (p1 = split, or m), ``size`` rows
+// at a time; block b starts at row r0 and holds the returned count.
+struct RowBlocks {
+  int m, p1, size, nb1, nb;
+  __host__ __device__ RowBlocks(int m_, int split, int size_) : m(m_), size(size_) {
+    p1 = split > 0 ? split : m;
+    nb1 = (p1 + size - 1) / size;
+    nb = nb1 + (split > 0 ? (m - split + size - 1) / size : 0);
+  }
+  __device__ int rows(int b, int& r0) const {
+    r0 = b < nb1 ? b * size : p1 + (b - nb1) * size;
+    return min(size, (b < nb1 ? p1 : m) - r0);
+  }
+};
+
+// The node-major Gram's shared memory (floats): the two planes of
+// ``chunk`` rows (padded to the MMA's k; each also G's staging span), the
+// span of a chunk's raw rows, the split's first part (w x w), the span's
+// mbarrier.
+struct GramLayout {
+  long long stage, plane, raw, part, bar, total;
+  __host__ __device__ GramLayout(int prec, int n, int split, int chunk) {
+    const int w = pad_to(n, 16);
+    const long long pf = plane_floats(prec, w, pad_to(chunk, prec == kBf16 ? 16 : 8));
+    stage = span_floats((long long)n * n);   // G's, over a consumed plane
+    plane = pf > stage ? pf : stage;
+    raw = 2 * plane;
+    part = raw + span_floats((long long)chunk * n);
+    bar = part + (split > 0 ? (long long)w * w : 0);
+    total = bar + 4;
+  }
+};
+
+// The node-minor Gram's shared memory (floats): ``nraw`` buffers of a
+// step's copy (kMRows x n entries x kGroup nodes), two steps' planes, a
+// plane a node at stride ``node`` (8 floats past the plane, so the
+// conversion's stores to the group's planes spread over the banks).
+struct MinorLayout {
+  long long raw, node, plane, slice, total;
+  __host__ __device__ MinorLayout(int prec, int n, int nraw) {
+    raw = (long long)kMRows * n * kGroup;
+    node = plane_floats(prec, pad_to(n, 16), kMRows) + 8;
+    plane = nraw * raw;
+    slice = plane + 2 * kGroup * node;
+    total = slice + kMWarps * 32 * kGroup;
+  }
+};
+
+// The nodes of a node-minor Gram warp's sums: 64 registers of a super
+// tile's float64 sums (TF32 at 8 nodes spilled at 128 registers a thread).
+constexpr int kMNodes = 4;
 
 // q_kernel's shared memory (floats): ``nbuf`` spans of A (Q written over
 // A), Li's span, Li's plane (n8 x ld entries), three mbarriers (A's two
@@ -309,15 +391,11 @@ __device__ __forceinline__ uint32_t bget(const PairOp& o, int r, int k) {
 }
 
 // The sums of one 16 x 16 super tile C[i0 + i][j0 + j] += sum_k X(i0 + i, k)
-// Y(j0 + j, k), by the MMA tiles of its precision; ``mask`` (the same for
-// the whole warp) says which of them are taken: bit 2 r + c the DMMA tile
-// (row r, column c), bit c the TF32/bf16 tile of columns 8c.. (all 16
-// rows).  visit(f) calls f(row, col, sum) for each entry of a taken tile.
-template <int P>
-struct Tile;
-
-// The m16n8k* shapes share their accumulator layout: each super tile
-// one row tile of 16 and two column tiles of 8.
+// Y(j0 + j, k) (Tile<P>, below), by 16 x 8 MMA tiles of its precision;
+// ``mask`` (the same for the whole warp) says which are taken: bit c the
+// tile of columns 8c.. .  The m16n8k* shapes share their accumulator
+// layout: a super tile is one row tile of 16 and two column tiles of 8.
+// visit(f) calls f(row, col, sum) for each entry of a taken tile.
 template <class T>
 struct Tile16 {
   T c[2][4];
@@ -339,21 +417,36 @@ struct Tile16 {
   }
 };
 
+// A step of a super tile: its A fragment (rows i0.., k0..) loaded once
+// (load), then the taken column tiles against B fragments from Y's rows
+// j0.. (mma); on the diagonal (``diag``: Y is X, j0 is i0) column tile q's
+// B fragment is rows 8q.. of the A fragment, so it is not loaded.
+template <int P>
+struct Tile;
+
 template <>
 struct Tile<kDmma> : Tile16<double> {
   static constexpr int kK = 8;
-  template <class XO, class YO>
-  __device__ __forceinline__ void step(const XO& X, const YO& Y, int i0, int j0, int k0,
-                                       int mask) {
+  struct Frag {
+    double a[4];
+  };
+  template <class XO>
+  __device__ __forceinline__ static Frag load(const XO& X, int i0, int k0) {
     const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-    const double a[4] = {dget(X, i0 + g, k0 + t), dget(X, i0 + g + 8, k0 + t),
-                         dget(X, i0 + g, k0 + t + 4), dget(X, i0 + g + 8, k0 + t + 4)};
+    return {{dget(X, i0 + g, k0 + t), dget(X, i0 + g + 8, k0 + t), dget(X, i0 + g, k0 + t + 4),
+             dget(X, i0 + g + 8, k0 + t + 4)}};
+  }
+  template <class YO>
+  __device__ __forceinline__ void mma(const Frag& f, const YO& Y, int j0, int k0, int mask,
+                                      bool diag) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 #pragma unroll
     for (int q = 0; q < 2; ++q)
       if (mask >> q & 1) {
         const int j = j0 + 8 * q + g;
-        const double b[2] = {dget(Y, j, k0 + t), dget(Y, j, k0 + t + 4)};
-        mma_f64_16x8x8(c[q], a, b);
+        const double b[2] = {diag ? f.a[q] : dget(Y, j, k0 + t),
+                             diag ? f.a[q + 2] : dget(Y, j, k0 + t + 4)};
+        mma_f64_16x8x8(c[q], f.a, b);
       }
   }
 };
@@ -361,25 +454,37 @@ struct Tile<kDmma> : Tile16<double> {
 template <>
 struct Tile<kTf32x3> : Tile16<float> {
   static constexpr int kK = 8;
-  template <class XO, class YO>
-  __device__ __forceinline__ void step(const XO& X, const YO& Y, int i0, int j0, int k0,
-                                       int mask) {
+  struct Frag {
+    uint32_t h[4], l[4];
+  };
+  template <class XO>
+  __device__ __forceinline__ static Frag load(const XO& X, int i0, int k0) {
     const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-    uint32_t ah[4], al[4];
-    tget(X, i0 + g, k0 + t, ah[0], al[0]);
-    tget(X, i0 + g + 8, k0 + t, ah[1], al[1]);
-    tget(X, i0 + g, k0 + t + 4, ah[2], al[2]);
-    tget(X, i0 + g + 8, k0 + t + 4, ah[3], al[3]);
+    Frag f;
+    tget(X, i0 + g, k0 + t, f.h[0], f.l[0]);
+    tget(X, i0 + g + 8, k0 + t, f.h[1], f.l[1]);
+    tget(X, i0 + g, k0 + t + 4, f.h[2], f.l[2]);
+    tget(X, i0 + g + 8, k0 + t + 4, f.h[3], f.l[3]);
+    return f;
+  }
+  template <class YO>
+  __device__ __forceinline__ void mma(const Frag& f, const YO& Y, int j0, int k0, int mask,
+                                      bool diag) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 #pragma unroll
     for (int q = 0; q < 2; ++q)
       if (mask >> q & 1) {
         uint32_t bh[2], bl[2];
-        tget(Y, j0 + 8 * q + g, k0 + t, bh[0], bl[0]);
-        tget(Y, j0 + 8 * q + g, k0 + t + 4, bh[1], bl[1]);
+        if (diag) {
+          bh[0] = f.h[q], bh[1] = f.h[q + 2], bl[0] = f.l[q], bl[1] = f.l[q + 2];
+        } else {
+          tget(Y, j0 + 8 * q + g, k0 + t, bh[0], bl[0]);
+          tget(Y, j0 + 8 * q + g, k0 + t + 4, bh[1], bl[1]);
+        }
         // the small terms first
-        mma_tf32(c[q], al, bh);
-        mma_tf32(c[q], ah, bl);
-        mma_tf32(c[q], ah, bh);
+        mma_tf32(c[q], f.l, bh);
+        mma_tf32(c[q], f.h, bl);
+        mma_tf32(c[q], f.h, bh);
       }
   }
 };
@@ -387,18 +492,25 @@ struct Tile<kTf32x3> : Tile16<float> {
 template <>
 struct Tile<kBf16> : Tile16<float> {
   static constexpr int kK = 16;
-  template <class XO, class YO>
-  __device__ __forceinline__ void step(const XO& X, const YO& Y, int i0, int j0, int k0,
-                                       int mask) {
-    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3, k = k0 + 2 * t;
-    const uint32_t a[4] = {bget(X, i0 + g, k), bget(X, i0 + g + 8, k), bget(X, i0 + g, k + 8),
-                           bget(X, i0 + g + 8, k + 8)};
+  struct Frag {
+    uint32_t a[4];
+  };
+  template <class XO>
+  __device__ __forceinline__ static Frag load(const XO& X, int i0, int k0) {
+    const int g = (threadIdx.x & 31) >> 2, k = k0 + 2 * (threadIdx.x & 3);
+    return {{bget(X, i0 + g, k), bget(X, i0 + g + 8, k), bget(X, i0 + g, k + 8),
+             bget(X, i0 + g + 8, k + 8)}};
+  }
+  template <class YO>
+  __device__ __forceinline__ void mma(const Frag& f, const YO& Y, int j0, int k0, int mask,
+                                      bool diag) {
+    const int g = (threadIdx.x & 31) >> 2, k = k0 + 2 * (threadIdx.x & 3);
 #pragma unroll
     for (int q = 0; q < 2; ++q)
       if (mask >> q & 1) {
         const int j = j0 + 8 * q + g;
-        const uint32_t b[2] = {bget(Y, j, k), bget(Y, j, k + 8)};
-        mma_bf16(c[q], a, b);
+        const uint32_t b[2] = {diag ? f.a[q] : bget(Y, j, k), diag ? f.a[q + 2] : bget(Y, j, k + 8)};
+        mma_bf16(c[q], f.a, b);
       }
   }
 };
@@ -414,201 +526,6 @@ __device__ __forceinline__ int tile_mask(int i0, int j0, int rows, int n8) {
       if (j0 + 8 * q < n8) mask |= 1 << q;
   }
   return mask;
-}
-
-// Entry (r, c) of a node's rows x cols matrix, node-major or node-minor.
-template <bool kMinor>
-__device__ __forceinline__ long long entry(long long node, int rows, int cols, int r, int c) {
-  if (kMinor) return ((((node >> 7) * rows + r) * cols + c) << 7) + (node & 127);
-  return (node * rows + r) * cols + c;
-}
-
-// Rows [r0, r0 + rows) of the node's m x n A into raw, flat (rows x n),
-// by asynchronous copies (committed by the caller): node-major rows are
-// contiguous, so 16 bytes a copy where they start 16-byte aligned.
-template <bool kMinor>
-__device__ void stage_raw(const float* A, long long node, int m, int n, int r0, int rows,
-                          float* raw) {
-  const int count = rows * n;
-  if (kMinor) {
-    for (int i = threadIdx.x; i < count; i += kThreads) {
-      const int r = i / n;
-      __pipeline_memcpy_async(raw + i, A + entry<true>(node, m, n, r0 + r, i - r * n),
-                              sizeof(float));
-    }
-    return;
-  }
-  const float* src = A + entry<false>(node, m, n, r0, 0);
-  int done = 0;
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    done = count / 4 * 4;
-    for (int i = 4 * threadIdx.x; i < done; i += 4 * kThreads)
-      __pipeline_memcpy_async(raw + i, src + i, 4 * sizeof(float));
-  }
-  for (int i = done + threadIdx.x; i < count; i += kThreads)
-    __pipeline_memcpy_async(raw + i, src + i, sizeof(float));
-}
-
-// A row block from raw (rows x n) into its plane (kRows rows, w columns at
-// stride ld, zeros past rows and n): float64, TF32 hi and lo (lo after
-// hi), or bf16 pairs of rows.
-template <int P>
-__device__ void to_plane(const float* raw, int rows, int n, int w, int ld, float* plane) {
-  auto at = [&](int r, int c) { return r < rows && c < n ? raw[r * n + c] : 0.f; };
-  if (P == kBf16) {
-    uint32_t* pb = reinterpret_cast<uint32_t*>(plane);
-    for (int i = threadIdx.x; i < kRows / 2 * w; i += kThreads) {
-      const int q = i / w, c = i - q * w;
-      pb[q * ld + c] = pack_bf16(at(2 * q, c), at(2 * q + 1, c));
-    }
-    return;
-  }
-  for (int i = threadIdx.x; i < kRows * w; i += kThreads) {
-    const int r = i / w, c = i - r * w;
-    const float v = at(r, c);
-    if (P == kDmma) {
-      reinterpret_cast<double*>(plane)[r * ld + c] = v;
-    } else {
-      uint32_t* hi = reinterpret_cast<uint32_t*>(plane);
-      split_tf32(v, hi[r * ld + c], hi[kRows * ld + r * ld + c]);
-    }
-  }
-}
-
-// The Gram operand of a plane: X(i, k) at row k, column i.
-template <int P>
-struct PlaneOp;
-template <>
-struct PlaneOp<kDmma> {
-  __device__ static DoubleOp gram(const float* p, int ld) { return {reinterpret_cast<const double*>(p), 1, ld}; }
-};
-template <>
-struct PlaneOp<kTf32x3> {
-  __device__ static SplitOp gram(const float* p, int ld) {
-    const uint32_t* hi = reinterpret_cast<const uint32_t*>(p);
-    return {hi, hi + kRows * ld, 1, ld};
-  }
-};
-template <>
-struct PlaneOp<kBf16> {
-  __device__ static PairOp gram(const float* p, int ld) { return {reinterpret_cast<const uint32_t*>(p), 1, ld}; }
-};
-
-// The warp's Gram super tiles into out (n x n a node), each entry of the
-// lower triangle written at (i, j) and (j, i); where ``part`` is not null
-// (a split Gram) on top of the first part's float32 sums it holds (w x w,
-// each entry written and read by the same thread).  (Writing G through
-// shared memory, the block's rows whole, was slower on the card: two more
-// barriers and a pass over n^2 entries.)
-template <bool kMinor, int P, int kST>
-__device__ void store_gram(const Tile<P> (&t)[kST], const int (&gi)[kST], const int (&gj)[kST],
-                           const int (&gm)[kST], float* out, long long node, int n,
-                           const float* part, int w) {
-#pragma unroll
-  for (int q = 0; q < kST; ++q) {
-    if (!gm[q]) continue;
-    t[q].visit(gi[q], gj[q], gm[q], [&](int i, int j, auto v) {
-      if (i >= n || j > i) return;
-      const float f = part ? part[i * w + j] + (float)v : (float)v;
-      out[entry<kMinor>(node, n, n, i, j)] = f;
-      out[entry<kMinor>(node, n, n, j, i)] = f;
-    });
-  }
-}
-
-// Row blocks of A: [0, p1) then [p1, m) (p1 = split, or m), kRows at a
-// time; block b starts at row r0 and holds the returned count.
-struct RowBlocks {
-  int m, p1, nb1, nb;
-  __host__ __device__ RowBlocks(int m_, int split) : m(m_) {
-    p1 = split > 0 ? split : m;
-    nb1 = (p1 + kRows - 1) / kRows;
-    nb = nb1 + (split > 0 ? (m - split + kRows - 1) / kRows : 0);
-  }
-  __device__ int rows(int b, int& r0) const {
-    r0 = b < nb1 ? b * kRows : p1 + (b - nb1) * kRows;
-    return min(kRows, (b < nb1 ? p1 : m) - r0);
-  }
-};
-
-// G = A^T A, rows [0, split) and [split, m) summed apart (split 0: none).
-// One block a node.  Row block b's raw copy is in flight two blocks ahead
-// (two raw buffers); at its turn it is converted once into the plane the
-// products read.  Three blocks an SM up to n = 80 (at most 85 registers;
-// its DMMA instance ran faster that way than with two), two past it.
-template <int P, bool kMinor, int kST>
-__global__ void __launch_bounds__(kThreads, kST == 2 ? 3 : 2)
-    gram_kernel(const float* __restrict__ A, float* __restrict__ G, int m, int n, int split) {
-  constexpr int kK = Tile<P>::kK;
-  extern __shared__ __align__(16) float smem[];
-  const long long node = blockIdx.x;
-  const int w = pad_to(n, 16), n8 = pad_to(n, 8), S = w / 16;
-  const int ld = a_ld(P, w);
-  const RowBlocks rb(m, split);
-  const GramLayout lay(P, n, split);
-  float* const raw0 = smem;
-  float* const raw1 = raw0 + kRows * n;
-  float* const Ap = smem + lay.ap;
-  float* const part = smem + lay.part;
-  const int warp = threadIdx.x / 32;
-
-  // the warp's super tiles of the Gram's lower triangle: s -> (si, sj)
-  int gi[kST], gj[kST], gm[kST];
-  const int nst = S * (S + 1) / 2;
-#pragma unroll
-  for (int q = 0; q < kST; ++q) {
-    int s = warp + kWarps * q, si = 0;
-    gi[q] = gj[q] = gm[q] = 0;
-    if (s >= nst) continue;
-    while (s > si) s -= ++si;
-    gi[q] = 16 * si;
-    gj[q] = 16 * s;
-    gm[q] = tile_mask(gi[q], gj[q], n8, n8);
-  }
-  Tile<P> g1[kST];
-#pragma unroll
-  for (int q = 0; q < kST; ++q) g1[q].zero();
-
-  for (int b = 0; b < 2; ++b) {
-    if (b < rb.nb) {
-      int r0;
-      const int rows = rb.rows(b, r0);
-      stage_raw<kMinor>(A, node, m, n, r0, rows, b ? raw1 : raw0);
-    }
-    __pipeline_commit();
-  }
-
-  for (int b = 0; b < rb.nb; ++b) {
-    int r0;
-    const int rows = rb.rows(b, r0), rp = pad_to(rows, kK);
-    float* const raw = (b & 1) ? raw1 : raw0;
-    __pipeline_wait_prior(1);
-    __syncthreads();   // block b staged; every warp is done with block b - 1's plane
-    to_plane<P>(raw, rows, n, w, ld, Ap);
-    __syncthreads();   // the plane is ready and raw is free
-    if (b + 2 < rb.nb) {
-      int s0;
-      const int rows2 = rb.rows(b + 2, s0);
-      stage_raw<kMinor>(A, node, m, n, s0, rows2, raw);
-    }
-    __pipeline_commit();
-    const auto X = PlaneOp<P>::gram(Ap, ld);
-#pragma unroll
-    for (int q = 0; q < kST; ++q) {
-      if (!gm[q]) continue;
-#pragma unroll 2
-      for (int k0 = 0; k0 < rp; k0 += kK) g1[q].step(X, X, gi[q], gj[q], k0, gm[q]);
-    }
-    if (split > 0 && b == rb.nb1 - 1) {   // the first part, rounded
-#pragma unroll
-      for (int q = 0; q < kST; ++q) {
-        if (!gm[q]) continue;
-        g1[q].visit(gi[q], gj[q], gm[q], [&](int i, int j, auto v) { part[i * w + j] = (float)v; });
-        g1[q].zero();
-      }
-    }
-  }
-  store_gram<kMinor>(g1, gi, gj, gm, G, node, n, split > 0 ? part : nullptr, w);
 }
 
 // ---- q_kernel and composite_kernel: persistent blocks on 8-byte planes
@@ -989,6 +906,419 @@ __global__ void __launch_bounds__(32 * W, 16 / W)
   if (!kMinor && threadIdx.x == 0) bulk_wait();
 }
 
+// ---- the Gram: gram_major_kernel and gram_minor_kernel
+
+// v onto a[0, 4) of device memory, the first ``valid`` (at most 4) of
+// them, by atomic additions whose result no register holds.
+__device__ __forceinline__ void add_nodes(float* a, float4 v, long long valid) {
+  if (valid >= 4) {
+    atomicAdd(reinterpret_cast<float4*>(a), v);
+    return;
+  }
+  if (valid > 0) atomicAdd(a, v.x);
+  if (valid > 1) atomicAdd(a + 1, v.y);
+  if (valid > 2) atomicAdd(a + 2, v.z);
+}
+
+// Named barrier ``id`` (1-15) of ``count`` threads (a warp's multiple).
+__device__ __forceinline__ void named_sync(int id, int count) {
+#ifdef CUDA_EMU
+  emu_named_barrier(id, count, true);
+#else
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+#endif
+}
+
+// A plane's entry ``at``: float64, or the TF32 hi with its lo ``lo`` words
+// further on.
+template <int P>
+__device__ __forceinline__ void plane_put(float* plane, int at, int lo, float v) {
+  if (P == kDmma) {
+    reinterpret_cast<double*>(plane)[at] = v;
+  } else {
+    uint32_t* const hi = reinterpret_cast<uint32_t*>(plane);
+    split_tf32(v, hi[at], hi[lo + at]);
+  }
+}
+
+// A converting warp's share of kRows rows of a step: load() takes raw rows
+// rho(i) (i < kI: cw + kCWarps i, cw the warp among the converting ones;
+// bf16 the pairs (2u, 2u + 1), u = cw + kCWarps (i / 2)), columns lane +
+// 32 k (k < 4), zeros past rows and n, into registers, all the loads in
+// flight at once; put() writes them into the plane (w columns at stride
+// ld): float64, TF32 hi and lo (lo prows ld words on), or bf16 pairs, as
+// far as the products read it (rows padded to the MMA's k).
+template <int P>
+struct StepConvert {
+  static constexpr int kI = kRows / kCWarps, kC = 4;
+  float v[kI][kC];
+  __device__ __forceinline__ static int rho(int i) {
+    const int cw = threadIdx.x / 32 - kGWarps;
+    return P == kBf16 ? 2 * (cw + kCWarps * (i / 2)) + (i & 1) : cw + kCWarps * i;
+  }
+  __device__ __forceinline__ void load(const float* __restrict__ raw, int rows, int n) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int i = 0; i < kI; ++i)
+#pragma unroll
+      for (int k = 0; k < kC; ++k) {
+        const int r = rho(i), c = lane + 32 * k;
+        v[i][k] = r < rows && c < n ? raw[r * n + c] : 0.f;
+      }
+  }
+  // rows row0 + r of a plane of ``prows`` rows, r < rp
+  __device__ __forceinline__ void put(int rp, int w, int ld, float* __restrict__ plane, int row0,
+                                      int prows) const {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int i = 0; i < kI; i += P == kBf16 ? 2 : 1)
+#pragma unroll
+      for (int k = 0; k < kC; ++k) {
+        const int r = rho(i), c = lane + 32 * k;
+        if (r >= rp || c >= w) continue;
+        if (P == kBf16)
+          reinterpret_cast<uint32_t*>(plane)[(row0 + r) / 2 * ld + c] = pack_bf16(v[i][k], v[i + 1][k]);
+        else
+          plane_put<P>(plane, (row0 + r) * ld + c, prows * ld, v[i][k]);
+      }
+  }
+};
+
+// The Gram operand of a plane of ``rows`` rows: X(i, k) at row k, column i.
+template <int P>
+struct PlaneOp;
+template <>
+struct PlaneOp<kDmma> {
+  __device__ static DoubleOp gram(const float* p, int ld, int) {
+    return {reinterpret_cast<const double*>(p), 1, ld};
+  }
+};
+template <>
+struct PlaneOp<kTf32x3> {
+  __device__ static SplitOp gram(const float* p, int ld, int rows) {
+    const uint32_t* hi = reinterpret_cast<const uint32_t*>(p);
+    return {hi, hi + rows * ld, 1, ld};
+  }
+};
+template <>
+struct PlaneOp<kBf16> {
+  __device__ static PairOp gram(const float* p, int ld, int) {
+    return {reinterpret_cast<const uint32_t*>(p), 1, ld};
+  }
+};
+
+// Super tile s of the Gram's lower triangle, counted row by row: rows i0..,
+// columns j0..
+__device__ __forceinline__ void super_tile(int s, int& i0, int& j0) {
+  int si = 0;
+  while (s > si) s -= ++si;
+  i0 = 16 * si;
+  j0 = 16 * s;
+}
+
+// G = A^T A on B node-major nodes, rows [0, split) and [split, m) summed
+// apart (split 0: none); the file's head says how.  A node's rows in
+// chunks of at most ``chunk`` rows (all of them where a node fits).
+template <int P, int kST>
+__global__ void __launch_bounds__(kGThreads, 1)
+    gram_major_kernel(const float* __restrict__ A, float* __restrict__ G, long long B, int m,
+                      int n, int split, int chunk) {
+  constexpr int kK = Tile<P>::kK;
+  extern __shared__ __align__(16) float smem[];
+  const int w = pad_to(n, 16), n8 = pad_to(n, 8), S = w / 16, ld = a_ld(P, w);
+  const int prows = pad_to(chunk, P == kBf16 ? 16 : 8);   // a plane's rows
+  const RowBlocks rc(m, split, chunk);
+  const GramLayout lay(P, n, split, chunk);
+  const int nc = rc.nb;
+  const long long mn = (long long)m * n, nn = (long long)n * n;
+  float* const part = smem + lay.part;
+  uint64_t* const bar = reinterpret_cast<uint64_t*>(smem + lay.bar);
+  const int warp = threadIdx.x / 32;
+  const bool mma_warp = warp < kGWarps, issuer = threadIdx.x == 32 * kGWarps;
+  // an MMA warp's super tiles of the Gram's lower triangle: warp, warp +
+  // kGWarps, ...
+  int gi[kST], gj[kST], gm[kST];
+#pragma unroll
+  for (int q = 0; q < kST; ++q) {
+    const int s = warp + kGWarps * q;
+    gi[q] = gj[q] = gm[q] = 0;
+    if (!mma_warp || s >= S * (S + 1) / 2) continue;
+    super_tile(s, gi[q], gj[q]);
+    gm[q] = tile_mask(gi[q], gj[q], n8, n8);
+  }
+  // The block's steps j: a chunk each, j % nc of node blockIdx + (j / nc)
+  // grid, in plane j % 2; its rows arrive by one bulk copy into the raw
+  // span, completing the phase j % 2 of the span's mbarrier.
+  const long long nodes = (B - blockIdx.x + gridDim.x - 1) / gridDim.x, J = nodes * nc;
+  auto node_of = [&](long long it) { return blockIdx.x + it * gridDim.x; };
+  auto plane_of = [&](long long j) { return smem + (j & 1) * lay.plane; };
+  auto rows_of = [&](long long j, int& rows) {   // step j's first row of A, its rows
+    int r0;
+    rows = rc.rows((int)(j % nc), r0);
+    return A + node_of(j / nc) * mn + (long long)r0 * n;
+  };
+  auto issue = [&](long long j) {   // the issuer: step j's rows into the raw span
+    if (j >= J) return;
+    int rows;
+    const float* const src = rows_of(j, rows);
+    const int h = span_head(src);
+    bulk_load(smem + lay.raw, src - h, (unsigned)((h + rows * n + 3) / 4 * 16), bar);
+  };
+  // the converting warps: step j's chunk from the raw span into plane j %
+  // 2, kRows rows at a time, then the span refilled with step j + 1's rows.
+  // ``store``: the last node's G, staged over this plane, is being read out
+  // by a bulk store, so the rows whose plane entries lie past G's span go
+  // first, then (once the store has read G) the others.
+  StepConvert<P> cv;
+  const int row_floats = P == kDmma ? 2 * ld : P == kBf16 ? ld / 2 : ld;
+  auto convert = [&](long long j, bool store) {
+    int rows;
+    const float* const src = rows_of(j, rows);
+    mbar_wait(bar, (unsigned)j & 1);
+    const float* const raw = smem + lay.raw + span_head(src);
+    auto block = [&](int r0) {
+      const int rb = min(kRows, rows - r0);
+      cv.load(raw + (long long)r0 * n, rb, n);
+      cv.put(pad_to(rb, kK), w, ld, plane_of(j), r0, prows);
+    };
+    int clear = 0;   // the first row whose plane entries lie past G's span
+    while (clear < rows && (long long)clear * row_floats < lay.stage) clear += kRows;
+    for (int r0 = clear; r0 < rows; r0 += kRows) block(r0);
+    if (store) {
+      if (issuer) bulk_wait_read();
+      named_sync(2, 32 * kCWarps);
+    }
+    for (int r0 = 0; r0 < clear && r0 < rows; r0 += kRows) block(r0);
+    named_sync(2, 32 * kCWarps);   // every converting warp is done with the span
+    if (issuer) issue(j + 1);
+  };
+  // node it's G in the plane of its last chunk (from the same offset
+  // modulo 16 bytes)
+  auto staged = [&](long long it) {
+    return plane_of(it * nc + nc - 1) + span_head(G + node_of(it) * nn);
+  };
+  if (issuer) {
+    mbar_init(bar, 1);
+    issue(0);
+  }
+  __syncthreads();
+  if (!mma_warp) convert(0, false);
+  __syncthreads();
+  Tile<P> g1[kST];
+  for (long long j = 0; j < J; ++j) {
+    const long long it = j / nc;
+    const int c = (int)(j % nc);
+    if (mma_warp) {
+      // chunk j's products on plane j % 2, all its k steps at once
+      if (c == 0) {
+#pragma unroll
+        for (int q = 0; q < kST; ++q) g1[q].zero();
+      }
+      int r0;
+      const int rp = pad_to(rc.rows(c, r0), kK);
+      const auto X = PlaneOp<P>::gram(plane_of(j), ld, prows);
+#pragma unroll 2
+      for (int k0 = 0; k0 < rp; k0 += kK)
+#pragma unroll
+        for (int q = 0; q < kST; ++q)
+          if (gm[q]) g1[q].mma(Tile<P>::load(X, gi[q], k0), X, gj[q], k0, gm[q], gi[q] == gj[q]);
+      if (split > 0 && c == rc.nb1 - 1) {   // the first part, rounded
+#pragma unroll
+        for (int q = 0; q < kST; ++q) {
+          if (!gm[q]) continue;
+          g1[q].visit(gi[q], gj[q], gm[q], [&](int r, int c2, auto v) { part[r * w + c2] = (float)v; });
+          g1[q].zero();
+        }
+      }
+      if (c == nc - 1) {   // G mirrored over the plane (and the first part added)
+        named_sync(1, 32 * kGWarps);   // every MMA warp is done with the plane
+        float* const sg = staged(it);
+#pragma unroll
+        for (int q = 0; q < kST; ++q) {
+          if (!gm[q]) continue;
+          g1[q].visit(gi[q], gj[q], gm[q], [&](int r, int c2, auto v) {
+            if (r >= n || c2 > r) return;
+            sg[r * n + c2] = sg[c2 * n + r] = split > 0 ? part[r * w + c2] + (float)v : (float)v;
+          });
+        }
+        fence_async_shared();
+      }
+    } else {
+      const bool store = j > 0 && c == 0;   // the last node's G leaves the plane this step fills
+      if (store && issuer) {
+        store_span(G + node_of(it - 1) * nn, staged(it - 1), nn);
+        bulk_commit();
+      }
+      if (j + 1 < J) convert(j + 1, store);   // meanwhile step j + 1's chunk
+    }
+    __syncthreads();
+  }
+  if (issuer) {
+    store_span(G + node_of(nodes - 1) * nn, staged(nodes - 1), nn);
+    bulk_commit();
+    bulk_wait();
+  }
+}
+
+// G = A^T A on B node-minor nodes (the file's head says how): kN nodes a
+// warp's sums, kSpp super tiles an item; ``nraw`` buffers of a step's copy
+// (two or three: the copies one or two steps ahead); kSplit: split > 0.
+template <int P, bool kSplit>
+__global__ void __launch_bounds__(kMThreads, 1)
+    gram_minor_kernel(const float* __restrict__ A, float* __restrict__ G, long long B, int m,
+                      int n, int split, int nraw) {
+  constexpr int kN = kMNodes, kSpp = kMWarps * kN / kGroup;
+  extern __shared__ __align__(16) float smem[];
+  const MinorLayout lay(P, n, nraw);
+  const int w = pad_to(n, 16), n8 = pad_to(n, 8), S = w / 16, ld = a_ld(P, w);
+  const int nst = S * (S + 1) / 2, passes = (nst + kSpp - 1) / kSpp;
+  const RowBlocks rb(m, split, kMRows);
+  const int nb = rb.nb;
+  // (32-bit step and group counts, which the launch checks: registers are
+  // scarce here)
+  const int items = (int)((B + kGroup - 1) / kGroup) * passes;
+  // the block's steps j: item blockIdx + (j / nb) grid (group item / passes,
+  // its super tiles (item % passes) kSpp..), row block j % nb
+  const int J = (items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x * nb;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  auto item_of = [&](int j) { return (int)blockIdx.x + j / nb * (int)gridDim.x; };
+  auto copy = [&](int j) {   // step j's rows of the group, 16 bytes a copy
+    if (j < J) {
+      const long long grp = item_of(j) / passes;
+      int r0;
+      const int rows = rb.rows((int)(j % nb), r0);
+      const float* const src = A + (((grp >> 4) * m + r0) * n << 7) + ((grp & 15) << 3);
+      float* const dst = smem + (j % nraw) * lay.raw;
+#pragma unroll 1
+      for (int i = threadIdx.x; i < 2 * rows * n; i += kMThreads)
+        __pipeline_memcpy_async(dst + 4 * i, src + ((long long)(i >> 1) << 7) + 4 * (i & 1),
+                                4 * sizeof(float));
+    }
+    __pipeline_commit();
+  };
+  // step j's rows into the group's planes j % 2: a thread a float4 of the
+  // copy (nodes 4h..4h + 3 of an entry (r, c)), thread t starting at
+  // (r, 2c + h) = t and stepping kMThreads (dr rows, dx on), no division
+  // an entry
+  auto convert = [&](int j) {
+    int r0;
+    const int rows = rb.rows((int)(j % nb), r0);
+    const float4* const raw = reinterpret_cast<const float4*>(smem + (j % nraw) * lay.raw);
+    float* const pl = smem + lay.plane + (j & 1) * kGroup * lay.node;
+    const int span = 2 * w, dr = kMThreads / span, dx = kMThreads - dr * span;
+    int r = threadIdx.x / span, x = threadIdx.x - r * span;
+#pragma unroll 1
+    for (int i = threadIdx.x; i < kMRows * span; i += kMThreads) {
+      const int c = x >> 1, h = x & 1;
+      const float4 v = r < rows && c < n ? raw[(r * n + c) * 2 + h] : make_float4(0.f, 0.f, 0.f, 0.f);
+      float* const p = pl + 4 * h * lay.node;
+      const int at = r * ld + c, lo = kMRows * ld;
+      plane_put<P>(p, at, lo, v.x);
+      plane_put<P>(p + lay.node, at, lo, v.y);
+      plane_put<P>(p + 2 * lay.node, at, lo, v.z);
+      plane_put<P>(p + 3 * lay.node, at, lo, v.w);
+      r += dr;
+      x += dx;
+      if (x >= span) {
+        x -= span;
+        ++r;
+      }
+    }
+  };
+  for (int s = 0; s < nraw; ++s) copy(s);
+  if (nraw == 3)
+    __pipeline_wait_prior(2);
+  else
+    __pipeline_wait_prior(1);
+  __syncthreads();
+  convert(0);
+  Tile<P> acc[kN];
+  int gi = 0, gj = 0, gm = 0, kb = 0, grp = 0;
+  // The sums into G as whole 32-byte sectors, one slice (q, e) of the
+  // super tile's entries at a time: each lane's kN values of its entry into
+  // the buffer of the two warps that share the super tile (nodes 0-3 and
+  // 4-7), then 16 entries a store, lane 2x + h storing half h (4 nodes)
+  // of entry x, at (i, j) and (j, i); ``add``: added to the first part that
+  // the same lane stored there (by an atomic addition, whose result no
+  // register holds: each address has this one writer); nodes past B not
+  // written.
+  constexpr int kShare = kGroup / kN;   // warps a super tile
+  float* const buf = smem + lay.slice + warp / kShare * 32 * kGroup;
+  auto share_sync = [&]() { named_sync(1 + warp / kShare, 32 * kShare); };
+  auto store = [&](bool add) {
+    const int lane = threadIdx.x & 31, half = lane & 1;
+    float* const out = G + ((long long)(grp >> 4) * n * n << 7) + (grp & 15) * kGroup + 4 * half;
+    const long long valid = B - (long long)grp * kGroup - 4 * half;   // of the lane's 4 nodes
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (!(gm >> q & 1)) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int k = 0; k < kN; ++k) buf[lane * kGroup + kb + k] = (float)acc[k].c[q][e];
+        share_sync();
+#pragma unroll
+        for (int r = 0; r < 2 / kShare; ++r) {
+          const int x = (warp % kShare * (2 / kShare) + r) * 16 + (lane >> 1);
+          const int i = gi + (x >> 2) + 8 * (e >> 1), c = gj + 8 * q + 2 * (x & 3) + (e & 1);
+          if (i >= n || c > i) continue;
+          float* const p = out + (((long long)i * n + c) << 7);
+          float* const pt = out + (((long long)c * n + i) << 7);
+          const float4 v = reinterpret_cast<const float4*>(buf + x * kGroup)[half];
+          if (kSplit && add) {   // one float32 addition, as the plain version's
+            add_nodes(p, v, valid);
+            if (pt != p) add_nodes(pt, v, valid);
+          } else if (valid >= 4) {
+            *reinterpret_cast<float4*>(p) = v;
+            *reinterpret_cast<float4*>(pt) = v;
+          } else {   // the group's last real nodes (at most 3 here) only
+            if (valid > 0) p[0] = pt[0] = v.x;
+            if (valid > 1) p[1] = pt[1] = v.y;
+            if (valid > 2) p[2] = pt[2] = v.z;
+          }
+        }
+        share_sync();
+      }
+    }
+  };
+  for (int j = 0; j < J; ++j) {
+    const int b = j % nb;
+    if (nraw == 3)
+      __pipeline_wait_prior(1);
+    else
+      __pipeline_wait_prior(0);
+    __syncthreads();   // step j + 1 is in; step j's planes are converted, step j - 1's read
+    copy(j + nraw);
+    if (j + 1 < J) convert(j + 1);
+    if (b == 0) {   // a new item: the warp's super tile and nodes
+      const int item = item_of(j);
+      const int s = item % passes * kSpp + warp / kShare;
+      grp = item / passes;
+      kb = warp % kShare * kN;
+      gm = 0;
+      if (s < nst) {
+        super_tile(s, gi, gj);
+        gm = tile_mask(gi, gj, n8, n8);
+      }
+#pragma unroll
+      for (int k = 0; k < kN; ++k) acc[k].zero();
+    }
+    if (!gm) continue;
+    const float* const pl = smem + lay.plane + (j & 1) * kGroup * lay.node;
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      const auto X = PlaneOp<P>::gram(pl + (kb + k) * lay.node, ld, kMRows);
+      acc[k].mma(Tile<P>::load(X, gi, 0), X, gj, 0, gm, gi == gj);
+    }
+    const bool first = kSplit && b == rb.nb1 - 1;   // the first part, rounded, into G
+    if (first || b == nb - 1) {
+      store(kSplit && !first);
+#pragma unroll
+      for (int k = 0; k < kN; ++k) acc[k].zero();
+    }
+  }
+}
+
 // direction 0: x node-minor (T, E, 128) -> y node-major (nodes, E);
 // direction 1: x node-major (nodes, E) -> y node-minor (T, E, 128), zeros
 // for the tile's slots past ``nodes``.  Block b: 32 nodes x 32 entries.
@@ -1030,7 +1360,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-typedef void (*GramKernel)(const float*, float*, int, int, int);
+typedef void (*GramKernel)(const float*, float*, long long, int, int, int, int);
 typedef void (*QKernel)(const float*, const float*, float*, long long, int, int, int);
 typedef void (*CompositeKernel)(const float*, const float*, float*, float*, long long, int, int,
                                 int);
@@ -1040,26 +1370,26 @@ CompositeKernel composite_instance(int n) {
   return n <= kCNarrow ? composite_kernel<P, kMinor, 8> : composite_kernel<P, kMinor, 16>;
 }
 
-// Super tiles a warp holds for the Gram of n columns: 2 up to n = 80 (15
-// super tiles over 8 warps), 5 up to 128 (36).
-inline int super_tiles(int n) {
-  const int S = pad_to(n, 16) / 16, nst = S * (S + 1) / 2;
-  return nst <= 2 * kWarps ? 2 : nst <= 5 * kWarps ? 5 : 0;
+// Super tiles a warp of the node-major Gram holds for n columns: the
+// instance's kST for up to n = 80 (15 super tiles) or up to 128 (36).
+constexpr int kSTNarrow = (15 + kGWarps - 1) / kGWarps, kSTWide = (36 + kGWarps - 1) / kGWarps;
+
+template <int P>
+GramKernel major_pick(int n) {
+  return n <= 80 ? gram_major_kernel<P, kSTNarrow> : gram_major_kernel<P, kSTWide>;
 }
 
-template <int P, bool kMinor>
-GramKernel pick(int st) {
-  return st == 2 ? gram_kernel<P, kMinor, 2> : st == 5 ? gram_kernel<P, kMinor, 5> : nullptr;
+// The node-major Gram's instance (any n <= 128, bf16 n <= 80), or nullptr.
+GramKernel gram_major_instance(int prec, int n) {
+  if (prec == kBf16) return n <= 80 ? gram_major_kernel<kBf16, kSTNarrow> : nullptr;
+  return prec == kDmma ? major_pick<kDmma>(n) : major_pick<kTf32x3>(n);
 }
 
-// The Gram's instance (any n <= 128, DMMA and TF32 in either layout, bf16
-// node-major n <= 80), or nullptr.
-GramKernel gram_instance(int prec, int minor, int n) {
-  const int st = super_tiles(n);
-  if (st == 0) return nullptr;
-  if (prec == kBf16) return minor || st != 2 ? nullptr : gram_kernel<kBf16, false, 2>;
-  if (prec == kDmma) return minor ? pick<kDmma, true>(st) : pick<kDmma, false>(st);
-  return minor ? pick<kTf32x3, true>(st) : pick<kTf32x3, false>(st);
+// The node-minor Gram's work items on B nodes: its groups x the items a
+// group's super tiles take (kSpp super tiles an item).
+long long minor_items(int prec, int n, long long B) {
+  const int S = pad_to(n, 16) / 16, spp = kMWarps * kMNodes / kGroup;
+  return (B + kGroup - 1) / kGroup * ((S * (S + 1) / 2 + spp - 1) / spp);
 }
 
 int smem_optin() {
@@ -1070,13 +1400,14 @@ int smem_optin() {
 }
 
 // A probe's launch: its kernel (one of the three forms), threads, dynamic
-// shared memory (floats) and A's buffers (the composite); no kernel where
-// the probe has no instance.
+// shared memory (floats), A's buffers (q and the composite: spans; the
+// node-minor Gram: step copies) and the node-major Gram's chunk rows; no
+// kernel where the probe has no instance.
 struct Plan {
   GramKernel gram = nullptr;
   QKernel q = nullptr;
   CompositeKernel composite = nullptr;
-  int threads = kThreads, nbuf = 1;
+  int threads = kThreads, nbuf = 1, chunk = 0;
   long long floats = 0;
   const void* kernel() const {
     return gram ? (const void*)gram : q ? (const void*)q : (const void*)composite;
@@ -1086,14 +1417,32 @@ struct Plan {
 Plan plan(int what, int prec, int minor, int m, int n, int split) {
   Plan p;
   if (m <= 0 || n <= 0 || n > kMaxN || prec < kDmma || prec > kBf16) return p;
-  if (what == kGram) {
-    p.gram = gram_instance(prec, minor, n);
-    p.floats = GramLayout(prec, n, split).total;
+  const long long optin = smem_optin();
+  if (what == kGram && minor) {
+    if (prec == kBf16) return p;
+    if (prec == kDmma)
+      p.gram = split > 0 ? gram_minor_kernel<kDmma, true> : gram_minor_kernel<kDmma, false>;
+    else
+      p.gram = split > 0 ? gram_minor_kernel<kTf32x3, true> : gram_minor_kernel<kTf32x3, false>;
+    p.threads = kMThreads;
+    // the copies two steps ahead where three buffers fit, else one
+    p.nbuf = MinorLayout(prec, n, 3).total * (long long)sizeof(float) <= optin ? 3 : 2;
+    p.floats = MinorLayout(prec, n, p.nbuf).total;
+  } else if (what == kGram) {
+    p.gram = gram_major_instance(prec, n);
+    p.threads = kGThreads;
+    // a block an SM: a node's rows (its longer part) in one chunk where its
+    // two planes and its raw span fit, else chunks of as many rows
+    const int longer = split > 0 && split > m - split ? split : m - split;
+    p.chunk = longer;
+    while (p.chunk > 16 && GramLayout(prec, n, split, p.chunk).total * (long long)sizeof(float) > optin)
+      p.chunk = (p.chunk - 1) / 16 * 16;
+    p.floats = GramLayout(prec, n, split, p.chunk).total;
   } else if (what == kQ && !minor && prec != kBf16) {
     p.q = prec == kDmma ? q_kernel<kDmma> : q_kernel<kTf32x3>;
     p.threads = kQThreads;
     // two spans of A where two blocks an SM still fit
-    p.nbuf = 2 * QLayout(m, n, 2).total * (long long)sizeof(float) <= smem_optin() ? 2 : 1;
+    p.nbuf = 2 * QLayout(m, n, 2).total * (long long)sizeof(float) <= optin ? 2 : 1;
     p.floats = QLayout(m, n, p.nbuf).total;
   } else if (what == kComposite && prec != kBf16 && n <= kMaxNComposite) {
     if (prec == kDmma)
@@ -1103,17 +1452,19 @@ Plan plan(int what, int prec, int minor, int m, int n, int split) {
     // 8 warps two blocks an SM, 16 one: two spans of A where those still fit
     const int per_sm = n <= kCNarrow ? 2 : 1;
     p.threads = 32 * 16 / per_sm;
-    p.nbuf = per_sm * CompositeLayout(m, n, 2).total * (long long)sizeof(float) <= smem_optin() ? 2 : 1;
+    p.nbuf = per_sm * CompositeLayout(m, n, 2).total * (long long)sizeof(float) <= optin ? 2 : 1;
     p.floats = CompositeLayout(m, n, p.nbuf).total;
   }
   return p;
 }
 
-// The launch's dynamic shared memory, set on its kernel; an error where
-// there is no instance or the node does not fit.
-cudaError_t prepare(const void* kernel, long long floats, size_t* bytes) {
-  if (kernel == nullptr) return cudaErrorInvalidValue;
-  *bytes = (size_t)floats * sizeof(float);
+// The launch's dynamic shared memory, the larger of the kernel's need and
+// ``request`` (bytes), set on its kernel; an error where there is no
+// instance or it does not fit.
+cudaError_t prepare(const void* kernel, long long floats, long long request, size_t* bytes) {
+  if (kernel == nullptr || request < 0) return cudaErrorInvalidValue;
+  *bytes = (size_t)(floats * (long long)sizeof(float) > request ? floats * (long long)sizeof(float)
+                                                                : request);
   if (*bytes > (size_t)smem_optin()) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
 }
@@ -1124,10 +1475,11 @@ cudaError_t prepare(const void* kernel, long long floats, size_t* bytes) {
 // its registers and local memory bytes (spills) a thread: ``what`` 0 the
 // Gram, 1 Q, 2 the composite (precision 0 DMMA, 1 TF32x3, 2 bf16; minor
 // the node-minor layout) at m x n with the split row, 3 node_transpose;
-// returns the cudaError_t.
+// at a shared memory request of ``request`` bytes (the larger of it and
+// the need is launched); returns the cudaError_t.
 extern "C" int mxu_probes_occupancy(int what, int prec, int minor, int m, int n, int split,
-                                    long long* smem_bytes, int* threads, int* blocks_per_sm,
-                                    int* regs, long long* local_bytes) {
+                                    long long request, long long* smem_bytes, int* threads,
+                                    int* blocks_per_sm, int* regs, long long* local_bytes) {
   Plan p;
   const void* kernel = (const void*)node_transpose_kernel;
   if (what != kTranspose) {
@@ -1135,7 +1487,7 @@ extern "C" int mxu_probes_occupancy(int what, int prec, int minor, int m, int n,
     kernel = p.kernel();
   }
   size_t bytes = 0;
-  cudaError_t err = prepare(kernel, p.floats, &bytes);
+  cudaError_t err = prepare(kernel, p.floats, request, &bytes);
   if (err != cudaSuccess) return (int)err;
   *smem_bytes = (long long)bytes;
   *threads = p.threads;
@@ -1148,31 +1500,32 @@ extern "C" int mxu_probes_occupancy(int what, int prec, int minor, int m, int n,
 }
 
 // The product probes on B nodes of m x n A (and n x n Li): ``what`` 0 O1
-// = A^T A (split: the row where the second part starts, 0 none), one block
-// a node; 1 O1 = A Li^T (node-major; A and O1 equal modulo 16 bytes, as
-// torch's allocations are), 2 O1 = A^T A and O2 = Q^T Q, Q = A Li^T, each
-// on ``blocks`` persistent blocks (0: the card's SMs x the blocks an SM
-// holds), at most B; A whole and Li in shared memory (q: m up to ~475 at n
-// = 80; the composite ~270, ~135 with two spans of A).  Node-minor tensors
-// (minor) hold ceil(B / 128) tiles of 128, and only the first B nodes'
-// slots are written.
+// = A^T A (split: the row where the second part starts, 0 none; node-minor
+// A 16-byte aligned); 1 O1 = A Li^T (node-major; A and O1 equal modulo 16
+// bytes, as torch's allocations are), 2 O1 = A^T A and O2 = Q^T Q, Q = A
+// Li^T; each on ``blocks`` persistent blocks (0: the card's SMs x the
+// blocks an SM holds), at most the work's units (nodes; the node-minor
+// Gram's items); at a shared memory request of ``request`` bytes.  q and
+// the composite hold A whole and Li in shared memory (q: m up to ~475 at
+// n = 80; the composite ~270, ~135 with two spans of A); the Gram takes
+// any m.  Node-minor tensors (minor) hold ceil(B / 128) tiles of 128, and
+// only the first B nodes' slots are written.
 extern "C" int mxu_probe_launch(int what, int prec, int minor, const float* A, const float* Li,
                                 float* O1, float* O2, long long B, int m, int n, int split,
-                                long long blocks, void* stream) {
+                                long long blocks, long long request, void* stream) {
   if (B <= 0 || m <= 0 || n <= 0 || split < 0 || split >= m || (split && what != kGram) ||
       blocks < 0 ||
-      (what == kQ && (reinterpret_cast<uintptr_t>(A) - reinterpret_cast<uintptr_t>(O1)) % 16))
+      (what == kQ && (reinterpret_cast<uintptr_t>(A) - reinterpret_cast<uintptr_t>(O1)) % 16) ||
+      (what == kGram && minor && (reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(O1)) % 16))
     return (int)cudaErrorInvalidValue;
   const Plan p = plan(what, prec, minor, m, n, split);
   size_t bytes = 0;
-  cudaError_t err = prepare(p.kernel(), p.floats, &bytes);
+  cudaError_t err = prepare(p.kernel(), p.floats, request, &bytes);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (p.gram) {
-    const GramKernel k = p.gram;
-    k<<<B, kThreads, bytes, s>>>(A, O1, m, n, split);
-    return (int)cudaGetLastError();
-  }
+  const long long units = what == kGram && minor ? minor_items(prec, n, B) : B;
+  if (what == kGram && minor && units * RowBlocks(m, split, kMRows).nb >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;   // the kernel counts its steps in 32 bits
   long long grid = blocks;
   if (grid == 0) {
     int dev = 0, sms = 0, per_sm = 0;
@@ -1182,8 +1535,11 @@ extern "C" int mxu_probe_launch(int what, int prec, int minor, const float* A, c
     if (err != cudaSuccess) return (int)err;
     grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
   }
-  if (grid > B) grid = B;
-  if (p.q) {
+  if (grid > units) grid = units;
+  if (p.gram) {
+    const GramKernel k = p.gram;
+    k<<<grid, p.threads, bytes, s>>>(A, O1, B, m, n, split, minor ? p.nbuf : p.chunk);
+  } else if (p.q) {
     const QKernel k = p.q;
     k<<<grid, p.threads, bytes, s>>>(A, Li, O1, B, m, n, p.nbuf);
   } else {

@@ -108,6 +108,12 @@ def check_tensor(name, x, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_request(smem_bytes):
+    """Raise ValueError for a negative shared memory request (bytes)."""
+    if smem_bytes < 0:
+        raise ValueError(f"smem_bytes must be >= 0, got {smem_bytes}")
+
+
 def on_card(x, name):
     """True for a CUDA tensor, False for a CPU tensor; raise otherwise."""
     if x.device.type == "cpu":

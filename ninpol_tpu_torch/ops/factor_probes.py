@@ -57,7 +57,8 @@ import torch
 
 from . import cuda_lib
 from .cholqr import _chol_clamped, chol_linv_f32_reference
-from .cuda_lib import CudaLibrary, check_launch, check_tensor, on_card, stream
+from .cuda_lib import (CudaLibrary, check_launch, check_request, check_tensor,
+                       on_card, stream)
 
 _F32 = torch.float32
 # chol_trsm_gram's factors: 0 the elimination, else a panel width
@@ -156,11 +157,6 @@ def occupancy(name, m, n, width=0, block=None, smem_bytes=0,
                               probe, m, n, width, int(smem_bytes))
 
 
-def _check_request(smem_bytes):
-    if smem_bytes < 0:
-        raise ValueError(f"smem_bytes must be >= 0, got {smem_bytes}")
-
-
 def chol_factor(G, tiny=1e-12):
     """(B, n, n) SPD float32 -> its clamped Cholesky factor L."""
     B, n = _square("G", G)
@@ -181,7 +177,7 @@ def chol_trsm_gram(A, G, tiny=1e-12, width=0, smem_bytes=0):
     ``smem_bytes`` of shared memory a block."""
     if width not in TRSM_WIDTHS:
         raise ValueError(f"width must be one of {TRSM_WIDTHS}, got {width}")
-    _check_request(smem_bytes)
+    check_request(smem_bytes)
     B, n = _square("G", G)
     m = A.shape[1] if A.dim() == 3 else -1
     check_tensor("A", A, (B, m, n), _F32, G.device)
@@ -205,7 +201,7 @@ def chol_linv_tc(G, tiny=1e-12, width=16, smem_bytes=0, mul_right=None):
     if width not in LINV_TC_WIDTHS:
         raise ValueError(f"width must be one of {LINV_TC_WIDTHS}, got "
                          f"{width}")
-    _check_request(smem_bytes)
+    check_request(smem_bytes)
     B, n = _square("G", G)
     check_tensor("G", G, (B, n, n), _F32, G.device)
     if mul_right is not None:

@@ -9,7 +9,7 @@ times them on the route's inputs):
         (mxu_probe.py:108); "out": node-major (B, r, c) -> node-minor
         (ceil(B / 128), r, c, 128), the last tile's slots past B zero
         (:150)
-  gram_tc(A, precision, layout, split, nodes)
+  gram_tc(A, precision, layout, split, nodes, blocks, smem_bytes)
         G = A^T A, (B, m, n) -> (B, n, n) node-major (:123, :138), or
         node-minor (T, m, n, 128) -> (T, n, n, 128) (:166; the shape sweep
         r5_mxu_shapes.py:84, which may ``split`` the rows: G = A[:s]^T
@@ -35,18 +35,21 @@ and its plain version differ only in the order of their sums.
 All float32; n <= 128 (gram_q_gram_tc and bf16 n <= 80); m any for
 gram_tc, and for q_tc and gram_q_gram_tc as far as a node's A and Li fit
 in shared memory with their operand planes (at n = 80: ~475 rows for
-q_tc, ~270 for gram_q_gram_tc).  q_tc and gram_q_gram_tc run persistent
-blocks that walk the nodes (``blocks``, default the card's SMs times the
-blocks an SM holds); q_tc's A and output agree modulo 16 bytes on the
-card, as torch's allocations do.  Node-minor
+q_tc, ~270 for gram_q_gram_tc).  Every kernel but node_transpose runs
+persistent blocks (``blocks``, default the card's SMs times the blocks an
+SM holds) that walk the nodes (node-minor gram_tc: groups of 8 nodes and
+its super tiles); q_tc's A and output agree modulo 16 bytes on the card,
+as torch's allocations do, and node-minor gram_tc's A is 16-byte
+aligned.  gram_tc's ``smem_bytes`` asks for at least that much shared
+memory a block (another kernel's, to run at its blocks an SM).  Node-minor
 tensors hold 128 nodes a tile; ``nodes`` (default all the tiles' slots)
 says how many are real: the kernels compute those and the wrappers zero
 the others.  Each wrapper runs its plain version for CPU tensors and
 launches its kernel (built with nvcc on first use, in a library of its
 own) for CUDA tensors, or raises.  ``<wrapper>.launches`` counts kernel
 launches, ``<wrapper>.launches_by`` the same by ``instance(...)``.
-``occupancy(kernel, n, precision, layout, split, m)`` gives a launch's
-registers, spills, shared memory and blocks an SM.
+``occupancy(kernel, n, precision, layout, split, m, smem_bytes)`` gives a
+launch's registers, spills, shared memory and blocks an SM.
 """
 from __future__ import annotations
 
@@ -56,7 +59,8 @@ import ctypes
 import torch
 
 from . import cuda_lib
-from .cuda_lib import CudaLibrary, check_launch, check_tensor, on_card, stream
+from .cuda_lib import (CudaLibrary, check_launch, check_request, check_tensor,
+                       on_card, stream)
 
 _F32 = torch.float32
 NT = 128                                  # nodes a node-minor tile
@@ -166,12 +170,12 @@ def gram_q_gram_tc_reference(A, Li, precision="dmma"):
 def _bind(lib):
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.mxu_probe_launch.argtypes = [ci, ci, ci, vp, vp, vp, vp, ll, ci, ci,
-                                     ci, ll, vp]
+                                     ci, ll, ll, vp]
     lib.mxu_probe_launch.restype = ci
     lib.node_transpose_launch.argtypes = [vp, vp, ll, ci, ci, vp]
     lib.node_transpose_launch.restype = ci
     lib.mxu_probes_occupancy.argtypes = [
-        ci, ci, ci, ci, ci, ci, ctypes.POINTER(ll), ctypes.POINTER(ci),
+        ci, ci, ci, ci, ci, ci, ll, ctypes.POINTER(ll), ctypes.POINTER(ci),
         ctypes.POINTER(ci), ctypes.POINTER(ci), ctypes.POINTER(ll)]
     lib.mxu_probes_occupancy.restype = ci
 
@@ -200,14 +204,18 @@ def _launch(wrapper, name, what, fn, device, *args):
     wrapper.launches_by[name] += 1
 
 
-def occupancy(kernel, n, precision="dmma", layout="major", split=0, m=1):
-    """The launch of ``kernel`` at m x n (node_transpose: any; gram_tc: any
-    m) on the current card (``cuda_lib.occupancy``)."""
+def occupancy(kernel, n, precision="dmma", layout="major", split=0, m=1,
+              smem_bytes=0):
+    """The launch of ``kernel`` at m x n (node_transpose: any) at a shared
+    memory request of ``smem_bytes`` on the current card
+    (``cuda_lib.occupancy``)."""
+    check_request(smem_bytes)
     return cuda_lib.occupancy(
         library.get().mxu_probes_occupancy,
         f"{kernel} occupancy query (m={m}, n={n}, {precision}, {layout}, "
-        f"split={split})",
-        _WHAT[kernel], _PREC[precision], int(layout == "minor"), m, n, split)
+        f"split={split}, smem={smem_bytes})",
+        _WHAT[kernel], _PREC[precision], int(layout == "minor"), m, n, split,
+        int(smem_bytes))
 
 
 def _check_precision(precision, allowed=PRECISIONS):
@@ -281,11 +289,13 @@ def node_transpose(x, direction, nodes=None):
 
 
 def _product(wrapper, name, prec, layout, A, Li, outs, B, m, n, split,
-             blocks=None):
+             blocks=None, smem_bytes=0):
     _launch(wrapper, name, f"{wrapper.__name__} ({prec}, {layout}, B={B}, "
-                           f"m={m}, n={n}, split={split})",
+                           f"m={m}, n={n}, split={split}, "
+                           f"smem={smem_bytes})",
             "mxu_probe_launch", A.device, _WHAT[wrapper.__name__], _PREC[prec],
-            int(layout == "minor"), A, Li, *outs, B, m, n, split, blocks or 0)
+            int(layout == "minor"), A, Li, *outs, B, m, n, split, blocks or 0,
+            int(smem_bytes))
 
 
 def _check_blocks(blocks):
@@ -298,12 +308,17 @@ def _check_n(n, limit):
         raise ValueError(f"n must be in [1, {limit}], got {n}")
 
 
-def gram_tc(A, precision="dmma", layout="major", split=0, nodes=None):
+def gram_tc(A, precision="dmma", layout="major", split=0, nodes=None,
+            blocks=None, smem_bytes=0):
     """A^T A on the tensor cores: (B, m, n) -> (B, n, n), or node-minor
     (T, m, n, 128) -> (T, n, n, 128); ``split`` > 0 sums rows [0, split)
-    and [split, m) apart, each rounded to float32."""
+    and [split, m) apart, each rounded to float32; ``blocks`` persistent
+    blocks (default: the card's SMs x the blocks an SM holds), at least
+    ``smem_bytes`` of shared memory a block."""
     _check_precision(precision)
     _check_layout(layout)
+    _check_blocks(blocks)
+    check_request(smem_bytes)
     if precision == "bf16" and layout != "major":
         raise ValueError("gram_tc takes bf16 node-major only")
     m, n = _matrix_dims("A", A, layout)
@@ -321,7 +336,8 @@ def gram_tc(A, precision="dmma", layout="major", split=0, nodes=None):
     if B:
         _product(gram_tc, instance("gram_tc", precision=precision,
                                    layout=layout),
-                 precision, layout, A, None, (out, None), B, m, n, split)
+                 precision, layout, A, None, (out, None), B, m, n, split,
+                 blocks, smem_bytes)
     return out
 
 

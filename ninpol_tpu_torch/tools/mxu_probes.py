@@ -16,10 +16,15 @@ prints:
   library call that computes the same function (``library_call``), its
   plain version's ms, its registers, spills, shared memory and blocks an
   SM, its error against its plain version and against float64;
+  K1_CONFIGS' instance (the DMMA node-major Gram, kernel 1's gram1 stage
+  on the tensor cores) also at kernel 1's shared memory request
+  (``factor_probes.setup``: the largest of the chunks' classes'), its ms,
+  launches, occupancy and errors under ``_k1``;
   the stage cuts it would replace (kernel 1's gram1, q and gram2,
   ``kernel_stages.time_cuts`` at rounds = 2) and the unfused route's
   gram_f32 and round2_gram_f32 on the same tensors;
-  the TPU probes' verdicts on these times (``verdicts``).
+  the TPU probes' verdicts on these times (``verdicts``), and the gram1
+  question of ROADMAP.md section 1 item 1.
 
 Then the shape sweep of r5_mxu_shapes.py: the node-minor Gram on SWEEP_NODES
 synthetic nodes (standard normal x 0.1 from a seeded torch.Generator) at
@@ -46,6 +51,7 @@ import numpy as np
 import torch
 
 from . import kernel_stages as ks
+from .factor_probes import setup
 from .problem import PEAK_BF16, PEAK_FP64, PEAK_TF32, bound, build_problem
 
 SEED = 0
@@ -71,6 +77,8 @@ CONFIGS = (("node_transpose", {"direction": "in"}),
            *(("q_tc", {"precision": p}) for p in FLOAT32_TRUE),
            *(("gram_q_gram_tc", {"precision": p, "layout": lay})
              for lay in ("major", "minor") for p in FLOAT32_TRUE))
+# the instances also timed and held at kernel 1's shared memory request
+K1_CONFIGS = (("gram_tc", {"precision": "dmma", "layout": "major"}),)
 # the TPU site each instance answers (tools.SITES' "by")
 _ANSWERS = {("node_transpose", "in"): "node_transpose (in)",
             ("node_transpose", "out"): "node_transpose (out)",
@@ -79,7 +87,21 @@ _ANSWERS = {("node_transpose", "in"): "node_transpose (in)",
             ("gram_tc", "minor"): "gram_tc (node-minor)"}
 SHAPES_ANSWER = "gram_tc (shapes)"
 # the sites whose kernels were designed a second time, for the card: how
+_GRAM_MAJOR = ("persistent blocks of 16 MMA and 8 converting warps, one an "
+               "SM; a node's A by one cp.async.bulk a node ahead, converted "
+               "once into a node-sized plane while the MMA warps run the "
+               "last node's products with no barrier between k steps; G "
+               "mirrored over the plane and out by one bulk store")
+_GRAM_MINOR = ("groups of 8 nodes of a tile, so every copy of A (16-byte "
+               "cp.async, 8 rows a step) and every store of G moves whole "
+               "32-byte sectors; each node's rows converted once into its "
+               "plane; a block's 16 warps a super tile of 4 nodes each, the "
+               "group's other super tiles further items; persistent blocks")
 REDESIGNED = {
+    "gram_tc (node-major)": _GRAM_MAJOR,
+    "gram_tc (bf16)": _GRAM_MAJOR,
+    "gram_tc (node-minor)": _GRAM_MINOR,
+    SHAPES_ANSWER: _GRAM_MINOR,
     "q_tc": "persistent blocks; a node's A and Li each by one cp.async.bulk, "
             "the next node's Li in flight; Li converted once a node into an "
             "operand plane, A's fragments once into registers (a warp a row "
@@ -133,10 +155,11 @@ def prepare(chunks):
     return out
 
 
-def run(kernel, kw, t, plain=False):
+def run(kernel, kw, t, plain=False, smem_bytes=0):
     """One call of ``kernel`` with the arguments ``kw`` on the tensors
     ``t`` (the wrapper, or with ``plain`` its plain version), its outputs
-    as returned (node-minor instances: node-minor)."""
+    as returned (node-minor instances: node-minor); a K1_CONFIGS wrapper at
+    a shared memory request of ``smem_bytes``."""
     from ..ops import mxu_probes as mp
 
     B = t["As"].shape[0]
@@ -156,6 +179,8 @@ def run(kernel, kw, t, plain=False):
                               B, *args)
     fn = functools.partial(getattr(mp, kernel), **kw)
     extra = {"nodes": B} if minor else {}
+    if smem_bytes:
+        extra["smem_bytes"] = smem_bytes
     if kernel == "gram_tc":
         return fn(A, **extra)
     return fn(A, Li, **extra)
@@ -277,10 +302,11 @@ def stage_ms(cuts):
 
 def time_probes(prepared, cuts):
     """Every instance's ms, bound, occupancy, plain and library ms on each
-    prepared chunk, beside the stage cuts (``cuts[i]``: a ``time_cuts``
-    list at rounds = 2 for chunk i) and the unfused route's Gram kernels
-    on the same tensors.  These launches are the path ``launches``
-    counts."""
+    prepared chunk (``setup`` done), K1_CONFIGS' also at kernel 1's request
+    with their launches there, beside the stage cuts (``cuts[i]``: a
+    ``time_cuts`` list at rounds = 2 for chunk i) and the unfused route's
+    Gram kernels on the same tensors.  These launches are the path
+    ``launches`` counts."""
     from ..ops import cholqr as cq
     from ..ops import mxu_probes as mp
 
@@ -301,6 +327,16 @@ def time_probes(prepared, cuts):
                 "occupancy": mp.occupancy(kernel, head["n"], prec,
                                           kw.get("layout", "major"),
                                           m=head["m"])}
+            if (kernel, kw) in K1_CONFIGS:
+                request, wrapper = head["k1_request"], getattr(mp, kernel)
+                before = wrapper.launches
+                row["kernels"][label(kernel, kw)].update(
+                    ms_k1=ks.best_ms(lambda: run(kernel, kw, t,
+                                                 smem_bytes=request)),
+                    launches_k1=wrapper.launches - before,
+                    occupancy_k1=mp.occupancy(kernel, head["n"], prec,
+                                              kw["layout"], m=head["m"],
+                                              smem_bytes=request))
         row["standalone"] = {
             "gram_f32": ks.best_ms(lambda: cq.gram_f32(t["As"])),
             "round2_gram_f32": ks.best_ms(
@@ -359,7 +395,9 @@ def errors(kernel, kw, got, ref, scales, exact):
 
 def probe_errors(prepared):
     """Each instance against its plain version on each prepared chunk:
-    [{label: errors(...) | {"nodes": B}}]."""
+    [{label: errors(...) | {"nodes": B}}], K1_CONFIGS' also at the head's
+    ``k1_request`` where it has one ("max_err_k1", "f64_err_k1",
+    "max_abs_err_k1")."""
     from ..ops.mxu_probes import _full_float32
 
     out = []
@@ -371,8 +409,14 @@ def probe_errors(prepared):
             with _full_float32():
                 ref = major(run(kernel, kw, t, plain=True), kernel, kw, B)
             got = major(run(kernel, kw, t), kernel, kw, B)
-            errs[label(kernel, kw)] = dict(
+            e = errs[label(kernel, kw)] = dict(
                 errors(kernel, kw, got, ref, scales, exact), nodes=B)
+            if (kernel, kw) in K1_CONFIGS and "k1_request" in head:
+                got = major(run(kernel, kw, t, smem_bytes=head["k1_request"]),
+                            kernel, kw, B)
+                k1 = errors(kernel, kw, got, ref, scales, exact)
+                e.update(max_err_k1=k1["max_err"], f64_err_k1=k1["f64_err"],
+                         max_abs_err_k1=k1["max_abs_err"])
             del got, ref
         out.append(errs)
         del scales, exact
@@ -390,7 +434,10 @@ def verdicts(row):
                  under gram_f32 + round2_gram_f32 standalone;
       precision  the faster float32-true node-major Gram, its error
                  against float64 (within TOL?) and its time over bf16's
-                 (errors are merged in later: ``finish_verdicts``)."""
+                 (errors are merged in later: ``finish_verdicts``);
+      gram1      ROADMAP.md section 1 item 1: kernel 1's gram1 stage as the
+                 DMMA node-major Gram, on its own and at kernel 1's shared
+                 memory, against the gram1 cut and gram_f32."""
     k, sa, st = row["kernels"], row["standalone"], row["stages"]
     unfused = sa["gram_f32"] + sa["round2_gram_f32"]
     mxu = {}
@@ -410,10 +457,17 @@ def verdicts(row):
     gram = {p: k[label("gram_tc", {"precision": p, "layout": "major"})]["ms"]
             for p in ("dmma", "tf32x3", "bf16")}
     faster = min(FLOAT32_TRUE, key=gram.get)
+    dmma = k[label("gram_tc", {"precision": "dmma", "layout": "major"})]
+    k1_ms = dmma.get("ms_k1", dmma["ms"])
     return {"mxu": dict(mxu, cuts_ms=st["gram1_q_gram2"],
                         unfused_ms=unfused),
             "precision": {"faster": faster, "gram_ms": gram,
-                          "over_bf16": gram[faster] / gram["bf16"]}}
+                          "over_bf16": gram[faster] / gram["bf16"]},
+            "gram1": {"dmma_ms": dmma["ms"], "dmma_k1_ms": k1_ms,
+                      "gram1_cut_ms": st["gram1"],
+                      "gram_f32_ms": sa["gram_f32"],
+                      "k1_beats_gram1_cut": k1_ms < st["gram1"],
+                      "k1_beats_gram_f32": k1_ms < sa["gram_f32"]}}
 
 
 def finish_verdicts(row):
@@ -524,6 +578,14 @@ def report(table, sweep):
                   f" {occ['registers']} registers, {occ['local_bytes']} "
                   f"spill bytes, {occ['smem_bytes']} B shared, "
                   f"{occ['blocks_per_sm']} blocks an SM; {err}", flush=True)
+            if "ms_k1" in r:
+                occ = r["occupancy_k1"]
+                print(f"#   {'at kernel 1':>28}: {r['ms_k1']:8.4f} ms; "
+                      f"{occ['smem_bytes']} B shared, {occ['blocks_per_sm']}"
+                      f" blocks an SM, {r['launches_k1']} launches"
+                      + (f"; error {r['max_err_k1']:.2e}, float64 "
+                         f"{r['f64_err_k1']:.2e}" if "max_err_k1" in r
+                         else ""), flush=True)
         st, sa = row["stages"], row["standalone"]
         print(f"#   stage cuts: gram1 {st['gram1']:.4f}, q {st['q']:.4f}, "
               f"gram2 {st['gram2']:.4f} (sum {st['gram1_q_gram2']:.4f}) ms;"
@@ -544,6 +606,13 @@ def report(table, sweep):
                       f"{win[r[f'composite_{lay}_beats_unfused']]} gram_f32 "
                       f"+ round2_gram_f32 ({v['mxu']['unfused_ms']:.4f})"
                       for lay in ("minor", "major")), flush=True)
+        g1 = v["gram1"]
+        print(f"#   verdict gram1: the DMMA node-major Gram {g1['dmma_ms']:.4f}"
+              f" ms, {g1['dmma_k1_ms']:.4f} at kernel 1's shared memory "
+              f"({win[g1['k1_beats_gram1_cut']]} the gram1 cut "
+              f"{g1['gram1_cut_ms']:.4f}, "
+              f"{win[g1['k1_beats_gram_f32']]} gram_f32 "
+              f"{g1['gram_f32_ms']:.4f})", flush=True)
         pv = v["precision"]
         print(f"#   verdict precision: {pv['faster']} is the faster "
               f"float32-true Gram ({pv['gram_ms'][pv['faster']]:.4f} ms, "
@@ -570,15 +639,26 @@ def report(table, sweep):
 
 
 def failed(table, sweep):
-    """The instances of a table and a sweep past their tolerance."""
-    bad = [f"({row['E']}, {row['F']}) {name}: error {r['max_err']:.3e} > "
+    """The instances of a table (at either shared memory request) and a
+    sweep past their tolerance."""
+    bad = [f"({row['E']}, {row['F']}) {name}{at}: error {r[key]:.3e} > "
            f"{r['tol']:.0e}"
            for row in table for name, r in row["kernels"].items()
-           if "max_err" in r and not r["max_err"] <= r["tol"]]
+           for key, at in (("max_err", ""),
+                           ("max_err_k1", " at kernel 1's shared memory"))
+           if key in r and not r[key] <= r["tol"]]
     return bad + [f"shape ({r['m']}, {r['n']}, split {r['split']}) "
                   f"{r['precision']}: error {r['max_err']:.3e} > "
                   f"{r['tol']:.0e}" for r in sweep
                   if not r["max_err"] <= r["tol"]]
+
+
+def unlaunched_k1(table):
+    """The K1_CONFIGS instances that did not launch at kernel 1's shared
+    memory in the timed run."""
+    return [f"({row['E']}, {row['F']}) {label(k, kw)}: no launch at kernel "
+            f"1's shared memory" for row in table for k, kw in K1_CONFIGS
+            if not row["kernels"][label(k, kw)].get("launches_k1")]
 
 
 def launch_counts():
@@ -604,6 +684,7 @@ def probe(chunks, cuts, sweep_nodes=SWEEP_NODES):
     table, then the shape sweep (its launches counted around each timed
     run); returns (table, sweep, launches)."""
     prepared = prepare(chunks)
+    setup(prepared)
     reset_counts()
     table = time_probes(prepared, cuts)
     launches = launch_counts()
@@ -641,7 +722,8 @@ def main():
         "launches": launches, "classes": table, "shapes": sweep,
         "shape_verdicts": shape_verdicts(sweep)}}), flush=True)
     bad = failed(table, sweep) + [f"{k}: no launch" for k, n in
-                                  launches.items() if n == 0]
+                                  launches.items() if n == 0] + \
+        unlaunched_k1(table)
     if bad:
         raise SystemExit("\n".join(bad))
 

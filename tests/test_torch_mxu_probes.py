@@ -449,6 +449,78 @@ def test_persistent_bodies_match_plain(emu, kernel, precision, layout, m, n,
         assert e["f64_err"] < 1e-7, e
 
 
+# gram_tc's persistent bodies on a grid of ``blocks`` blocks, (layout,
+# precision, m, n, split, B, blocks): node-major at (30, 19) on 3 and 5 nodes
+# over 2 blocks in every precision (spans from every 4-byte boundary), the
+# interior class on 3 nodes over 2 blocks (G staged, out by a bulk store),
+# split at row 8, past n = 80 (three super tiles a warp) and a node taller
+# than shared memory (its rows in chunks); node-minor on a
+# first tile's 16 groups and a second tile of 3 real nodes, split at row 8,
+# past n = 80, and at n = 128 (two copy buffers; five items a DMMA group)
+GRAM = ([("major", p, 30, 19, 0, B, 2) for B in (3, 5) for p in mp.PRECISIONS]
+        + [("major", p, 132, 73, 0, 3, 2) for p in mp.PRECISIONS]
+        + [("major", p, 30, 19, 8, 3, 2) for p in tool.FLOAT32_TRUE]
+        + [("major", p, 20, 90, 0, 3, 2) for p in tool.FLOAT32_TRUE]
+        + [("major", "dmma", 3000, 19, 0, 2, 1)]
+        + [("minor", p, 30, 19, 0, NT + 3, 3) for p in tool.FLOAT32_TRUE]
+        + [("minor", p, m, n, s, 11, 2) for p in tool.FLOAT32_TRUE
+           for m, n, s in ((30, 19, 8), (20, 90, 0), (20, 128, 0))])
+
+
+@pytest.mark.parametrize(
+    "layout,precision,m,n,split,B,blocks", GRAM,
+    ids=[f"{lay}-{p}-{m}x{n}" + (f"@{s}" if s else "") + f"-B{B}-g{g}"
+         for lay, p, m, n, s, B, g in GRAM])
+def test_gram_bodies_match_plain(emu, layout, precision, m, n, split, B,
+                                 blocks):
+    """gram_tc on ``blocks`` persistent blocks against its plain version
+    within TOL of the operands' magnitude product, DMMA also within 1e-7 of
+    float64; node-minor slots past B zero; one launch counted."""
+    A, _, scales = _inputs(m, n, B, seed=B + m)
+    A = _t(A)
+    name = tool.label("gram_tc", {"precision": precision, "layout": layout})
+    before = mp.gram_tc.launches_by[name]
+    if layout == "minor":
+        out = mp.gram_tc(mp.node_transpose_reference(A, "out"), precision,
+                         "minor", split, nodes=B, blocks=blocks)
+        assert not mp.node_transpose_reference(out, "in")[B:].any()
+        got = mp.node_transpose_reference(out, "in", B)
+    else:
+        got = mp.gram_tc(A, precision, split=split, blocks=blocks)
+    assert mp.gram_tc.launches_by[name] == before + 1
+    ref = mp.gram_tc_reference(A, precision, split)
+    A64 = A.double()
+    e = tool.errors("gram_tc", {"precision": precision}, (got,), (ref,),
+                    {"gram": torch.from_numpy(scales["gram"])},
+                    {"gram": A64.transpose(1, 2) @ A64})
+    assert e["max_err"] <= TOL, e
+    if precision == "dmma":
+        assert e["f64_err"] < 1e-7, e
+
+
+def test_gram_request_changes_no_bit(emu):
+    """A shared memory request (kernel 1's at (24, 36), and one that
+    deepens the node-major ring at the interior class) launches the larger
+    of it and the kernel's need, and gives the same G to the bit,
+    node-major and node-minor."""
+    for m, n, request in ((30, 19, 105824), (132, 73, 200000)):
+        A, _, _ = _inputs(m, n, 3)
+        A = _t(A)
+        Am = mp.node_transpose_reference(A, "out")
+        for layout, X in (("major", A), ("minor", Am)):
+            need = mp.occupancy("gram_tc", n, layout=layout, m=m)
+            occ = mp.occupancy("gram_tc", n, layout=layout, m=m,
+                               smem_bytes=request)
+            assert occ["smem_bytes"] == max(request, need["smem_bytes"])
+            base = mp.gram_tc(X, layout=layout, nodes=3 if Am is X else None,
+                              blocks=2)
+            at = mp.gram_tc(X, layout=layout, nodes=3 if Am is X else None,
+                            blocks=2, smem_bytes=request)
+            assert torch.equal(base, at), (m, n, layout)
+    with pytest.raises(ValueError):
+        mp.gram_tc(A, smem_bytes=-1)
+
+
 def test_persistent_launch_checks(emu):
     """blocks below 1 raise; on the card q_tc's A and output must agree
     modulo 16 bytes (its Q is staged over A's span): a launch that breaks
@@ -549,6 +621,43 @@ def test_emulated_bulk_store_and_span_helpers(tmp_path):
             assert torch.equal(y, want), (count, first, second)
 
 
+_ATOMIC = r"""
+#include <cuda_runtime.h>
+
+// every thread of 4 warps adds 1 (float) and (1, 2, 3, 4) (float4) to the
+// same two addresses, and its lane to a word of its own
+__global__ void atomic_kernel(float* x, float4* y, float* z) {
+  atomicAdd(x, 1.f);
+  atomicAdd(y, make_float4(1.f, 2.f, 3.f, 4.f));
+  atomicAdd(z + threadIdx.x, (float)(threadIdx.x & 31));
+}
+
+extern "C" int atomic_add(float* x, float4* y, float* z) {
+  atomic_kernel<<<2, 128, 0, nullptr>>>(x, y, z);
+  return 0;
+}
+"""
+
+
+def test_emulated_atomic_add(tmp_path):
+    """The emulator's atomicAdd on float and float4 (the node-minor Gram's
+    split adds its second part so): concurrent additions by the warps of
+    two blocks to one address all land, each returns nothing lost."""
+    if cuda_emu.gxx() is None:
+        pytest.skip("needs g++ to build the emulated kernels")
+
+    def bind(lib):
+        vp = ctypes.c_void_p
+        lib.atomic_add.argtypes = [vp, vp, vp]
+
+    lib = cuda_emu.build_text(_ATOMIC, "atomic", str(tmp_path), bind)
+    x, y, z = torch.zeros(1), torch.full((4,), 0.5), torch.zeros(128)
+    lib.atomic_add(x.data_ptr(), y.data_ptr(), z.data_ptr())
+    assert x.item() == 256.0
+    assert torch.equal(y, torch.tensor([256.5, 512.5, 768.5, 1024.5]))
+    assert torch.equal(z, 2 * (torch.arange(128) % 32).float())
+
+
 def test_tool_errors_on_route_chunks(emu_lib, monkeypatch):
     """The tool's inputs and error path on the route's own chunks
     (tetra_mesh(3)): the unfused route's tensors from ``prepare`` for both
@@ -576,13 +685,16 @@ def test_tool_errors_on_route_chunks(emu_lib, monkeypatch):
     t["Li1_minor"] = mp.node_transpose(t["Li1"], "out")
     _emulate(monkeypatch, emu_lib)
     tool.reset_counts()
-    errors = tool.probe_errors([(dict(head, chunk=2), t)])
+    errors = tool.probe_errors([(dict(head, chunk=2, k1_request=105824), t)])
     assert all(n > 0 for n in tool.launch_counts().values())
     for errs in errors:
         assert set(errs) == {tool.label(k, w) for k, w in tool.CONFIGS}
         for name, e in errs.items():
             assert e["max_err"] <= e["tol"], (name, e)
             assert e["nodes"] == 2
+        for k, w in tool.K1_CONFIGS:
+            e = errs[tool.label(k, w)]
+            assert e["max_err_k1"] <= e["tol"] and e["f64_err_k1"] < 1e-7, e
     row = {"kernels": {k: dict(e, ms=1.0) for k, e in errors[0].items()},
            "verdicts": {"precision": {"faster": "tf32x3"}}}
     tool.finish_verdicts(row)
@@ -631,6 +743,22 @@ def test_verdicts_follow_the_tpu_rules():
     assert v["mxu"]["unfused_ms"] == pytest.approx(4.40)
     p = v["precision"]
     assert p["faster"] == "dmma" and p["over_bf16"] == pytest.approx(1.9 / 1.5)
+    g = v["gram1"]                                       # no k1 time: its own
+    assert g["dmma_k1_ms"] == g["dmma_ms"] == 1.9 and g["gram1_cut_ms"] == 1.79
+    assert not g["k1_beats_gram_f32"] and not g["k1_beats_gram1_cut"]
+    row = _row(MS)
+    row["kernels"]["gram_tc[dmma,major]"]["ms_k1"] = 1.0
+    g = tool.verdicts(row)["gram1"]
+    assert g["k1_beats_gram_f32"] and g["k1_beats_gram1_cut"]
+    assert tool.unlaunched_k1([row]) == [
+        "(24, 36) gram_tc[dmma,major]: no launch at kernel 1's shared memory"]
+    row["kernels"]["gram_tc[dmma,major]"]["launches_k1"] = 12
+    assert tool.unlaunched_k1([row]) == []
+    assert tool.failed([{"E": 24, "F": 36, "kernels": {
+        "gram_tc[dmma,major]": {"max_err": 1e-7, "max_err_k1": 2e-5,
+                                "tol": 1e-5}}}], []) == [
+        "(24, 36) gram_tc[dmma,major] at kernel 1's shared memory: error "
+        "2.000e-05 > 1e-05"]
     assert tool.failed([{"E": 24, "F": 36, "kernels": {
         "gram_tc[dmma,major]": {"max_err": 2e-5, "tol": 1e-5}}}], [])
 
@@ -719,10 +847,12 @@ def test_kernels_line_names_each_site():
     assert len(c["classes"]) == 2 * 4
     s = by_site["tools/r5_mxu_shapes.py:84"]
     assert s["ms"] == 5.0 and s["launches"] == 84
-    for site in (185, 215):
+    for site in (123, 138, 166, 185, 215):
         e = by_site[f"tools/mxu_probe.py:{site}"]
         assert e["status"] == "redesigned" and e["design"]
-    assert "status" not in g
+    assert s["status"] == "redesigned" and s["design"]
+    assert not [e for e in entries if "status" not in e
+                and e["name"].startswith("gram_tc")]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for e in entries:

@@ -303,9 +303,14 @@ inline void emu_mbarrier_arrive(uint64_t* bar) { emu_mbarrier_update(bar, 1, 0);
 inline void emu_mbarrier_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
   emu_mbarrier_update(bar, 1, (int32_t)bytes);
 }
-// mbarrier.try_wait.parity: has the phase of this parity completed?
+// mbarrier.try_wait.parity: has the phase of this parity completed?  Not
+// yet: the warp's OS thread yields, so a wait for a copy that another
+// warp's thread has still to issue (in the same stretch between block
+// barriers) lets that thread run.
 inline bool emu_mbarrier_try_wait_parity(uint64_t* bar, unsigned parity) {
-  return (unsigned)(__atomic_load_n(bar, __ATOMIC_SEQ_CST) >> 63) != (parity & 1u);
+  const bool done = (unsigned)(__atomic_load_n(bar, __ATOMIC_SEQ_CST) >> 63) != (parity & 1u);
+  if (!done) std::this_thread::yield();
+  return done;
 }
 // cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes
 inline void emu_cp_async_bulk(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
@@ -352,6 +357,25 @@ inline void emu_named_barrier(int id, int count, bool wait) {
 inline void __trap() {
   std::fprintf(stderr, "cuda_emu: __trap\n");
   std::abort();
+}
+// atomicAdd on device memory: float, and sm_90's float4 (a float at a
+// time), each word by compare and swap (a block's warps are OS threads);
+// returns the old value
+inline float atomicAdd(float* a, float v) {
+  uint32_t* const w = reinterpret_cast<uint32_t*>(a);
+  uint32_t old = __atomic_load_n(w, __ATOMIC_SEQ_CST), next;
+  float f;
+  do {
+    std::memcpy(&f, &old, 4);
+    f += v;
+    std::memcpy(&next, &f, 4);
+  } while (!__atomic_compare_exchange_n(w, &old, next, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST));
+  std::memcpy(&f, &old, 4);
+  return f;
+}
+inline float4 atomicAdd(float4* a, float4 v) {
+  float* const f = reinterpret_cast<float*>(a);
+  return {atomicAdd(f, v.x), atomicAdd(f + 1, v.y), atomicAdd(f + 2, v.z), atomicAdd(f + 3, v.w)};
 }
 using std::fmaf; using std::fmaxf; using std::sqrt; using std::fmax;
 using std::min; using std::max;
