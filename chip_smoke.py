@@ -142,9 +142,10 @@ hexahedral one, and checks them all:
      pivot and by blocks of 8 rows), each timed as phase 10 times a cut,
      beside its bound, the nearest library composition, phase 10's cuts
      it would replace and the unfused kernels; registers, spills, shared
-     memory and blocks per SM; chol_trsm_gram and chol_linv_tc also at
-     kernel 1's shared memory request (its blocks an SM); the TPU probes'
-     verdicts and the chol2 verdict on these times; every
+     memory and blocks per SM; every instance also at kernel 1's shared
+     memory request (its blocks an SM), chol_trisolve_apply also at
+     applies = 0; the TPU probes' verdicts (trisolve: both sides at
+     kernel 1's request) and the chol2 verdict on these times; every
      instance launched in the timed run, at both requests, and held to
      its plain version there (tools/factor_probes.py: TOL of its scale,
      or CHOL_RATIO times the plain version's own distance from float64);
@@ -357,8 +358,8 @@ def kernel_vs_plain(interp, chunks, rounds=2):
     the route's sweeps for those rounds; at rounds = 1 also at the sweeps
     where most of the chunk converges (``round1_converged``).  Times are
     the route's sweeps': the kernel's the least of kernel_stages.REPS
-    single launches (kernel_stages.best_ms, as phase 10 times the cuts
-    it is held to), so that a host stall between two launches, which
+    single launches, each queued behind device work (kernel_stages.best_ms,
+    as phase 10 times the cuts it is held to), so that a host stall between two launches, which
     leaves the card idle, does not enter it; the plain version's the
     mean of 2 runs."""
     from ninpol_tpu_torch.ops import gls_solve as gs
@@ -1565,10 +1566,13 @@ def factor_entries(table, launches):
     """Phase 11's entries (``probe_entries``; chol_trsm_gram's variants B
     and C are two sites), each with "out_max", the largest output
     (chol_trisolve_apply's grow with lambda_max(M)^4, so its absolute
-    error is large)."""
-    out = probe_entries(factor_probes, "factor_probes.cu", table, launches)
+    error is large), the redesigned sites' with "status" and "design"."""
+    fp = factor_probes
+    out = probe_entries(fp, "factor_probes.cu", table, launches)
     for e in out:
         e["out_max"] = max(r["out_max"] for r in e["classes"])
+        if e["name"] in fp.REDESIGNED:
+            e.update(status="redesigned", design=fp.REDESIGNED[e["name"]])
     return out
 
 

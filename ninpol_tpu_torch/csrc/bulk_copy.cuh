@@ -13,12 +13,18 @@
  * before the source is written again, and for the group itself
  * (bulk_wait) before the block exits.
  *
+ * A node's floats that start at any 4-byte boundary arrive by one load
+ * of the 16-byte span that covers them (load_span): up to 12 bytes either
+ * side of the node are copied too, and the node starts span_head floats
+ * into the destination.
+ *
  * Every wait on an mbarrier spins a bounded number of times and then
  * traps, so a wrong phase parity ends the launch with an error instead of
  * hanging the card.  Under CUDA_EMU (tests/utils/cuda_emu) each call is the
  * emulator's model.
  */
 #pragma once
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace bulk_copy {
@@ -42,6 +48,10 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 #endif
 }
+
+// Floats of a span that covers ``count`` floats from any 4-byte boundary:
+// whole 16-byte words, one more than ``count`` needs at most.
+__host__ __device__ inline long long span_floats(long long count) { return (count + 3) / 4 * 4 + 4; }
 
 // One thread: expect ``bytes`` on ``bar`` (its one arrival) and copy them
 // from device memory to shared memory, completing on ``bar``.  The fence
@@ -86,6 +96,20 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, unsigned parity) {
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   for (unsigned tries = 0; !mbar_try_wait(bar, parity); ++tries)
     if (tries == kSpinLimit) __trap();
+}
+
+// The floats of p past its 16-byte boundary.
+__device__ __forceinline__ int span_head(const float* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// Thread 0: the 16-byte span that covers x[0, count) into dst, on bar;
+// dst[span_head(x)] is then x[0].
+__device__ __forceinline__ void load_span(float* dst, const float* x, long long count,
+                                          uint64_t* bar) {
+  if (threadIdx.x != 0) return;
+  const int h = span_head(x);
+  bulk_load(dst, x - h, (unsigned)((h + count + 3) / 4 * 16), bar);
 }
 
 // This thread's writes of shared memory made visible to bulk stores that

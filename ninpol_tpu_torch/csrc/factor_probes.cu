@@ -1,7 +1,7 @@
 /*
  * Kernel 1's factorization probes for NVIDIA Hopper (sm_90a): design
  * alternatives for the two factorizations of the fused solve
- * (gls_solve.cu), which take 61% of its time on the tet interior class.
+ * (gls_solve.cu) and for how it applies its preconditioner.
  * They are the counterparts of the TPU probes in the repo's tools/
  * (trsm_probe.py, chol_mxu_probe.py, trisolve_probe.py), timed by
  * ninpol_tpu_torch/tools/factor_probes.py on the route's own float32
@@ -11,13 +11,14 @@
  * and the plain PyTorch versions.  One block a node throughout.
  *
  * chol_factor_kernel replaces tools/trisolve_probe.py:79 (the Cholesky
- *   panels alone): L and dinv = rsqrt(max(pivot, tiny)) of G, no inverse;
- *   the baseline that the other probes' verdicts subtract.  The lower
- *   triangle of G in registers, 5 x 5 entries a thread on a 16 x 16 grid
- *   (chol_linv_reg_kernel's layout in cholqr.cu, without its inverse), one
- *   barrier a pivot.  Bound by memory on the card (G's triangle read, L
- *   written: 32.1 KB a node at n = 73 for 0.13 MFLOP), held back by the n
- *   dependent pivots.
+ *   panels alone): L of G, clamped (dinv = rsqrt(max(pivot, tiny))), no
+ *   inverse; the baseline of the trisolve verdict.  Bound by memory on the
+ *   card (G's triangle read, L written: 32.1 KB a node at n = 73 for 0.13
+ *   MFLOP); an elimination would be held back by one block barrier for
+ *   each of the n dependent pivots.  It runs blocked_factor (kernel 1's
+ *   factor, panels of 16): G's triangle staged as chol_linv_tc stages it,
+ *   the next node's G asked of L2, 20 block barriers a node at n = 73, L
+ *   out once rounded in whole rows.
  *
  * chol_trsm_gram_kernel replaces tools/trsm_probe.py:129 (variant B) and
  *   :192 (variant C): G2 = X X^T with X = L^-1 A^T, the factor L of G,
@@ -64,16 +65,32 @@
  * chol_trisolve_apply_kernel replaces tools/trisolve_probe.py:162: the
  *   factor L2 of G2 kept (no L2^-1 L1^-1), then `applies` times v <-
  *   Li^T L2^-T L2^-1 Li v, = Lc^T Lc v with Lc = L2^-1 Li (what
- *   prec_apply_f32 applies with Lc explicit).  The factor as
- *   chol_factor_kernel's, while Li's triangle and v arrive by
- *   asynchronous copies; the matrix-vector products by the block; each
- *   triangular solve by one warp, lanes over the rows (warp_solves).
- *   Template kB: 1, the TPU probe's column sweep, one shuffle a pivot, a
- *   dependence chain n long, which the TPU probe found bound by latency;
- *   8, the same sweep by blocks of 8 rows, each block's values at once
- *   from its inverted diagonal block (computed after the factor), so the
- *   chain is n / 8 block steps long.
- *
+ *   prec_apply_f32 applies with Lc explicit).  One block of 8 warps a
+ *   node, as kernel 1.  Bound by memory (G's and Li's triangles read, v
+ *   read and written: 0.22 ms a (24, 36) chunk); held back by its chain of
+ *   dependent steps: the factor's n / 8, then two triangular solves an
+ *   apply.  The factor is chol_factor's, while Li arrives by one
+ *   cp.async.bulk of the span that covers the node; after it Li's
+ *   triangle is widened into a packed float64 triangle (packed_at, as
+ *   kernel 1 holds L1^-1) over its own raw span (a float32 staging region
+ *   of its own would cost the third block an SM: 63,680 B a node at n =
+ *   73).  Template kB = 8, the blocked solves on all 8 warps: L's blocks
+ *   below the diagonal are scaled to W_ik = Linv_ii L_ik and Li's block
+ *   rows to Li' = Linv_ii Li (scale_rows), so a step needs no diagonal
+ *   product and u = Li' v, v = Li'^T z (y never formed); warp w owns block
+ *   rows (columns) w and w + 8 and keeps their partial sums in registers;
+ *   at step k, after one block barrier, the owner of row k + 1 forms
+ *   x_{k+1} from x_k by one m16n8k8 with the vector as A's rows (no
+ *   shuffle) and stores it, while every other warp subtracts W_ik x_k from
+ *   its rows by two FMAs a lane, adds a block of Li' v, or sums its next
+ *   row's partial into its full value (one more m16n8k8: two shuffle
+ *   levels of doubles cost more); the backward solve alike on W^T, each
+ *   z_k also summed into v (apply_blocked).  2 nb - 1 block barriers an
+ *   apply: 100 a node at n = 73 with the factor's 21, the staging's 3 and
+ *   four applies.  kB = 1 is the TPU probe's form: Li v and Li^T y on all
+ *   8 warps, a warp a block row (column); L rounded into a float32 square
+ *   at an odd stride; warp 0 sweeps both solves a column at a time, one
+ *   shuffle a pivot (3 barriers an apply, 37 a node).
  * Every launch function returns a cudaError_t as int (0 on success).
  */
 #include <cuda_pipeline.h>
@@ -92,9 +109,9 @@ using namespace bulk_copy;
 constexpr int kGrid = 16;                 // the register grid: kGrid x kGrid threads
 constexpr int kThreads = kGrid * kGrid, kWarps = kThreads / 32;
 static_assert(kThreads == kFactorThreads, "blocked_factor runs on the probes' blocks");
+constexpr int kFactorWidth = 16;          // chol_factor's and chol_trisolve_apply's panels
 
-// ---- the elimination in registers (chol_factor, chol_trsm_gram with kW =
-// 0, chol_trisolve_apply)
+// ---- the elimination in registers (chol_trsm_gram with kW = 0)
 //
 // Thread (tr, tc) = (t / kGrid, t % kGrid) holds rows i = tr + kGrid a and
 // columns c = tc + kGrid b of the n x n lower triangle of G, a, b < kS;
@@ -212,23 +229,41 @@ __device__ inline void factor_first(const float* Gb, double* lp, double* inv, in
 
 // ---- the kernels
 
-template <int kS>
-__global__ void __launch_bounds__(kThreads, 3)
-chol_factor_kernel(const float* __restrict__ G, float* __restrict__ L, int n, float tiny) {
-  __shared__ float lcol[2][kGrid * kS], dinv[kGrid * kS];
+// ---- chol_factor
+
+// Shared memory of chol_factor (bytes): L's packed triangle and the
+// diagonal blocks' inverses (float64), dinv (np float32): 33,600 B a node
+// at n = 73.
+__host__ __device__ inline long long factor_bytes(int n) {
+  const long long np = pad8(n), nb = np / 8;
+  return 64LL * 8 * (tri_blocks((int)nb) + nb) + np * 4;
+}
+
+// G's triangle staged (warp 0 factoring diagonal block 0 meanwhile), then
+// blocked_factor, panels of kFactorWidth, the next node's G asked of L2;
+// L out rounded once, a warp a row, zeros above the diagonal.
+__global__ void __launch_bounds__(kThreads, 4)
+chol_factor_kernel(const float* __restrict__ G, float* __restrict__ L, int n, float tiny,
+                   long long B, long long ahead) {
+  extern __shared__ __align__(16) float smem[];
+  const int np = pad8(n), nb = np / 8, warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  double* lp = reinterpret_cast<double*>(smem);
+  double* dp = lp + 64 * tri_blocks(nb);
+  float* dinv = reinterpret_cast<float*>(dp + 64 * nb);
   const long long node = blockIdx.x;
-  float g[kS][kS];
-  load_lower<kS>(G + node * n * n, n, g);
-  eliminate<kS>(g, n, tiny, lcol, dinv);
-  const int tr = threadIdx.x / kGrid, tc = threadIdx.x % kGrid;
-  float* Lb = L + node * n * n;
+  const float* Gb = G + node * n * n;
+  if (warp == 0) factor_first(Gb, lp, dp, n, tiny, dinv);
+  else stage_lower(Gb, lp, n, np);
+  __syncthreads();
+  blocked_factor<kFactorWidth, false>(lp, nullptr, dp, nb, tiny, dinv,
+                                      node + ahead < B ? Gb + ahead * n * n : nullptr,
+                                      (long long)n * n * 4);
+  float* ob = L + node * n * n;
+  for (int i = warp; i < n; i += kWarps)
 #pragma unroll
-  for (int a = 0; a < kS; ++a)
-#pragma unroll
-    for (int b = 0; b < kS; ++b) {
-      const int i = tr + kGrid * a, c = tc + kGrid * b;
-      if (i < n && c < n)
-        Lb[i * n + c] = c < i ? g[a][b] * dinv[c] : c == i ? 1.f / dinv[c] : 0.f;
+    for (int q = 0; q < 3; ++q) {
+      const int c = lane + 32 * q;
+      if (c < n) ob[i * n + c] = c <= i ? (float)lp[packed_at(i, c)] : 0.f;
     }
 }
 
@@ -499,13 +534,262 @@ chol_linv_tc_kernel(const float* __restrict__ G, const float* __restrict__ P,
     }
 }
 
-// Shared memory of chol_trisolve_apply: L's strictly lower triangle (n x
-// (n | 1): an odd stride, so lanes reading one column down 32 rows fall
-// in distinct banks), Li's lower triangle packed by rows, v and u, and
-// the inverses of L's kB x kB diagonal blocks.
-__host__ __device__ inline long long trisolve_floats(int n, int kb) {
-  const long long blocks = (n + kb - 1) / kb;
-  return (long long)n * (n | 1) + (long long)n * (n + 1) / 2 + 2LL * n + blocks * kb * kb;
+// ---- chol_trisolve_apply
+
+// Shared memory of chol_trisolve_apply (bytes): L's and Li's packed
+// triangles (Li's region first holds the raw span of the node's Li, which
+// fits: at most 4 n^2 + 28 bytes against the triangle's 4 np (np + 8)),
+// the diagonal blocks' inverses (float64), x, y and v (np float64 each)
+// and dinv (np float32): 63,680 B a node at n = 73, three blocks an SM.
+__host__ __device__ inline long long trisolve_bytes(int n) {
+  const long long np = pad8(n), nb = np / 8;
+  return 64LL * 8 * (2 * tri_blocks((int)nb) + nb) + np * (3 * 8 + 4);
+}
+
+// The entries of a packed triangle of nb <= 10 block rows a thread holds
+// while repack moves it.
+constexpr int kPackSlots = (64 * 55 + kThreads - 1) / kThreads;
+
+// Entry s of this thread in a packed triangle's order: its index p, row r
+// and column c.
+struct Entry {
+  int p, r, c;
+};
+__device__ __forceinline__ Entry packed_entry(int s) {
+  const int p = threadIdx.x + kThreads * s, b = p >> 6;   // block b = I (I + 1) / 2 + J
+  int i = (int)((sqrtf(8.f * b + 1.f) - 1.f) * 0.5f);
+  i += (i + 1) * (i + 2) / 2 <= b;
+  return {p, 8 * i + ((p >> 3) & 7), 8 * (b - i * (i + 1) / 2) + (p & 7)};
+}
+
+// A change of layout in place: every entry of a packed triangle of nb
+// block rows through ``get(Entry)`` into registers (a warp 32 consecutive
+// ones), a block barrier, then through ``put(Entry, value)``.  Ends with a
+// barrier.
+template <typename Get, typename Put>
+__device__ void repack(int nb, Get get, Put put) {
+  const int count = 64 * tri_blocks(nb);
+  float e[kPackSlots];
+#pragma unroll
+  for (int s = 0; s < kPackSlots; ++s) {
+    const Entry x = packed_entry(s);
+    e[s] = x.p < count ? get(x) : 0.f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < kPackSlots; ++s) {
+    const Entry x = packed_entry(s);
+    if (x.p < count) put(x, e[s]);
+  }
+  __syncthreads();
+}
+
+// ---- the applies (chol_trisolve_apply)
+//
+// A warp's vector block of 8 in the "rows" layout: lane 4 g + t holds
+// entry g, in full (in every lane of that g) or as a partial that its 4
+// lanes sum to (sum_t).  Its products with an 8 x 8 block read the block
+// by row pairs (row_pair: X[g][2t], X[g][2t + 1]) or by column pairs
+// (col_pair: X[2t][g], X[2t + 1][g]) against the vector's own pair
+// (pair_at: entries 2t and 2t + 1, one double2 of shared memory).
+
+__device__ __forceinline__ double2 pair_at(const double* x, int k) {
+  return *reinterpret_cast<const double2*>(x + 8 * k + 2 * (threadIdx.x & 3));
+}
+__device__ __forceinline__ double2 col_pair(const double* X) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  return double2{X[16 * t + g], X[16 * t + 8 + g]};
+}
+__device__ __forceinline__ double2 row_of(const double* X) {
+  const int lane = threadIdx.x & 31;
+  return row_pair(X, lane >> 2, 2 * (lane & 3));
+}
+// The sum over the 4 lanes of a g, in each of them.
+__device__ __forceinline__ double sum_t(double x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+// The sum over the 8 lanes of a t, in each of them.
+__device__ __forceinline__ double sum_g(double x) {
+  x += __shfl_xor_sync(kFull, x, 4);
+  x += __shfl_xor_sync(kFull, x, 8);
+  return x + __shfl_xor_sync(kFull, x, 16);
+}
+
+// v = Li^T y by the owners of Li's block columns (warp w: w and w + 8):
+// partials of entries 2t, 2t + 1 over g, row pairs of Li against y's entry
+// g, summed over g; a lane of g = 0 stores a pair.
+__device__ __forceinline__ void li_transpose_times(const double* li, const double* ys, double* vs,
+                                                   int nb) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int J = warp + kWarps * q;
+    if (J >= nb) continue;
+    double p0 = 0.0, p1 = 0.0;
+    const double* col = li + J * 64 + g * 8 + 2 * t;   // + bo(I, 0) for block (I, J)
+#pragma unroll 2
+    for (int I = J; I < nb; ++I) {
+      const double2 l = *reinterpret_cast<const double2*>(col + bo(I, 0));
+      const double y = ys[8 * I + g];
+      p0 = fma(l.x, y, p0);
+      p1 = fma(l.y, y, p1);
+    }
+    p0 = sum_g(p0);
+    p1 = sum_g(p1);
+    if (g == 0) *reinterpret_cast<double2*>(vs + 8 * J + 2 * t) = double2{p0, p1};
+  }
+}
+
+// c += s X w in full on the FP64 tensor cores, one m16n8k8 with no
+// shuffle: X (this lane's pair x of it) in the upper (``hi`` false) or the
+// lower half of A, w's pair as every column of B, so entry g lands in the
+// lanes of g: c[0] (= c[1]) from the upper half, c[2] (= c[3]) from the
+// lower, the other half of c unchanged.
+__device__ __forceinline__ void mma_times(double (&c)[4], double2 x, double2 w, double s, bool hi) {
+  const double a[4] = {hi ? 0.0 : s * x.x, hi ? s * x.x : 0.0, hi ? 0.0 : s * x.y,
+                       hi ? s * x.y : 0.0};
+  const double b[2] = {w.x, w.y};
+  mma16(c, a, b);
+}
+
+// c += the sum of p over the 4 lanes of each g, by one m16n8k8 (p as A's
+// first 4 columns, in its upper or, ``hi``, lower half; ones as B's first
+// 4 rows): entry g in the lanes of g, as mma_times leaves it (two shuffle
+// levels of a double take longer on an H100).
+__device__ __forceinline__ void sum_into(double (&c)[4], double p, bool hi) {
+  const double a[4] = {hi ? 0.0 : p, hi ? p : 0.0, 0.0, 0.0}, b[2] = {1.0, 0.0};
+  mma16(c, a, b);
+}
+
+// X_Ik <- Linv_II X_Ik over each block (I, k) of a packed triangle below
+// the diagonal (``diag``: and on it), in place, a warp a block, one
+// m16n8k8 each; no barrier.  On the factor (L = diag(L_II) W', W' unit
+// block lower triangular with W below) the solves' steps need no
+// diagonal product: W' x = Linv u, W'^T z = x, y = Linv^T z.  On Li (Li'
+// = diag(Linv_II) Li) u = Linv Li v = Li' v and Li^T y = Li'^T z: the
+// applies' products become updates of the same partials, and y is never
+// formed.
+__device__ void scale_rows(double* X, const double* dp, int nb, bool diag) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int d = diag ? 1 : 0;   // row I holds I + d blocks
+  for (int it = warp, I = 1 - d, k = warp; it < tri_blocks(nb) - nb * (1 - d);
+       it += kWarps, k += kWarps) {
+    while (k >= I + d) k -= I++ + d;   // it -> (I, k), row by row
+    double* blk = X + bo(I, k);
+    const double2 w = row_pair(dp + 64 * I, g, 2 * t), l = col_pair(blk);
+    const double a[4] = {w.x, 0.0, w.y, 0.0}, b[2] = {l.x, l.y};
+    double c[4] = {0.0, 0.0, 0.0, 0.0};
+    mma16(c, a, b);   // D[g][2t] = (Linv_II X_Ik)[g][2t]
+    store_pair(blk, g, 2 * t, c[0], c[1]);
+  }
+}
+
+// One apply, v <- Li^T L^-T L^-1 Li v, by blocks of 8 on all 8 warps, on
+// scale_rows' W and Li': warp w owns block rows (and columns) w and w + 8,
+// half q of its C fragment ``full`` and its partials ``part[q]`` (x, z)
+// and ``po[q]`` (v), all in the rows layout.  Forward W' x = u, u = Li'
+// v: at step k, after one block barrier, every warp with rows past k
+// subtracts W_ik x_k from them, by two FMAs a lane into the partial (and
+// adds a block of Li' v: row i's blocks 0, 1 and i before the steps, k +
+// 2 at step k), and the owner of row k + 1 by one m16n8k8 into the full
+// value, which is then x_{k+1}, stored (the partial was summed into it at
+// the step before): a step is a barrier, a load, one product and a store
+// on its critical path.  Backward W'^T z = x alike (W_kj^T by column
+// pairs) from each owner's x, each published z_k also added into v =
+// Li'^T z by the owners of block columns j <= k.  2 nb - 1 block barriers;
+// starts after one (v complete) and ends with one.  (Flags on mbarriers
+// in place of the steps' barriers, so that only the next owner waits,
+// timed the same on the card.)
+__device__ void apply_blocked(const double* lp, const double* li, double* xs, double* ys,
+                              double* vs, int nb) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rp = g * 8 + 2 * t, cp = 16 * t + g;   // a lane's row pair, column pair in a block
+  const int I0 = warp, I1 = warp + kWarps;          // the owned block rows (columns)
+  double full[4] = {0.0, 0.0, 0.0, 0.0}, part[2] = {0.0, 0.0}, po[2] = {0.0, 0.0};
+  const double* wrow[2] = {lp + bo(I0, 0) + rp, lp + bo(I1, 0) + rp};
+  const double* lrow[2] = {li + bo(I0, 0) + rp, li + bo(I1, 0) + rp};
+  auto li_v = [&](int q, int J) {   // part[q] += Li'_IJ v_J
+    const double2 l = *reinterpret_cast<const double2*>(lrow[q] + 64 * J), w = pair_at(vs, J);
+    part[q] = fma(l.x, w.x, fma(l.y, w.y, part[q]));
+  };
+  auto fold = [&](int q) {   // part[q] summed into the full value
+    sum_into(full, part[q], q);
+    part[q] = 0.0;
+  };
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int I = q ? I1 : I0;
+    if (I >= nb) continue;
+    li_v(q, 0);
+    if (I >= 1) li_v(q, 1);
+    if (I >= 2) li_v(q, I);
+    if (I <= 1) fold(q);   // rows 0 and 1: full before their first product
+  }
+  if (warp == 0 && t == 0) xs[g] = full[0];
+  for (int k = 0; k + 1 < nb; ++k) {
+    __syncthreads();
+    if (I0 <= k && (I1 <= k || I1 >= nb)) continue;   // no row of this warp left
+    const double2 xk = pair_at(xs, k);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int I = q ? I1 : I0;
+      if (I <= k || I >= nb) continue;
+      const double2 l = *reinterpret_cast<const double2*>(wrow[q] + 64 * k);
+      if (I == k + 1) {
+        mma_times(full, l, xk, -1.0, q);
+        if (t == 0) xs[8 * I + g] = full[2 * q];
+      } else {
+        part[q] = fma(-l.x, xk.x, fma(-l.y, xk.y, part[q]));
+        if (I >= k + 3) li_v(q, k + 2);
+        else fold(q);   // row I = k + 2 is next
+      }
+    }
+  }
+  // backward: z_{nb-1} = x_{nb-1}, from its owner's full value
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+    if ((q ? I1 : I0) == nb - 1 && t == 0) ys[8 * (nb - 1) + g] = full[2 * q];
+  for (int k = nb - 1; k > 0; --k) {
+    __syncthreads();
+    if (I0 > k) continue;   // no column of this warp left (I1 > I0)
+    const double2 zk = pair_at(ys, k);
+    const double* wblk = lp + bo(k, 0) + cp;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int J = q ? I1 : I0;
+      if (J >= k) continue;
+      const double2 l = {wblk[64 * J], wblk[64 * J + 8]};
+      if (J == k - 1) {
+        mma_times(full, l, zk, -1.0, q);
+        if (t == 0) ys[8 * J + g] = full[2 * q];
+      } else {
+        part[q] = fma(-l.x, zk.x, fma(-l.y, zk.y, part[q]));
+        if (J == k - 2) fold(q);
+      }
+    }
+    const double* lblk = li + bo(k, 0) + cp;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int J = q ? I1 : I0;
+      if (J > k) continue;
+      po[q] = fma(lblk[64 * J], zk.x, fma(lblk[64 * J + 8], zk.y, po[q]));
+    }
+  }
+  if (warp == 0) {   // z_0, its own
+    __syncwarp();
+    const double2 z0 = pair_at(ys, 0);
+    po[0] = fma(li[cp], z0.x, fma(li[cp + 8], z0.y, po[0]));
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int J = q ? I1 : I0;
+    if (J >= nb) continue;
+    double c[4] = {0.0, 0.0, 0.0, 0.0};
+    sum_into(c, po[q], false);
+    if (t == 0) vs[8 * J + g] = c[0];
+  }
+  __syncthreads();
 }
 
 // x[s] for a slot s known only at run time, from registers
@@ -518,182 +802,141 @@ __device__ __forceinline__ float pick(const float (&x)[kL], int s) {
   return r;
 }
 
-// The warp's two triangular solves, x <- L^-T L^-1 x, x in the lanes'
-// registers (lane l holds rows l + 32 q): block by block of kB rows, each
-// block's values from its inverted diagonal block dblk (kB^2 floats a
-// block, lower triangular) applied to the block's current entries, which
-// every lane gathers by kB shuffles; then every later row (earlier, in
-// the backward solve) takes the block's share at once.  kB = 1 is the
-// column sweep, one shuffle a pivot (the TPU probe's form); kB = 8 cuts
-// the dependence chain to n / 8 block steps, at the price of the
-// diagonal blocks' inverses.
-template <int kB, int kL>
-__device__ __forceinline__ void warp_solves(float (&xs)[kL], const float* ls, int ld,
-                                            const float* dblk, int n) {
-  const int lane = threadIdx.x % 32;
-  for (int b0 = 0; b0 < n; b0 += kB) {
-    const float* d = dblk + (b0 / kB) * kB * kB;
-    float t[kB], xb[kB];
+// One warp: y = L^-T L^-1 u by the TPU probe's column sweeps in float32
+// (the port's earlier warp_solves<1, kL>), lane l holding rows l + 32 q
+// (n <= 96): at pivot k the value x_k = r_k dinv_k by one shuffle, then
+// every later row (earlier, backward) takes its share.  L's strictly
+// lower triangle ls at the odd row stride ld (a column's 32 rows in
+// distinct banks).  y past n is 0.
+__device__ void column_sweeps(const float* ls, int ld, const float* dinv, const double* u,
+                              double* y, int n, int np) {
+  constexpr int kL = 3;
+  const int lane = threadIdx.x & 31;
+  float x[kL];
 #pragma unroll
-    for (int c = 0; c < kB; ++c) t[c] = __shfl_sync(0xffffffffu, pick(xs, b0 >> 5), (b0 + c) & 31);
-#pragma unroll
-    for (int r = 0; r < kB; ++r) {
-      float acc = 0.f;
-#pragma unroll
-      for (int c = 0; c <= r; ++c) acc = fmaf(d[r * kB + c], t[c], acc);
-      xb[r] = acc;
-    }
+  for (int q = 0; q < kL; ++q) x[q] = lane + 32 * q < n ? (float)u[lane + 32 * q] : 0.f;
+  for (int k = 0; k < n; ++k) {
+    const float xk = __shfl_sync(kFull, pick(x, k >> 5), k & 31) * dinv[k];
 #pragma unroll
     for (int q = 0; q < kL; ++q) {
       const int i = lane + 32 * q;
-      if (i >= b0 + kB && i < n) {
-#pragma unroll
-        for (int c = 0; c < kB; ++c) xs[q] = fmaf(-ls[i * ld + b0 + c], xb[c], xs[q]);
-      } else if (i >= b0) {
-#pragma unroll
-        for (int r = 0; r < kB; ++r)
-          if (i == b0 + r) xs[q] = xb[r];
-      }
+      if (i >= k + 1 && i < n) x[q] = fmaf(-ls[i * ld + k], xk, x[q]);
+      else if (i == k) x[q] = xk;
     }
   }
-  for (int b0 = (n - 1) / kB * kB; b0 >= 0; b0 -= kB) {
-    const float* d = dblk + (b0 / kB) * kB * kB;
-    float t[kB], yb[kB];
-#pragma unroll
-    for (int c = 0; c < kB; ++c) t[c] = __shfl_sync(0xffffffffu, pick(xs, b0 >> 5), (b0 + c) & 31);
-#pragma unroll
-    for (int r = 0; r < kB; ++r) {   // the block's inverse, transposed
-      float acc = 0.f;
-#pragma unroll
-      for (int c = r; c < kB; ++c) acc = fmaf(d[c * kB + r], t[c], acc);
-      yb[r] = acc;
-    }
+  for (int k = n - 1; k >= 0; --k) {
+    const float yk = __shfl_sync(kFull, pick(x, k >> 5), k & 31) * dinv[k];
 #pragma unroll
     for (int q = 0; q < kL; ++q) {
       const int i = lane + 32 * q;
-      if (i < b0) {
-#pragma unroll
-        for (int c = 0; c < kB; ++c)
-          if (b0 + c < n) xs[q] = fmaf(-ls[(b0 + c) * ld + i], yb[c], xs[q]);
-      } else if (i < b0 + kB) {
-#pragma unroll
-        for (int r = 0; r < kB; ++r)
-          if (i == b0 + r) xs[q] = yb[r];
-      }
+      if (i < k) x[q] = fmaf(-ls[k * ld + i], yk, x[q]);
+      else if (i == k) x[q] = yk;
     }
   }
+#pragma unroll
+  for (int q = 0; q < kL; ++q)
+    if (lane + 32 * q < np) y[lane + 32 * q] = lane + 32 * q < n ? x[q] : 0.f;
 }
 
-template <int kS, int kL, int kB>
-__global__ void __launch_bounds__(kThreads, 2)
+// One apply with the column sweeps (kB = 1): u = Li v by the 8 warps (a
+// warp a block row) into xs, the sweeps on warp 0 into ys, Li^T y by the 8
+// warps (a warp a block column) into v: 3 block barriers; starts after
+// one and ends with one.
+__device__ void apply_sweeps(const float* ls, int ld, const double* li, const float* dinv,
+                             double* xs, double* ys, double* vs, int n, int nb) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int I = warp + kWarps * q;
+    if (I >= nb) continue;
+    double p = 0.0;
+    for (int J = 0; J <= I; ++J) {
+      const double2 l = row_of(li + bo(I, J)), w = pair_at(vs, J);
+      p = fma(l.x, w.x, fma(l.y, w.y, p));
+    }
+    p = sum_t(p);
+    if (t == 0) xs[8 * I + g] = p;
+  }
+  __syncthreads();
+  if (warp == 0) column_sweeps(ls, ld, dinv, xs, ys, n, 8 * nb);
+  __syncthreads();
+  li_transpose_times(li, ys, vs, nb);
+  __syncthreads();
+}
+
+// G's triangle staged and factored as chol_factor's (the next node's G
+// asked of L2) while Li's span arrives by one bulk copy and v by plain
+// loads; Li widened into its packed triangle over its span (repack); with
+// kB = 1, L's strictly lower triangle rounded into a float32 square at an
+// odd stride over its packed one (the sweeps read columns, which the 8 x 8
+// blocks would put in two banks); then the applies (apply_blocked, kB =
+// 8; apply_sweeps, kB = 1); v out, rounded once.
+template <int kB>
+__global__ void __launch_bounds__(kThreads, 3)
 chol_trisolve_apply_kernel(const float* __restrict__ G, const float* __restrict__ Li,
                            const float* __restrict__ v, float* __restrict__ out, int n,
-                           int applies, float tiny) {
+                           int applies, float tiny, long long B, long long ahead) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ float lcol[2][kGrid * kS], dinv[kGrid * kS];
-  const int t = threadIdx.x, tr = t / kGrid, tc = t % kGrid;
-  const int warp = t / 32, lane = t % 32, ld = n | 1;
-  float* ls = smem;                 // L, strictly lower
-  float* tri = ls + n * ld;         // Li, packed: row i from i (i + 1) / 2
-  float* vs = tri + n * (n + 1) / 2;
-  float* us = vs + n;
-  float* dblk = us + n;             // the diagonal blocks' inverses
+  __shared__ uint64_t bar[1];
+  const int t = threadIdx.x, warp = t / 32;
+  const int np = pad8(n), nb = np / 8, tri = 64 * tri_blocks(nb);
+  double* lp = reinterpret_cast<double*>(smem);   // L
+  double* li = lp + tri;                          // Li's raw span, then Li
+  double* dp = li + tri;                          // the diagonal blocks' inverses
+  double* xs = dp + 64 * nb;
+  double* ys = xs + np;
+  double* vs = ys + np;
+  float* dinv = reinterpret_cast<float*>(vs + np);
   const long long node = blockIdx.x;
-  // Li's triangle and v arrive while G is factored
-  {
-    const float* Lb = Li + node * n * n;
-    const int count = n * (n + 1) / 2;
-    int i = 0, j = t;   // packed entry p = t
-    while (j > i) j -= ++i;
-    for (int p = t; p < count; p += blockDim.x) {
-      __pipeline_memcpy_async(tri + p, Lb + i * n + j, sizeof(float));
-      j += blockDim.x;
-      while (j > i) j -= ++i;
-    }
-  }
-  for (int j = t; j < n; j += blockDim.x)
-    __pipeline_memcpy_async(vs + j, v + node * n + j, sizeof(float));
-  __pipeline_commit();
-  float g[kS][kS];
-  load_lower<kS>(G + node * n * n, n, g);
-  eliminate<kS>(g, n, tiny, lcol, dinv);
-#pragma unroll
-  for (int a = 0; a < kS; ++a)
-#pragma unroll
-    for (int b = 0; b < a + 1; ++b) {
-      const int i = tr + kGrid * a, c = tc + kGrid * b;
-      if (i < n && c < i) ls[i * ld + c] = g[a][b] * dinv[c];
-    }
+  const float* Gb = G + node * n * n;
+  const float* Lb = Li + node * n * n;
+  if (t == 0) mbar_init(bar, 1);
+  load_span(reinterpret_cast<float*>(li), Lb, (long long)n * n, bar);
+  for (int j = t; j < np; j += kThreads) vs[j] = j < n ? v[node * n + j] : 0.0;
+  if (warp == 0) factor_first(Gb, lp, dp, n, tiny, dinv);
+  else stage_lower(Gb, lp, n, np);
   __syncthreads();
-  // the inverse of each diagonal block, a thread a column: L's diagonal is
-  // 1 / dinv, rows past n the identity
-  for (int w = t; w < (n + kB - 1) / kB * kB; w += blockDim.x) {
-    const int b0 = w / kB * kB, c = w % kB;
-    float y[kB];
-#pragma unroll
-    for (int r = 0; r < kB; ++r) {
-      float acc = 0.f;   // y[j] = 0 for j < c
-      if (b0 + r < n)
-#pragma unroll
-        for (int j = 0; j < r; ++j) acc = fmaf(ls[(b0 + r) * ld + b0 + j], y[j], acc);
-      y[r] = r < c ? 0.f : b0 + r >= n ? (r == c ? 1.f : 0.f)
-                   : r == c ? dinv[b0 + r] : -acc * dinv[b0 + r];
-    }
-#pragma unroll
-    for (int r = 0; r < kB; ++r) dblk[b0 * kB + r * kB + c] = y[r];
+  blocked_factor<kFactorWidth, false>(lp, nullptr, dp, nb, tiny, dinv,
+                                      node + ahead < B ? Gb + ahead * n * n : nullptr,
+                                      (long long)n * n * 4);
+  mbar_wait(bar, 0);
+  if constexpr (kB == 8) scale_rows(lp, dp, nb, false);   // (no barrier: Li's repack has one first)
+  const float* lraw = reinterpret_cast<const float*>(li) + span_head(Lb);
+  repack(nb, [=](Entry x) { return x.r < n && x.c <= x.r ? lraw[x.r * n + x.c] : 0.f; },
+         [=](Entry x, float e) { li[x.p] = e; });
+  if constexpr (kB == 8) {
+    scale_rows(li, dp, nb, true);
+    __syncthreads();
   }
-  __pipeline_wait_prior(0);
-  __syncthreads();
+  const int ld = n | 1;
+  float* ls = reinterpret_cast<float*>(lp);   // kB = 1: L's strictly lower triangle, float32
+  if constexpr (kB == 1)
+    repack(nb, [=](Entry x) { return (float)lp[x.p]; },
+           [=](Entry x, float e) {
+             if (x.c < x.r && x.r < n) ls[x.r * ld + x.c] = e;
+           });
   for (int rep = 0; rep < applies; ++rep) {
-    // u = Li v: a warp a row, a shuffle reduction
-    for (int i = warp; i < n; i += blockDim.x / 32) {
-      const float* row = tri + i * (i + 1) / 2;
-      float acc = 0.f;
-      for (int j = lane; j <= i; j += 32) acc = fmaf(row[j], vs[j], acc);
-      for (int off = 16; off > 0; off /= 2) acc += __shfl_down_sync(0xffffffffu, acc, off);
-      if (lane == 0) us[i] = acc;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      float xs[kL];
-#pragma unroll
-      for (int q = 0; q < kL; ++q) xs[q] = lane + 32 * q < n ? us[lane + 32 * q] : 0.f;
-      warp_solves<kB, kL>(xs, ls, ld, dblk, n);
-#pragma unroll
-      for (int q = 0; q < kL; ++q)
-        if (lane + 32 * q < n) us[lane + 32 * q] = xs[q];
-    }
-    __syncthreads();
-    // v = Li^T y: a thread a column, consecutive entries of each row
-    for (int j = t; j < n; j += blockDim.x) {
-      float acc = 0.f;
-      for (int i = j; i < n; ++i) acc = fmaf(tri[i * (i + 1) / 2 + j], us[i], acc);
-      vs[j] = acc;
-    }
-    __syncthreads();
+    if constexpr (kB == 8) apply_blocked(lp, li, xs, ys, vs, nb);
+    else apply_sweeps(ls, ld, li, dinv, xs, ys, vs, n, nb);
   }
-  for (int j = t; j < n; j += blockDim.x) out[node * n + j] = vs[j];
+  for (int j = t; j < n; j += kThreads) out[node * n + j] = (float)vs[j];
 }
 
 // ---- host side
 
-using FactorKernel = void (*)(const float*, float*, int, float);
+using FactorKernel = void (*)(const float*, float*, int, float, long long, long long);
 using TrsmKernel = void (*)(const float*, const float*, float*, int, int, float, int, long long,
                            long long);
 using LinvTcKernel = void (*)(const float*, const float*, float*, int, float, long long,
                              long long);
 using TrisolveKernel = void (*)(const float*, const float*, const float*, float*, int, int,
-                                float);
+                                float, long long, long long);
 
 // The probes, by their ids in factor_probes_occupancy (4: chol_linv_tc
 // with a right factor)
 enum Probe { kFactor = 0, kTrsm = 1, kLinvTc = 2, kTrisolve = 3, kLinvTcRight = 4 };
 
-FactorKernel factor_kernel(int n) {
-  if (n <= 3 * kGrid) return chol_factor_kernel<3>;
-  if (n <= 5 * kGrid) return chol_factor_kernel<5>;
-  return nullptr;
-}
+FactorKernel factor_kernel(int n) { return n <= 10 * 8 ? chol_factor_kernel : nullptr; }
 
 // width 0: the elimination's factor; 8, 16 or 32: blocked_factor's
 // panels; by the 8-column blocks that X^T's registers hold, 6 (n <= 48)
@@ -732,15 +975,11 @@ LinvTcKernel linv_tc_kernel(int n, int width, bool right) {
   return right ? linv_tc_kernel_of<true>(width) : linv_tc_kernel_of<false>(width);
 }
 
-// block 1: the column sweep; 8: blocks of 8 rows, their diagonal
-// blocks inverted
+// block 1: the column sweeps on one warp; 8: blocks of 8 rows on all 8
 TrisolveKernel trisolve_kernel(int n, int block) {
-  if (block != 1 && block != 8) return nullptr;
-  if (n <= 3 * kGrid)
-    return block == 1 ? chol_trisolve_apply_kernel<3, 2, 1> : chol_trisolve_apply_kernel<3, 2, 8>;
-  if (n <= 5 * kGrid)
-    return block == 1 ? chol_trisolve_apply_kernel<5, 3, 1> : chol_trisolve_apply_kernel<5, 3, 8>;
-  return nullptr;
+  if (n > 10 * 8) return nullptr;
+  return block == 1 ? chol_trisolve_apply_kernel<1>
+                    : block == 8 ? chol_trisolve_apply_kernel<8> : nullptr;
 }
 
 struct Launch {
@@ -750,13 +989,13 @@ struct Launch {
 
 Launch launch_of(int probe, int m, int n, int width) {
   switch (probe) {
-    case kFactor: return {(const void*)factor_kernel(n), 0};
+    case kFactor: return {(const void*)factor_kernel(n), factor_bytes(n)};
     case kTrsm: return {(const void*)trsm_kernel(n, width), trsm_bytes(m, n)};
     case kLinvTc:
     case kLinvTcRight:
       return {(const void*)linv_tc_kernel(n, width, probe == kLinvTcRight), linv_tc_bytes(n)};
     case kTrisolve:
-      return {(const void*)trisolve_kernel(n, width), trisolve_floats(n, width) * 4};
+      return {(const void*)trisolve_kernel(n, width), trisolve_bytes(n)};
     default: return {nullptr, 0};
   }
 }
@@ -814,13 +1053,17 @@ extern "C" int factor_probes_occupancy(int probe, int m, int n, int width, long 
                                                             bytes);
 }
 
-// L (lower triangular, 1 / dinv on the diagonal, zeros above) of G.
+// L (lower triangular, 1 / dinv on the diagonal, zeros above) of G; dynamic
+// shared memory of at least ``request`` bytes.
 extern "C" int chol_factor_launch(const float* G, float* L, int B, int n, float tiny,
-                                  void* stream) {
+                                  long long request, void* stream) {
   if (B <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  const Launch l = launch_of(kFactor, 0, n, 0);
+  size_t bytes = 0;
+  cudaError_t err = prepare(l, request, &bytes);
+  if (err != cudaSuccess) return (int)err;
   const FactorKernel k = factor_kernel(n);
-  if (k == nullptr) return (int)cudaErrorInvalidValue;
-  k<<<B, kThreads, 0, (cudaStream_t)stream>>>(G, L, n, tiny);
+  k<<<B, kThreads, bytes, (cudaStream_t)stream>>>(G, L, n, tiny, (long long)B, resident(l, bytes));
   return (int)cudaGetLastError();
 }
 
@@ -861,17 +1104,19 @@ extern "C" int chol_linv_tc_launch(const float* G, const float* P, float* out, i
 }
 
 // `applies` times v <- Li^T L^-T L^-1 Li v, G = L L^T, the solves by
-// blocks of `block` rows (1 or 8); Li read as lower triangular (its upper
-// triangle is not read).
+// blocks of `block` rows (1: the column sweeps, or 8); Li read as lower
+// triangular (its upper triangle is ignored); dynamic shared memory of at
+// least ``request`` bytes.
 extern "C" int chol_trisolve_apply_launch(const float* G, const float* Li, const float* v,
                                           float* out, int B, int n, int applies, int block,
-                                          float tiny, void* stream) {
+                                          float tiny, long long request, void* stream) {
   if (B <= 0 || n <= 0 || applies < 0) return (int)cudaErrorInvalidValue;
   const Launch l = launch_of(kTrisolve, 0, n, block);
   size_t bytes = 0;
-  cudaError_t err = prepare(l, 0, &bytes);
+  cudaError_t err = prepare(l, request, &bytes);
   if (err != cudaSuccess) return (int)err;
   const TrisolveKernel k = trisolve_kernel(n, block);
-  k<<<B, kThreads, bytes, (cudaStream_t)stream>>>(G, Li, v, out, n, applies, tiny);
+  k<<<B, kThreads, bytes, (cudaStream_t)stream>>>(G, Li, v, out, n, applies, tiny, (long long)B,
+                                                  resident(l, bytes));
   return (int)cudaGetLastError();
 }

@@ -190,9 +190,6 @@ __host__ __device__ inline int plane_floats(int prec, int w, int rows) {
 // The 8-byte operand planes' row stride (q_kernel, composite_kernel): w +
 // 4 entries, 4 modulo 16.
 __host__ __device__ inline int plane_ld(int n) { return pad_to(n, 16) + 4; }
-// Floats of a span that covers ``count`` floats from any 4-byte boundary:
-// whole 16-byte words, one more than ``count`` needs at most.
-__host__ __device__ inline long long span_floats(long long count) { return (count + 3) / 4 * 4 + 4; }
 
 // Row blocks of A: [0, p1) then [p1, m) (p1 = split, or m), ``size`` rows
 // at a time; block b starts at row r0 and holds the returned count.
@@ -606,20 +603,6 @@ __device__ void to_operand_plane(const float* x, int rows, int cols, int prow, i
     typename Form<P>::T* const pr = p + r * ld;
     for (int c = lane; c < pcol; c += 32) pr[c] = Form<P>::from(r < rows && c < cols ? xr[c] : 0.f);
   }
-}
-
-// The floats of p past its 16-byte boundary.
-__device__ __forceinline__ int span_head(const float* p) {
-  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
-}
-
-// Thread 0: the 16-byte span that covers x[0, count) into dst, on bar;
-// dst[span_head(x)] is then x[0].
-__device__ __forceinline__ void load_span(float* dst, const float* x, long long count,
-                                          uint64_t* bar) {
-  if (threadIdx.x != 0) return;
-  const int h = span_head(x);
-  bulk_load(dst, x - h, (unsigned)((h + count + 3) / 4 * 16), bar);
 }
 
 // The calling thread: x[0, count) from s (s and x equal modulo 16 bytes)

@@ -5,10 +5,11 @@ solve kernel, counterparts of the TPU probes in the repo's tools/; no
 route runs them (``tools/factor_probes.py`` times them on the route's
 inputs):
 
-  chol_factor(G, tiny)               (B,n,n) -> (B,n,n)
+  chol_factor(G, tiny, smem_bytes)   (B,n,n) -> (B,n,n)
         L of G = L L^T, lower triangular, every pivot clamped at
         ``tiny`` as chol_linv_f32's: its diagonal is 1/dinv, dinv =
-        rsqrt(max(pivot, tiny)); no inverse (trisolve_probe.py:79)
+        rsqrt(max(pivot, tiny)); no inverse (trisolve_probe.py:79); by
+        chol_linv_tc's blocked factor (panels of 16, FP64 tensor cores)
   chol_trsm_gram(A, G, tiny, width, smem_bytes)
                                      (B,m,n), (B,n,n) -> (B,n,n)
         X X^T with X = L^-1 A^T by forward substitution, never forming
@@ -25,14 +26,15 @@ inputs):
         triangular, L^-1 P, as chol_linv_f32(G, mul_right=P): the
         route's chol2, Lc = L2^-1 L1^-1 (trisolve_probe.py:95), the
         product of the two triangles on the same tensor cores
-  chol_trisolve_apply(G, Li, v, tiny, applies, block)
+  chol_trisolve_apply(G, Li, v, tiny, applies, block, smem_bytes)
                                      (B,n,n), (B,n,n), (B,n) -> (B,n)
         ``applies`` times v <- Li^T L^-T L^-1 Li v with G = L L^T, by two
         triangular solves an apply (trisolve_probe.py:162); = applies
-        times prec_apply_f32(L^-1 Li, v).  ``block`` 1 solves pivot by
-        pivot (the TPU probe's sweep), 8 by blocks of 8 rows through
-        their inverted diagonal blocks.  Li is read as lower triangular,
-        as the route's L1^-1 is
+        times prec_apply_f32(L^-1 Li, v).  L by chol_factor's blocked
+        factor; ``block`` 1 solves pivot by pivot on one warp (the TPU
+        probe's sweep), 8 by blocks of 8 rows on all 8 warps through the
+        factor's inverted diagonal blocks.  Li is read as lower
+        triangular, as the route's L1^-1 is; ``applies`` = 0 gives v
 
 All float32 in and out, natural (node, row, column) layout, any B; the
 kernels take n <= 80 (chol_trsm_gram any m whose X fits in shared
@@ -105,12 +107,12 @@ def chol_trisolve_apply_reference(G, Li, v, tiny=1e-12, applies=4):
 def _bind(lib):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.c_longlong
-    lib.chol_factor_launch.argtypes = [vp, vp, ci, ci, cf, vp]
+    lib.chol_factor_launch.argtypes = [vp, vp, ci, ci, cf, ll, vp]
     lib.chol_trsm_gram_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf, ll,
                                           vp]
     lib.chol_linv_tc_launch.argtypes = [vp, vp, vp, ci, ci, ci, cf, ll, vp]
     lib.chol_trisolve_apply_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci,
-                                               ci, cf, vp]
+                                               ci, cf, ll, vp]
     for name in _IDS:
         getattr(lib, f"{name}_launch").restype = ci
     lib.factor_probes_occupancy.argtypes = [
@@ -157,8 +159,10 @@ def occupancy(name, m, n, width=0, block=None, smem_bytes=0,
                               probe, m, n, width, int(smem_bytes))
 
 
-def chol_factor(G, tiny=1e-12):
-    """(B, n, n) SPD float32 -> its clamped Cholesky factor L."""
+def chol_factor(G, tiny=1e-12, smem_bytes=0):
+    """(B, n, n) SPD float32 -> its clamped Cholesky factor L; at least
+    ``smem_bytes`` of shared memory a block."""
+    check_request(smem_bytes)
     B, n = _square("G", G)
     check_tensor("G", G, (B, n, n), _F32, G.device)
     if not on_card(G, "chol_factor"):
@@ -166,7 +170,8 @@ def chol_factor(G, tiny=1e-12):
     out = torch.empty_like(G)
     if B:
         _launch(chol_factor, None, f"chol_factor (B={B}, n={n})",
-                "chol_factor_launch", G, out, B, n, float(tiny))
+                "chol_factor_launch", G, out, B, n, float(tiny),
+                int(smem_bytes))
     return out
 
 
@@ -219,13 +224,16 @@ def chol_linv_tc(G, tiny=1e-12, width=16, smem_bytes=0, mul_right=None):
     return out
 
 
-def chol_trisolve_apply(G, Li, v, tiny=1e-12, applies=4, block=8):
+def chol_trisolve_apply(G, Li, v, tiny=1e-12, applies=4, block=8,
+                        smem_bytes=0):
     """(B, n, n) SPD, (B, n, n) lower-triangular, (B, n) float32 ->
     ``applies`` times v <- Li^T L^-T L^-1 Li v, G = L L^T; the solves by
-    blocks of ``block`` rows (1 or 8)."""
+    blocks of ``block`` rows (1 or 8); at least ``smem_bytes`` of shared
+    memory a block."""
     if block not in TRISOLVE_BLOCKS:
         raise ValueError(f"block must be one of {TRISOLVE_BLOCKS}, got "
                          f"{block}")
+    check_request(smem_bytes)
     B, n = _square("G", G)
     check_tensor("G", G, (B, n, n), _F32, G.device)
     check_tensor("Li", Li, (B, n, n), _F32, G.device)
@@ -240,7 +248,7 @@ def chol_trisolve_apply(G, Li, v, tiny=1e-12, applies=4, block=8):
                 f"chol_trisolve_apply (B={B}, n={n}, applies={applies}, "
                 f"block={block})",
                 "chol_trisolve_apply_launch", G, Li, v, out, B, n, applies,
-                block, float(tiny))
+                block, float(tiny), int(smem_bytes))
     return out
 
 

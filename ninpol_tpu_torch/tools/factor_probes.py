@@ -16,10 +16,11 @@ and one vector a node from a seeded generator.  Per class it prints:
   bytes), the nearest library composition's ms, its plain version's ms,
   its registers, spills, shared memory and blocks an SM, its error
   against its plain version and its largest output (``probe_errors``);
-  chol_trsm_gram and chol_linv_tc also at kernel 1's shared memory
-  (``K1_KERNELS``: the largest request of the chunks' classes, kernel
-  1's blocks an SM; ms, occupancy, error and launches under ``_k1``), as
-  they would run inside it;
+  every kernel also at kernel 1's shared memory (``K1_KERNELS``: the
+  largest request of the chunks' classes, kernel 1's blocks an SM; ms,
+  occupancy, error and launches under ``_k1``), as it would run inside
+  it; chol_factor also on G2 and each chol_trisolve_apply instance also
+  at applies = 0 (the factor and the staging alone, at both requests);
   the stage cuts it would replace (kernel 1's, ``kernel_stages.
   time_cuts`` at rounds = 2) and the unfused route's kernels beside it;
   the TPU probes' verdicts on these times (``verdicts``).
@@ -70,7 +71,28 @@ CONFIGS = (("chol_factor", {}),
            ("chol_linv_tc", {"width": 16, "mul_right": True}),
            *(("chol_trisolve_apply", {"block": b}) for b in (1, 8)))
 # the kernels also timed and held at kernel 1's shared memory request
-K1_KERNELS = ("chol_trsm_gram", "chol_linv_tc")
+K1_KERNELS = ("chol_factor", "chol_trsm_gram", "chol_linv_tc",
+              "chol_trisolve_apply")
+# the sites whose kernels were designed a second time, for the card: how
+_FACTOR = ("blocked_factor.cuh's factor: G's triangle staged in float64 "
+           "8 x 8 blocks, a lead warp factoring each diagonal block a step "
+           "ahead of seven workers on FP64 m16n8k8, two block barriers a "
+           "step")
+REDESIGNED = {
+    "chol_factor": _FACTOR + "; L out rounded once in whole rows",
+    "chol_trisolve_apply": _FACTOR + "; Li by one cp.async.bulk during the "
+                           "factor, widened into a packed float64 "
+                           "triangle; Li v, Li^T y and (block 8) both "
+                           "solves on all 8 warps, a warp a block row, one "
+                           "block barrier a block step",
+    "chol_trsm_gram": "A by one cp.async.bulk during the elimination's "
+                      "factor; X^T = A L^-T a warp an 8-row tile in float64 "
+                      "registers and X X^T on FP64 m16n8k8",
+    "chol_trsm_gram (tensor-core factor)": _FACTOR + "; A by one "
+                                           "cp.async.bulk meanwhile; X^T "
+                                           "and X X^T on FP64 m16n8k8",
+    "chol_linv_tc": _FACTOR + "; L^-1's block rows formed inside the "
+                    "factor's steps"}
 
 
 def label(kernel, kw):
@@ -282,7 +304,15 @@ def time_probes(prepared, cuts):
                     launches_k1=wrapper.launches - before,
                     occupancy_k1=fp.occupancy(kernel, head["m"], head["n"],
                                               **kw, smem_bytes=request))
-        # the baseline the trisolve verdict subtracts: the factor of G2
+            if kernel == "chol_trisolve_apply":
+                # the factor and the staging alone, at both requests
+                for key, smem in (("ms_applies0", 0),
+                                  ("ms_applies0_k1", head["k1_request"])):
+                    row["kernels"][label(kernel, kw)][key] = ks.best_ms(
+                        lambda: fp.chol_trisolve_apply(
+                            t["G2"], t["Li1"], t["v"], applies=0,
+                            smem_bytes=smem, **kw))
+        # the baseline the f32_rule subtracts: the factor of G2
         row["kernels"]["chol_factor"]["ms_on_g2"] = ks.best_ms(
             lambda: fp.chol_factor(t["G2"]))
         row["standalone"] = {
@@ -369,11 +399,16 @@ def verdicts(row):
                  chol_trsm_gram after the elimination (the probe's
                  variant B) and after tensor-core panels (variant C, the
                  fastest width);
-      trisolve   trisolve_probe.py:173's rule: the solves win iff
-                 (chol_trisolve_apply - chol_factor) < APPLIES x
-                 prec_apply_f32 + (chol_linv_f32 with P - chol_factor),
-                 chol_factor on G2, for each block of the solves (1: the
-                 TPU probe's column sweep);
+      trisolve   trisolve_probe.py:173's rule, (solve4 - chol) < mapply4 +
+                 (chol_linv - chol), i.e. solve4 < mapply4 + chol_linv,
+                 with both sides on the blocked factor at kernel 1's
+                 shared memory: the solves win iff chol_trisolve_apply <
+                 APPLIES x prec_apply_f32 + chol_linv_tc with P (width
+                 16), each at kernel 1's request, for each block of the
+                 solves (1: the TPU probe's column sweep); beside it under
+                 "f32_rule" the rule priced on the elimination:
+                 chol_linv_f32 with P for chol_linv, chol_factor on G2
+                 subtracted from both sides;
       chol_mxu   each chol_linv_tc width against chol_linv_f32's register
                  body and against the chol1 cut;
       chol2      chol_linv_tc with a right factor, at kernel 1's shared
@@ -388,10 +423,15 @@ def verdicts(row):
     c_width = min((8, 16, 32), key=trsm)
     trsm_ms = {"B": trsm(0), "C": trsm(c_width)}
     chol = k["chol_factor"]["ms_on_g2"]
-    explicit = APPLIES * sa["prec_apply_f32"] + sa["chol_linv_f32_p"] - chol
-    solves = {str(b): k[label("chol_trisolve_apply", {"block": b})]["ms"]
-              - chol for b in (1, 8)}
     right = k[label("chol_linv_tc", {"width": 16, "mul_right": True})]
+    mapply = APPLIES * sa["prec_apply_f32"]
+    solve = {str(b): k[label("chol_trisolve_apply", {"block": b})]
+             for b in (1, 8)}
+
+    def rule(explicit, solves):
+        return {"explicit_ms": explicit, "blocks": {
+            b: {"solves_ms": ms, "solves_win": ms < explicit}
+            for b, ms in solves.items()}}
     return {
         "trsm": {"A_standalone_ms": a_standalone,
                  "A_stages_ms": st["chol1_to_gram2"], "C_width": c_width,
@@ -400,9 +440,11 @@ def verdicts(row):
                     for v, ms in trsm_ms.items()},
                  **{f"{v}_beats_A_stages": ms < st["chol1_to_gram2"]
                     for v, ms in trsm_ms.items()}},
-        "trisolve": {"explicit_ms": explicit, "blocks": {
-            b: {"solves_ms": ms, "solves_win": ms < explicit}
-            for b, ms in solves.items()}},
+        "trisolve": {
+            **rule(mapply + right["ms_k1"],
+                   {b: r["ms_k1"] for b, r in solve.items()}),
+            "f32_rule": rule(mapply + sa["chol_linv_f32_p"] - chol,
+                             {b: r["ms"] - chol for b, r in solve.items()})},
         "chol_mxu": {str(w): {
             "ms": k[label("chol_linv_tc", {"width": w})]["ms"],
             "over_chol_linv_f32": k[label("chol_linv_tc", {"width": w})]["ms"]
@@ -441,6 +483,10 @@ def report(table):
                       f" launches" + (f"; error {r['max_err_k1']:.2e}"
                                       if "max_err_k1" in r else ""),
                       flush=True)
+            if "ms_applies0" in r:
+                print(f"#   {'applies = 0 (factor, staging)':>28}: "
+                      f"{r['ms_applies0']:9.4f} ms, {r['ms_applies0_k1']:.4f}"
+                      f" ms at kernel 1's shared memory", flush=True)
         st, sa = row["stages"], row["standalone"]
         print(f"#   stage cuts: chol1 {st['chol1']:.4f}, chol1 to gram2 "
               f"{st['chol1_to_gram2']:.4f}, chol2 {st['chol2']:.4f}, sweeps "
@@ -463,12 +509,19 @@ def report(table):
                   for v, name in (("B", "B (elimination factor)"),
                                   ("C", f"C (width {tr['C_width']})"))),
               flush=True)
-        print("#   verdict trisolve: " + "; ".join(
+        print("#   verdict trisolve at kernel 1's shared memory: " + "; ".join(
+            f"block {w}: solves {'WIN' if b['solves_win'] else 'LOSE'}, "
+            f"chol_trisolve_apply {b['solves_ms']:.4f} ms"
+            for w, b in ts["blocks"].items())
+            + f" vs {APPLIES} x prec_apply_f32 + chol_linv_tc with P = "
+              f"{ts['explicit_ms']:.4f} ms", flush=True)
+        f32 = ts["f32_rule"]
+        print("#   (on chol_linv_f32's elimination: " + "; ".join(
             f"block {w}: solves {'WIN' if b['solves_win'] else 'LOSE'}, "
             f"chol_trisolve_apply - chol_factor = {b['solves_ms']:.4f} ms"
-            for w, b in ts["blocks"].items())
+            for w, b in f32["blocks"].items())
             + f" vs {APPLIES} x prec_apply_f32 + (chol_linv_f32 with P - "
-              f"chol_factor) = {ts['explicit_ms']:.4f} ms", flush=True)
+              f"chol_factor) = {f32['explicit_ms']:.4f} ms)", flush=True)
         print("#   verdict chol_mxu: " + ", ".join(
             f"width {w} {r['ms']:.4f} ms = {r['over_chol_linv_f32']:.2f}x "
             f"chol_linv_f32, {r['over_chol1_cut']:.2f}x the chol1 cut"

@@ -12,7 +12,7 @@ stage, on the route's inputs and at the production kernel's occupancy.
 For one chunk of each stencil class of the default route's plan, and
 for each ``rounds`` instance at its route's sweeps, it gives per cut the
 cumulative ms (the best of REPS CUDA-event timings of one launch, after
-a warm-up), the stage's ms (the difference from the cut before),
+a warm-up, each queued behind device work: ``best_ms``), the stage's ms (the difference from the cut before),
 the stage's bound (``problem.bound`` of its FLOPs and device bytes) and
 its share of the whole kernel; and beside them the unfused route's
 kernels (ops/cholqr.py) that compute the same stages, timed in the same
@@ -24,9 +24,11 @@ plain=True)``).
 
 Run on the card (the kernels are built from csrc/ on first use):
 
-    python -m ninpol_tpu_torch.tools.kernel_stages [--n 68]
+    python -m ninpol_tpu_torch.tools.kernel_stages [--n 68] [--spread RUNS]
 
-It prints ``#`` lines, then one JSON line ``{"kernel_stages": ...}``.
+It prints ``#`` lines, then one JSON line ``{"kernel_stages": ...}``;
+with ``--spread`` only the floor cut's spread on the last class's chunk
+(``floor_spread``), one JSON line ``{"floor_spread": ...}``.
 Nothing falls back: a cut that does not build or launch raises, and one
 whose checksum is past its tolerance fails the run after that line.
 """
@@ -35,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -43,6 +46,12 @@ from .problem import bound, build_problem
 
 # timed launches of each cut or kernel, after one warm-up
 REPS = 5
+# the device work (clock cycles of torch.cuda._sleep, ~0.1 ms on an H100)
+# queued before each timed launch's start event: with the card idle the
+# start event ran at once and the window took in the host's time to
+# submit the launch, which moved the (12, 24) floor cut (~0.10 ms) by up
+# to 0.03 ms from run to run (``floor_spread``)
+QUEUE_CYCLES = 200_000
 # each cut's checksum against the plain version's, per active node, over
 # a scale: the float64 sums of the inputs and of A to 1e-12 of the sum
 # (another summation order); the float32 stages to 1e-5 of the same sum
@@ -91,18 +100,50 @@ def chunk_inputs(interp, target_points, variable="u"):
     return out
 
 
-def best_ms(fn):
+def best_ms(fn, queued=True):
     """The least device ms of one ``fn()`` over REPS runs, each between
-    two CUDA events, after a warm-up run."""
+    two CUDA events, after a warm-up run; ``queued``: each start event
+    behind QUEUE_CYCLES of device work, so that the launch is on the
+    stream before the card reaches the event."""
     fn()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(REPS)]
     for start, stop in events:
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         fn()
         stop.record()
     torch.cuda.synchronize()
     return min(start.elapsed_time(stop) for start, stop in events)
+
+
+def floor_spread(inp, sweeps, runs, idle_s=0.5):
+    """The floor cut at rounds = 1 on the chunk, ``runs`` times in each of
+    three ways, each after ``idle_s`` seconds of host work with the card
+    idle: timed with the start event first on the idle stream (``best_ms(...,
+    queued=False)``, how the cuts were first timed), queued behind
+    device work (``best_ms``), and queued after 256 MB written (its inputs
+    out of L2): {way: [ms, ...]}.  A spread that queuing removes is the
+    host's launch time in the window; one left after it, the card's clocks
+    or (flushed) L2."""
+    from ..ops import gls_solve as gs
+
+    kw = dict(sweeps=sweeps, rounds=1)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=inp["dk"].device)
+
+    def floor():
+        return gs.gls_solve_stage("floor", **inp, **kw)
+
+    out = {"event_first": [], "queued": [], "queued_flushed": []}
+    for _ in range(runs):
+        for way in out:
+            torch.cuda.synchronize()
+            time.sleep(idle_s)
+            if way == "queued_flushed":
+                flush.fill_(1)
+            out[way].append(best_ms(floor, queued=way != "event_first"))
+    return out
 
 
 def stage_work(inp, rounds, sweeps):
@@ -265,8 +306,8 @@ def time_cuts(inp, rounds, sweeps, plain=False):
 
     work = stage_work(inp, rounds, sweeps)
     cuts, before = [], 0.0
+    kw = dict(sweeps=sweeps, rounds=rounds)
     for stop in gs.stages(rounds):
-        kw = dict(sweeps=sweeps, rounds=rounds)
         ms = best_ms(lambda: gs.gls_solve_stage(stop, **inp, **kw))
         f32, f64, nbytes = work[stop]
         bound_ms, bound_by = bound(f32, nbytes, fp64_flops=f64)
@@ -376,6 +417,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=68,
                     help="tetra_mesh size (6 n^3 cells); 68 = 1,886,592")
+    ap.add_argument("--spread", type=int, default=0, metavar="RUNS",
+                    help="only time the floor cut's spread, RUNS times a "
+                         "device state")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_stages needs a CUDA card")
@@ -386,6 +430,16 @@ def main():
     print(f"# card: {card}", flush=True)
     interp, _ = build_problem(args.n)
     chunks = chunk_inputs(interp, np.arange(interp.grid.n_points))
+    if args.spread:
+        c, inp, _ = chunks[-1]
+        spread = floor_spread(inp, route_sweeps(interp.gls.n_refine, 1),
+                              args.spread)
+        print(json.dumps({"floor_spread": {
+            "card": card, "class": [c["E"], c["F"]], "chunk": int(
+                inp["dk"].shape[0]), "queue_cycles": QUEUE_CYCLES,
+            **spread}}),
+            flush=True)
+        return
     table = probe(chunks, interp.gls.n_refine, plain=True)
     report(table)
     print(json.dumps({"kernel_stages": {

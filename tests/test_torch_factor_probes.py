@@ -279,16 +279,16 @@ def _call(fn, *args):
                 for a in args], None) == 0
 
 
-def _emulated(lib, kernel, kw, t, smem=0):
+def _emulated(lib, kernel, kw, t, smem=0, applies=APPLIES):
     """One emulated launch of ``kernel`` with the wrapper's arguments
-    ``kw`` on the float32 tensors ``t`` (As, G1, Li1, G2, v), chol_trsm_gram
-    and chol_linv_tc at a shared memory request of ``smem`` bytes
-    (chol_linv_tc with ``mul_right`` on G2 and Li1)."""
+    ``kw`` on the float32 tensors ``t`` (As, G1, Li1, G2, v) at a shared
+    memory request of ``smem`` bytes (chol_linv_tc with ``mul_right`` on
+    G2 and Li1; chol_trisolve_apply ``applies`` times)."""
     B, m, n = t["As"].shape
     out = torch.empty_like(t["v"] if kernel == "chol_trisolve_apply"
                            else t["G1"])
     if kernel == "chol_factor":
-        _call(lib.chol_factor_launch, t["G1"], out, B, n, 1e-12)
+        _call(lib.chol_factor_launch, t["G1"], out, B, n, 1e-12, smem)
     elif kernel == "chol_trsm_gram":
         _call(lib.chol_trsm_gram_launch, t["As"], t["G1"], out, B, m, n,
               kw["width"], 1e-12, smem)
@@ -300,7 +300,7 @@ def _emulated(lib, kernel, kw, t, smem=0):
               1e-12, smem)
     else:
         _call(lib.chol_trisolve_apply_launch, t["G2"], t["Li1"], t["v"], out,
-              B, n, APPLIES, kw["block"], 1e-12)
+              B, n, applies, kw["block"], 1e-12, smem)
     return out
 
 
@@ -353,22 +353,36 @@ def _clamped(r, pivots, key="G1"):
                          ids=[tool.label(k, kw) for k, kw in _BLOCKED])
 @pytest.mark.parametrize("case", ["clamped", "n80", "n37"])
 def test_blocked_kernels_edge_cases(emu, kernel, kw, case):
-    """Every instance of chol_trsm_gram and chol_linv_tc against its plain
+    """Every instance of the blocked factor's kernels against its plain
     version (emulated) on a clamped pivot (a zero row and column of G1,
-    of G2 with a right factor: L^-1 takes 1/sqrt(tiny) there, so row k
-    of L^-1 P is 1/sqrt(tiny) times P's, held apart, the rest within
-    TOL), at n = 80 (n a multiple of 8, no padding, the most blocks the
-    kernels take) and at n = 37 (the Neumann class: padded to 40, A by
-    one bulk copy)."""
+    of G2 with a right factor and for chol_trisolve_apply: L^-1 takes
+    1/sqrt(tiny) there, so row k of L^-1 P is 1/sqrt(tiny) times P's, held
+    apart, the rest within TOL; L takes sqrt(tiny); one apply's v is
+    1/tiny times a multiple of Li's row k in its entries up to k, held
+    apart from the others), at n = 80 (n a multiple of 8, no padding, the
+    most blocks the kernels take) and at n = 37 (the Neumann class: padded
+    to 40, A by one bulk copy, the last block of 8 ragged)."""
     m, n, B = {"clamped": (40, 21, 2), "n80": (96, 80, 1),
                "n37": (108, 37, 2)}[case]
     r = _route_inputs(m, n, B, seed=3)
     pivots = (9, 3)
     right = kw.get("mul_right", False)
+    trisolve = kernel == "chol_trisolve_apply"
     if case == "clamped":
-        r = _clamped(r, pivots, "G2" if right else "G1")
+        r = _clamped(r, pivots, "G2" if right or trisolve else "G1")
     t = {"As": _f32(r["A"]), "G1": _f32(r["G1"]), "G2": _f32(r["G2"]),
          "Li1": _f32(np.tril(r["Li1"])), "v": _f32(r["v"])}
+    if trisolve and case == "clamped":
+        # one apply: a second would carry the 1/tiny part past float32
+        got = _emulated(emu, kernel, kw, t, applies=1)
+        ref = fp.chol_trisolve_apply_reference(t["G2"], t["Li1"], t["v"],
+                                               applies=1)
+        assert torch.isfinite(got).all()
+        for b, k in enumerate(pivots):
+            assert float(ref[b, :k + 1].abs().max()) > 1e9
+            for part in (slice(0, k + 1), slice(k + 1, n)):
+                assert _node_err(got[b:b + 1, part], ref[b:b + 1, part]) < TOL
+        return
     got = _emulated(emu, kernel, kw, t)
     ref = tool.run(kernel, kw, t, plain=True)
     assert torch.isfinite(got).all()
@@ -377,9 +391,17 @@ def test_blocked_kernels_edge_cases(emu, kernel, kw, case):
         aQ = t["As"].abs() @ Li.abs().transpose(1, 2)
         assert _node_err(got, ref, aQ.transpose(1, 2) @ aQ) < TOL
         return
+    if trisolve:
+        assert _node_err(got, ref) < TOL
+        return
     if case == "clamped":
         for b, k in enumerate(pivots):
             p = float(t["Li1"][b, k, k]) if right else 1.0
+            if kernel == "chol_factor":
+                assert ref[b, k, k] == pytest.approx(1e-6, rel=1e-6)
+                assert got[b, k, k] == pytest.approx(float(ref[b, k, k]),
+                                                     rel=TOL)
+                continue
             assert ref[b, k, k] == pytest.approx(1e6 * p, rel=1e-6)
             if right:
                 row = slice(k, k + 1)
@@ -404,13 +426,13 @@ def test_blocked_kernels_at_kernel1_shared_memory(emu, kernel, kw):
     for m, n, B in ((30, 19, 2), (132, 73, 1)):
         r = _route_inputs(m, n, B)
         t = {"As": _f32(r["A"]), "G1": _f32(r["G1"]), "G2": _f32(r["G2"]),
-             "Li1": _f32(np.tril(r["Li1"]))}
+             "Li1": _f32(np.tril(r["Li1"])), "v": _f32(r["v"])}
         assert torch.equal(_emulated(emu, kernel, kw, t),
                            _emulated(emu, kernel, kw, t, smem=K1_REQUEST))
     right = kw.get("mul_right", False)
-    occ = cuda_emu_occupancy(emu, kernel, 132, 73, kw["width"], 0, right)
-    k1 = cuda_emu_occupancy(emu, kernel, 132, 73, kw["width"], K1_REQUEST,
-                            right)
+    width = kw.get("width", kw.get("block", 0))
+    occ = cuda_emu_occupancy(emu, kernel, 132, 73, width, 0, right)
+    k1 = cuda_emu_occupancy(emu, kernel, 132, 73, width, K1_REQUEST, right)
     assert occ["smem_bytes"] < K1_REQUEST == k1["smem_bytes"]
     assert k1["blocks_per_sm"] == 2 < occ["blocks_per_sm"]
 
@@ -476,6 +498,28 @@ def test_emulated_named_barrier(tmp_path):
     assert torch.equal(out, want)
 
 
+@pytest.mark.parametrize("block", fp.TRISOLVE_BLOCKS)
+@pytest.mark.parametrize("applies,m,n", [(0, 30, 19), (1, 108, 37),
+                                         (3, 108, 37)],
+                         ids=["applies0", "n37-1", "n37-3"])
+def test_trisolve_apply_counts(emu, block, applies, m, n):
+    """chol_trisolve_apply at other apply counts (emulated): 0 gives v
+    itself, bit for bit (the factor and the staging run, nothing is
+    applied); 1 and 3 at n = 37, whose last block of 8 is ragged (rows
+    32-36 of 40), its plain version's within TOL."""
+    r = _route_inputs(m, n, 2, seed=5)
+    t = {"As": _f32(r["A"]), "G2": _f32(r["G2"]),
+         "Li1": _f32(np.tril(r["Li1"])), "v": _f32(r["v"])}
+    got = _emulated(emu, "chol_trisolve_apply", {"block": block}, t,
+                    applies=applies)
+    if applies == 0:
+        assert torch.equal(got, t["v"])
+        return
+    ref = fp.chol_trisolve_apply_reference(t["G2"], t["Li1"], t["v"],
+                                           applies=applies)
+    assert _node_err(got, ref) < TOL
+
+
 def test_trisolve_matches_prec_apply_chain(emu):
     """chol_trisolve_apply computes what the route applies with the
     explicit factor: APPLIES times prec_apply_f32(L2^-1 Li1, v)."""
@@ -530,15 +574,20 @@ def test_tool_errors_on_route_chunks(emu, monkeypatch):
 def test_verdicts_follow_the_tpu_rules():
     """The four verdicts on made-up times: trsm's B and C (its fastest
     width) against A standalone and A's stages, trisolve_probe.py:173's
-    rule, each chol_linv_tc width against chol_linv_f32 and the chol1
-    cut, and chol_linv_tc with a right factor, at kernel 1's shared
-    memory, against chol_linv_f32 with P and the chol2 cut."""
+    rule with both sides at kernel 1's shared memory (and beside it
+    priced on the elimination, chol_linv_f32 with P less chol_factor on
+    G2), each chol_linv_tc width against chol_linv_f32 and the chol1 cut,
+    and
+    chol_linv_tc with a right factor, at kernel 1's shared memory,
+    against chol_linv_f32 with P and the chol2 cut."""
     assert len(tool.CONFIGS) == 12
     k = {tool.label(kn, kw): {"ms": ms} for (kn, kw), ms in zip(
         tool.CONFIGS, (2.0, 9.5, 9.0, 7.5, 9.2, 6.0, 5.0, 4.0, 5.5,
                        1.5, 9.0, 4.5))}
     k["chol_factor"]["ms_on_g2"] = 2.5
     k["chol_linv_tc[width=16,mul_right=True]"]["ms_k1"] = 2.4
+    k["chol_trisolve_apply[block=1]"]["ms_k1"] = 9.5
+    k["chol_trisolve_apply[block=8]"]["ms_k1"] = 3.0
     row = {"kernels": k,
            "standalone": {"chol_linv_f32": 4.8, "chol_linv_f32_p": 4.8,
                           "round2_gram_f32": 3.1, "prec_apply_f32": 0.2},
@@ -548,10 +597,18 @@ def test_verdicts_follow_the_tpu_rules():
     assert v["trsm"]["B_beats_A_stages"]                  # 9.5 < 13.0
     assert v["trsm"]["C_width"] == 16 and v["trsm"]["C_ms"] == 7.5
     assert v["trsm"]["C_beats_A_standalone"]              # 7.5 < 7.9
-    # block 8: (4.5 - 2.5) < 4 x 0.2 + (4.8 - 2.5); block 1: 9.0 - 2.5 is not
+    # at kernel 1's shared memory, block 8: 3.0 < 4 x 0.2 + 2.4; block 1:
+    # 9.5 is not
     assert v["trisolve"]["blocks"]["8"]["solves_win"]
+    assert v["trisolve"]["blocks"]["8"]["solves_ms"] == 3.0
     assert not v["trisolve"]["blocks"]["1"]["solves_win"]
-    assert v["trisolve"]["explicit_ms"] == pytest.approx(3.1)
+    assert v["trisolve"]["explicit_ms"] == pytest.approx(3.2)
+    # priced on the elimination, block 8: (4.5 - 2.5) < 4 x 0.2 + (4.8 - 2.5);
+    # block 1: 9.0 - 2.5 is not
+    f32 = v["trisolve"]["f32_rule"]
+    assert f32["blocks"]["8"]["solves_win"]
+    assert not f32["blocks"]["1"]["solves_win"]
+    assert f32["explicit_ms"] == pytest.approx(3.1)
     assert v["chol_mxu"]["32"]["over_chol_linv_f32"] == pytest.approx(4 / 4.8)
     assert v["chol2"]["ms"] == 1.5 and v["chol2"]["ms_k1"] == 2.4
     assert v["chol2"]["over_chol_linv_f32_p"] == pytest.approx(0.5)
@@ -563,7 +620,9 @@ def test_verdicts_follow_the_tpu_rules():
 def test_k1_checks_flag_errors_and_missing_launches():
     """The checks at kernel 1's shared memory: ``failed`` flags an error
     past tolerance there alone, ``unlaunched_k1`` an instance of
-    K1_KERNELS with no launch there (and no other kernel)."""
+    K1_KERNELS (every probe kernel) with no launch there and no other."""
+    assert set(tool.K1_KERNELS) == {w.__name__ for w in fp.KERNELS}
+
     def row(err_k1, launches_k1):
         return {"E": 24, "F": 36, "kernels": {
             "chol_linv_tc[width=8]": {"kernel": "chol_linv_tc",
@@ -571,7 +630,8 @@ def test_k1_checks_flag_errors_and_missing_launches():
                                       "max_err_k1": err_k1,
                                       "launches_k1": launches_k1},
             "chol_factor": {"kernel": "chol_factor", "max_err": 1e-6,
-                            "tol": 1e-5}}}
+                            "tol": 1e-5, "max_err_k1": 1e-6,
+                            "launches_k1": 6}}}
 
     assert tool.failed([row(2e-6, 6)]) == []
     bad = tool.failed([row(2e-5, 6)])
@@ -607,7 +667,8 @@ def test_kernels_line_names_each_site():
     site, chol_trsm_gram's variants B (width 0) and C (its panel widths)
     apart, chol_linv_tc with a right factor (trisolve_probe.py:95) apart
     from its L^-1 instances, each with its own instances' launches and
-    its fastest instance's numbers."""
+    its fastest instance's numbers; the redesigned sites with "status"
+    and their design."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -643,6 +704,13 @@ def test_kernels_line_names_each_site():
     assert c["launches"] == sum(launches[f"chol_trsm_gram[width={w}]"]
                                 for w in (8, 16, 32))
     assert len(c["classes"]) == 2 * 3
+    redesigned = {site for site, e in by_site.items()
+                  if e.get("status") == "redesigned"}
+    assert redesigned == {
+        "tools/trisolve_probe.py:79", "tools/trisolve_probe.py:162",
+        "tools/trsm_probe.py:129", "tools/trsm_probe.py:192",
+        "tools/chol_mxu_probe.py:73"}
+    assert all(by_site[site]["design"] for site in redesigned)
     d, x = by_site["tools/trisolve_probe.py:95"], by_site[
         "tools/chol_mxu_probe.py:73"]
     assert d["instance"] == "chol_linv_tc[width=16,mul_right=True]"

@@ -421,3 +421,41 @@ def test_gls_solve_stage_rejects_cuts_it_does_not_have(emu, emu_stages,
     w, wn, rn = gs.gls_solve_stage("rows", **inp)
     assert gs.gls_solve_stage.launches == before
     assert not w.any() and rn[:-1].all()
+
+
+@pytest.mark.parametrize("queued", [True, False], ids=["queued", "event-first"])
+def test_best_ms_queues_each_launch_behind_device_work(monkeypatch, queued):
+    """kernel_stages.best_ms on a card faked by CUDA events: a warm-up
+    call, then REPS timed calls, each start event recorded after
+    QUEUE_CYCLES of torch.cuda._sleep (``queued``; none without), so that
+    the host's time to submit the launch stays out of the window; the
+    result is the least window."""
+    calls, clock = [], [0.0]
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            self.t = None
+
+        def record(self):
+            calls.append("record")
+            self.t = clock[0]
+
+        def elapsed_time(self, end):
+            return end.t - self.t
+
+    def sleep(cycles):
+        calls.append(("sleep", cycles))
+
+    durations = iter([9.0, 3.0, 2.0, 4.0, 2.5, 5.0])
+
+    def launch():
+        calls.append("launch")
+        clock[0] += next(durations)
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "_sleep", sleep)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    assert kernel_stages.best_ms(launch, queued=queued) == 2.0
+    rep = ([("sleep", kernel_stages.QUEUE_CYCLES)] if queued else []) + [
+        "record", "launch", "record"]
+    assert calls == ["launch"] + rep * kernel_stages.REPS
