@@ -170,9 +170,13 @@ hexahedral one, and checks them all:
  13. kernel 1's input stream (tools/input_probes.py) on phase 4's chunks:
      the two kernels of csrc/input_probes.cu, input_sum (each node's
      kernel-1 inputs summed: the thirteen tensors as the route gathers
-     them, and the same bytes packed once and read by 8- and 16-byte
-     loads, by one cp.async.bulk, a warp a node and node-minor; the
-     natural layout also at kernel 1's shared memory) and overlap_probe
+     them, a warp a node in persistent blocks with each node's spans by
+     cp.async.bulk a node ahead, and read as kernel 1's prologue reads
+     them; the same bytes packed once and read by 8-byte words a warp a
+     node in persistent blocks, by 16-byte loads, by one cp.async.bulk,
+     a warp a node and node-minor, S warps a 32-node group; the
+     redesigned natural, packed and minor bodies and the prologue also
+     at kernel 1's shared memory) and overlap_probe
      (the packed record summed, then a trivial body, the TPU probe's
      dummy work seeded from an argument or from the sum, or the work
      alone, one node a block or in persistent blocks that copy the next
@@ -182,7 +186,8 @@ hexahedral one, and checks them all:
      launch (no input stays in L2), beside its bound, GB/s and HBM share,
      the library call, kernel 1's floor cut timed the same way and phase
      10's; registers, spills, shared memory and blocks per SM; the TPU
-     probes' layout and overlap verdicts; every instance launched in the
+     probes' layout and overlap verdicts, and the floor verdict (does
+     kernel 1's floor need a pack step); every instance launched in the
      timed run and held to its plain version (the sums within 1e-12 of
      the record's magnitudes a node, the dummy work within 1e-5 of its
      own); one {"input_probes": ...} JSON line.
@@ -1667,6 +1672,17 @@ def input_phase(chunks, stage_table):
     return table, launches
 
 
+def input_entries(table, launches):
+    """Phase 13's entries (``probe_entries``), the redesigned sites' with
+    "status" and "design"."""
+    ip = input_probes
+    out = probe_entries(ip, "input_probes.cu", table, launches)
+    for e in out:
+        if e["name"] in ip.REDESIGNED:
+            e.update(status="redesigned", design=ip.REDESIGNED[e["name"]])
+    return out
+
+
 def build_kernels():
     """Phase 2: one nvcc per kernel source, all started together."""
     from ninpol_tpu_torch.ops import cholqr as cq
@@ -1858,8 +1874,7 @@ def main():
                              rows_q[name], top_q, tpu_file="pallas_qr.py"))
     kernels += factor_entries(probe_table, probe_launches)
     kernels += mxu_entries(mxu_table, mxu_sweep, mxu_launches)
-    kernels += probe_entries(input_probes, "input_probes.cu", input_table,
-                             input_launches)
+    kernels += input_entries(input_table, input_launches)
     print("# mesh " + json.dumps(mesh_stats), flush=True)
     print(card, flush=True)            # nvidia-smi name, power.limit
     print(json.dumps({"kernels": kernels}), flush=True)

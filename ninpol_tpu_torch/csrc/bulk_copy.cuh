@@ -5,8 +5,10 @@
  * mxu_probes.cu.  Both ends of a copy are 16-byte aligned and its bytes a
  * multiple of 16.
  *
- * A load: one thread expects the bytes on an mbarrier and issues the copy;
- * every thread that reads the destination waits for the barrier's phase.
+ * A load: one thread expects the bytes on an mbarrier and issues the copy
+ * (bulk_load; or mbar_expect of several copies' bytes, then each by
+ * bulk_copy_in); every thread that reads the destination waits for the
+ * barrier's phase.
  * A store: every thread that wrote the source fences (fence_async_shared),
  * a block barrier follows, then one thread issues the store and commits
  * its bulk group; that thread waits for the group's reads (bulk_wait_read)
@@ -53,26 +55,52 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
 // whole 16-byte words, one more than ``count`` needs at most.
 __host__ __device__ inline long long span_floats(long long count) { return (count + 3) / 4 * 4 + 4; }
 
+// This thread's accesses of shared memory ordered before bulk copies
+// (the async proxy) that it issues later, or, behind a block barrier,
+// that another thread issues: a load's destination read before, a
+// store's source written before.
+__device__ __forceinline__ void fence_async_shared() {
+#ifndef CUDA_EMU
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+#endif
+}
+
+// One thread: the one arrival of ``bar``'s phase, expecting ``bytes`` from
+// the bulk copies (bulk_copy_in) that complete on it.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+#ifdef CUDA_EMU
+  emu_mbarrier_arrive_expect_tx(bar, bytes);
+#else
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+#endif
+}
+
+// One thread: copy ``bytes`` from device memory to shared memory,
+// completing on ``bar`` (no arrival: mbar_expect counts the bytes).
+__device__ __forceinline__ void bulk_copy_in(void* dst, const void* src, unsigned bytes,
+                                             uint64_t* bar) {
+#ifdef CUDA_EMU
+  emu_cp_async_bulk(dst, src, bytes, bar);
+#else
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+#endif
+}
+
 // One thread: expect ``bytes`` on ``bar`` (its one arrival) and copy them
 // from device memory to shared memory, completing on ``bar``.  The fence
 // orders the block's earlier accesses of dst (generic proxy) before the
 // copy's writes (async proxy).
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
                                           uint64_t* bar) {
-#ifdef CUDA_EMU
-  emu_mbarrier_arrive_expect_tx(bar, bytes);
-  emu_cp_async_bulk(dst, src, bytes, bar);
-#else
-  const uint32_t b = smem_addr(bar);
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(b)
-      : "memory");
-#endif
+  fence_async_shared();
+  mbar_expect(bar, bytes);
+  bulk_copy_in(dst, src, bytes, bar);
 }
 
 __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, unsigned parity) {
@@ -110,14 +138,6 @@ __device__ __forceinline__ void load_span(float* dst, const float* x, long long 
   if (threadIdx.x != 0) return;
   const int h = span_head(x);
   bulk_load(dst, x - h, (unsigned)((h + count + 3) / 4 * 16), bar);
-}
-
-// This thread's writes of shared memory made visible to bulk stores that
-// a later block barrier orders after them.
-__device__ __forceinline__ void fence_async_shared() {
-#ifndef CUDA_EMU
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-#endif
 }
 
 // One thread: copy ``bytes`` from shared memory to device memory, in the

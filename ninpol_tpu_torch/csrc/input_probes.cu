@@ -20,27 +20,55 @@
  *
  * input_sum (replaces tools/r5_layout_probe.py:60, :72, :85, :105): out[b]
  *   = the sum of node b's record, so that every byte is read, as the TPU
- *   bodies reduce their whole block.  Bound by bytes.  Instances (layout):
+ *   bodies reduce their whole block.  Bound by bytes: the design of each
+ *   body keeps enough bytes in flight to cover the card's memory latency
+ *   (some 16-20 KB an SM at 3.35 TB/s).  Instances (layout):
  *     kNatural  the thirteen tensors as ops/gls_solve.py::gls_solve takes
- *               them, one block of 256 threads a node, each tensor read an
- *               element a thread as kernel 1's prologue reads it
- *               (gls_solve.cu:318-331: 8-byte doubles, 4-byte ints, 1-byte
- *               masks), with no incidence search (:60, the production
- *               layout);
- *     kPacked   the packed record, one block a node, 8-byte loads (:72);
- *     kWide     the same, 16-byte loads (:85, wider rows);
+ *               them (:60, the production layout, no pack step):
+ *               persistent blocks, a warp a node, two buffers and two
+ *               mbarriers a warp; the node's nine float64 and int32 spans
+ *               (dk, l1, l2, t1m, tt, lb, nm, pair, ks) come in by one
+ *               cp.async.bulk each, issued by the span's own lane, while
+ *               the warp sums the node before from the other buffer; the
+ *               byte masks (cv, fv, isneu, valid; not 16-byte aligned at
+ *               the tet classes) by plain loads a node ahead, into
+ *               registers; a shuffle reduction; no block barrier.  Where
+ *               every span is whole 16-byte words at 16-byte boundaries
+ *               (the tet classes; kAligned) the spans land back to back
+ *               and are summed by two flat loops; else each comes as the
+ *               16-byte span that covers it, clipped to its tensor, the
+ *               bytes outside a clipped span read by plain loads.  On
+ *               the card the warp's instructions a node bound it more
+ *               than the copies do: the kAligned form's flat loops, and
+ *               the copies issued by nine lanes at once, are what bring it
+ *               near the packed record's rate (PERF.md);
+ *     kPacked   the packed record in 8-byte words (:72): persistent
+ *               blocks, a warp a node, each lane's kPackedWords loads of
+ *               a node issued together, the next node's before this
+ *               node's shuffle reduction;
+ *     kWide     the same record, one block a node, 16-byte loads, a block
+ *               reduction (:85, wider rows);
  *     kBulk     the same, one cp.async.bulk (the TMA's 1-D copy) of the
  *               record into shared memory against an mbarrier, summed
  *               there (:85);
  *     kMulti    8 nodes a block, a warp a node, 8-byte loads (:105,
  *               several tiles a step);
- *     kMinor    the record node-minor, (stride / 8, B) 8-byte words, one
- *               thread a node: a warp reads 32 nodes' word k in one
- *               256-byte span (:105, the TPU's own lane layout).
- *   A dynamic shared memory request (``smem_bytes``, unused but for
- *   kBulk's record) sets the blocks an SM, so an instance can run at
- *   kernel 1's occupancy.
- *
+ *     kMinor    the record node-minor, (stride / 8, B) 8-byte words
+ *               (:105, the TPU's own lane layout): a block of
+ *               kMinorWarps warps 32 nodes, warp s words [s W / S,
+ *               (s + 1) W / S) of every node, a lane a node, so that a
+ *               warp's load is one 256-byte span; kMinorLoads loads in
+ *               flight a lane and the next batch issued before this one
+ *               is summed; the partials combined in shared memory;
+ *     kPrologue kernel 1's prologue as written (gls_solve.cu:394-419):
+ *               the thirteen tensors, one block of 256 threads a node,
+ *               an element a thread (8-byte doubles, 4-byte ints, 1-byte
+ *               masks), a block reduction (:60, what kNatural replaced).
+ *   A dynamic shared memory request (``smem_bytes``) sets the blocks an
+ *   SM, so an instance can run at kernel 1's occupancy; the persistent
+ *   instances (kNatural, kPacked) launch the SMs times the blocks an SM
+ *   holds, or ``blocks``.
+
  * overlap_probe (replaces tools/r5_overlap_probe.py:100): per node, red =
  *   the record's sum (the copy made real: a GPU moves only the bytes that
  *   are read), r = red, and w (E floats) by body:
@@ -81,13 +109,18 @@ namespace {
 using namespace bulk_copy;
 
 constexpr int kThreads = 256, kWarps = kThreads / 32;
-constexpr int kMinorThreads = 128;     // kMinor: one thread a node
 constexpr int kMultiNodes = kWarps;    // kMulti: a warp a node
+constexpr int kPackedWords = 18;       // kPacked: a lane's loads of a node ((24, 36): 566 words)
+constexpr int kMinorWarps = 4;         // kMinor: warps a block, word ranges of a node (S)
+constexpr int kMinorLoads = 8;         // kMinor: a batch of loads a lane
+constexpr int kSpans = 9;              // kNatural: dk, l1, l2, t1m, tt, lb, nm (float64), pair, ks
+constexpr int kSpansF64 = 7;
+constexpr int kMaskSlots = 2;          // kNatural: mask bytes a lane holds for the next node
 constexpr int kSlots = 128;            // the dummy work's columns
 constexpr int kMaxE = 2 * 16;          // its rows: two halves of 128 threads, 16 rows each
 constexpr int kFields = 13;
 
-enum { kNatural = 0, kPacked = 1, kWide = 2, kBulk = 3, kMulti = 4, kMinor = 5 };
+enum { kNatural = 0, kPacked = 1, kWide = 2, kBulk = 3, kMulti = 4, kMinor = 5, kPrologue = 6 };
 enum { kTrivial = 0, kIndep = 1, kDep = 2, kCompute = 3 };
 enum { kBlock = 0, kPipelined = 1 };
 enum { kWhatSum = 0, kWhatOverlap = 1 };
@@ -98,12 +131,20 @@ struct Regions {
   __host__ __device__ int stride() const { return f64 + i32 + u8; }
 };
 
+// kNatural's spans (p[0..8]): each one's bytes a node (0: absent) and
+// offset in a buffer of ``buf`` bytes (room for each covering span); the
+// bytes of the float64 spans and of the int32 ones
+struct Spans {
+  int len[kSpans], off[kSpans], buf, f64, i32;
+};
+
 struct SumArgs {
-  const void* p[kFields];   // kNatural: dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu,
-                            // valid; else p[0], the record
+  const void* p[kFields];   // kNatural, kPrologue: dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv,
+                            // fv, isneu, valid; else p[0], the record
   long long B;
   int E, F, wneu;
   Regions g;
+  Spans sp;
   double* out;
 };
 
@@ -196,9 +237,24 @@ __device__ __forceinline__ double block_sum(double d, long long n, double* sd, l
   return d + (double)n;
 }
 
+// One 8-byte word of a record, word k of its (f64, f64 + i32) region
+// bounds in words: a double into d, two int32 or eight bytes into n.  A
+// zero word adds nothing in any region.
+__device__ __forceinline__ void add_word(unsigned long long w, int k, int wf, int wfi, double& d,
+                                         long long& n) {
+  const uint32_t lo = (uint32_t)w, hi = (uint32_t)(w >> 32);
+  if (k < wf)
+    d += __longlong_as_double((long long)w);
+  else if (k < wfi)
+    n += (long long)(int)lo + (int)hi;
+  else
+    n += byte_sum(lo) + byte_sum(hi);
+}
+
 // ---- input_sum
 
-__global__ void __launch_bounds__(kThreads) natural_kernel(SumArgs a) {
+// kPrologue: kernel 1's prologue as written
+__global__ void __launch_bounds__(kThreads) prologue_kernel(SumArgs a) {
   __shared__ double sd[kWarps];
   __shared__ long long sn[kWarps];
   const int tid = threadIdx.x, E = a.E, F = a.F;
@@ -237,16 +293,232 @@ __global__ void __launch_bounds__(kThreads) natural_kernel(SumArgs a) {
   if (tid == 0) a.out[b] = total;
 }
 
-// kPacked (8-byte loads) and kWide (16)
-template <int kBytes>
-__global__ void __launch_bounds__(kThreads) packed_kernel(SumArgs a) {
+// kNatural.  Node b's bytes [s, e) of a tensor [ts, ts + B len), and the
+// 16-byte aligned part [lo, hi) that a bulk copy brings in (lo == hi:
+// none): the 16-byte span covering [s, e), less a first or last 16 bytes
+// that would reach outside the tensor.  Every byte of [s, e) outside
+// [lo, hi) is read by a plain load; the copy lands at a buffer's 16-byte
+// boundary, byte p at (p - lo).
+struct Span {
+  uintptr_t s, e, lo, hi;
+};
+
+__device__ __forceinline__ Span span_of(const void* base, int len, long long b, long long B) {
+  const uintptr_t ts = reinterpret_cast<uintptr_t>(base), te = ts + (uintptr_t)(B * len);
+  const uintptr_t s = ts + (uintptr_t)(b * len), e = s + len;
+  uintptr_t lo = s & ~(uintptr_t)15, hi = (e + 15) & ~(uintptr_t)15;
+  if (lo < ts) lo += 16;
+  if (hi > te) hi -= 16;
+  if (hi <= lo) lo = hi = s;
+  return {s, e, lo, hi};
+}
+
+// Lane k < kSpans of a warp: node b's span k (``len`` bytes of the tensor
+// at ``base``; len 0: absent) into ``buf``, completing on ``bar``, lane 0
+// expecting the spans' bytes.  kAligned (every span whole 16-byte words
+// at 16-byte boundaries): the node's bytes themselves, span k at
+// sp.off[k], so the float64 spans and then the int32 ones lie back to
+// back; else the covering span, clipped to its tensor (span_of).
+template <bool kAligned>
+__device__ __forceinline__ void natural_issue(const SumArgs& a, long long b, int len,
+                                              const unsigned char* base, unsigned char* buf,
+                                              uint64_t* bar) {
+  const int lane = threadIdx.x % 32;
+  uintptr_t lo = 0, hi = 0;
+  if (len) {
+    if constexpr (kAligned) {
+      lo = reinterpret_cast<uintptr_t>(base + b * len);
+      hi = lo + len;
+    } else {
+      const Span q = span_of(base, len, b, a.B);
+      lo = q.lo;
+      hi = q.hi;
+    }
+  }
+  const unsigned bytes = (unsigned)(hi - lo);
+  unsigned total = bytes;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) total += __shfl_xor_sync(0xffffffffu, total, off);
+  if (lane == 0) {
+    fence_async_shared();
+    mbar_expect(bar, total);
+  }
+  __syncwarp();
+  if (bytes) bulk_copy_in(buf + a.sp.off[lane], reinterpret_cast<const void*>(lo), bytes, bar);
+  __syncwarp();
+}
+
+// A warp's sum of node b's entries of span k (type T) into acc, the
+// covering span's copy in ``buf``: the part it holds from there, the rest
+// by plain loads.
+template <typename T, typename Acc>
+__device__ __forceinline__ void natural_span_sum(const SumArgs& a, int k, long long b,
+                                                 const unsigned char* buf, int lane, Acc& acc) {
+  const Span q = span_of(a.p[k], a.sp.len[k], b, a.B);
+  const uintptr_t p0 = q.s > q.lo ? q.s : q.lo, p1 = q.e < q.hi ? q.e : q.hi;
+  const T* x = reinterpret_cast<const T*>(buf + a.sp.off[k] + (p0 - q.lo));
+  const int n = (int)((p1 - p0) / sizeof(T));
+  for (int j = lane; j < n; j += 32) acc += x[j];
+  for (uintptr_t p = q.s + lane * sizeof(T); p < p0; p += 32 * sizeof(T))
+    acc += *reinterpret_cast<const T*>(p);
+  for (uintptr_t p = p1 + lane * sizeof(T); p < q.e; p += 32 * sizeof(T))
+    acc += *reinterpret_cast<const T*>(p);
+}
+
+// Mask byte j of node b, j < E + F + 2: cv, fv, isneu, valid.
+__device__ __forceinline__ uint32_t mask_byte(const SumArgs& a, long long b, int j) {
+  const unsigned char* q = j < a.E       ? static_cast<const unsigned char*>(a.p[9]) + b * a.E + j
+                           : j < a.E + a.F ? static_cast<const unsigned char*>(a.p[10]) + b * a.F +
+                                                 (j - a.E)
+                           : j == a.E + a.F ? static_cast<const unsigned char*>(a.p[11]) + b
+                                            : static_cast<const unsigned char*>(a.p[12]) + b;
+  return *q;
+}
+
+// Node b's first 32 kMaskSlots mask bytes, a lane's share (0 for b >= B).
+__device__ __forceinline__ void load_masks(const SumArgs& a, long long b, int lane,
+                                           uint32_t (&m)[kMaskSlots]) {
+  const int count = b < a.B ? a.E + a.F + 2 : 0;
+#pragma unroll
+  for (int q = 0; q < kMaskSlots; ++q) {
+    const int j = lane + 32 * q;
+    m[q] = j < count ? mask_byte(a, b, j) : 0u;
+  }
+}
+
+// Persistent blocks, a warp a node: the warp walks nodes b, b + step, ...
+// with two buffers and two mbarriers of its own; the next node's spans (a
+// copy a span, issued by the span's lane) and masks are in flight while
+// it sums this one.
+template <bool kAligned>
+__global__ void __launch_bounds__(kThreads) natural_kernel(SumArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];   // two buffers a warp
+  __shared__ uint64_t bars[2 * kWarps];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = blockDim.x / 32;
+  const long long step = (long long)gridDim.x * warps;
+  long long b = (long long)blockIdx.x * warps + warp;
+  if (b >= a.B) return;   // no node for this warp (the kernel has no block barrier)
+  uint64_t* bar = bars + 2 * warp;
+  unsigned char* bufs = smem + (size_t)warp * 2 * a.sp.buf;
+  const int len = lane < kSpans ? a.sp.len[lane] : 0;   // this lane's span
+  const unsigned char* base = len ? static_cast<const unsigned char*>(a.p[lane]) : nullptr;
+  if (lane == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+  }
+  __syncwarp();
+  natural_issue<kAligned>(a, b, len, base, bufs, &bar[0]);
+  uint32_t m0[kMaskSlots], m1[kMaskSlots];   // the masks of the nodes in buffers 0 and 1
+  load_masks(a, b, lane, m0);
+  const int masks = a.E + a.F + 2;
+  for (int i = 0; b < a.B; b += step, ++i) {
+    const int cur = i & 1;
+    const unsigned char* buf = bufs + cur * a.sp.buf;
+    // the other buffer was last read in the step before, behind its
+    // __syncwarp
+    if (b + step < a.B) {
+      natural_issue<kAligned>(a, b + step, len, base, bufs + (cur ^ 1) * a.sp.buf, &bar[cur ^ 1]);
+      if (cur)
+        load_masks(a, b + step, lane, m0);
+      else
+        load_masks(a, b + step, lane, m1);
+    }
+    mbar_wait(&bar[cur], (i >> 1) & 1);   // this buffer's (i / 2)-th fill
+    double d0 = 0.0, d1 = 0.0;
+    long long n = 0;
+    if constexpr (kAligned) {
+      const double* x = reinterpret_cast<const double*>(buf);
+      const int nd = a.sp.f64 / 8, ni = a.sp.i32 / 4;
+      int j = lane;
+      for (; j + 32 < nd; j += 64) {
+        d0 += x[j];
+        d1 += x[j + 32];
+      }
+      if (j < nd) d0 += x[j];
+      const int* y = reinterpret_cast<const int*>(buf + a.sp.f64);
+      for (j = lane; j < ni; j += 32) n += y[j];
+    } else {
+#pragma unroll
+      for (int k = 0; k < kSpans; ++k) {
+        if (!a.sp.len[k]) continue;
+        if (k < kSpansF64)
+          natural_span_sum<double>(a, k, b, buf, lane, k & 1 ? d1 : d0);
+        else
+          natural_span_sum<int>(a, k, b, buf, lane, n);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kMaskSlots; ++q) n += cur ? m1[q] : m0[q];
+    for (int j = lane + 32 * kMaskSlots; j < masks; j += 32) n += mask_byte(a, b, j);
+    __syncwarp();   // this buffer is free for the step after next
+    const double d = warp_sum(d0 + d1);
+    n = warp_sum(n);
+    if (lane == 0) a.out[b] = d + (double)n;
+  }
+}
+
+// kPacked: word c kPackedWords 32 + lane + 32 j of the node's record into
+// v[j] (0 past its ``words``)
+__device__ __forceinline__ void packed_load(const unsigned long long* rec, int first, int words,
+                                            unsigned long long (&v)[kPackedWords]) {
+#pragma unroll
+  for (int j = 0; j < kPackedWords; ++j) {
+    const int k = first + 32 * j;
+    v[j] = k < words ? rec[k] : 0ull;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2) packed_kernel(SumArgs a) {
+  const int lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  const int words = a.g.stride() / 8, wf = a.g.f64 / 8, wfi = (a.g.f64 + a.g.i32) / 8;
+  const int chunk = 32 * kPackedWords, chunks = (words + chunk - 1) / chunk;
+  const long long step = (long long)gridDim.x * warps;
+  const unsigned long long* rec = static_cast<const unsigned long long*>(a.p[0]);
+  long long b = (long long)blockIdx.x * warps + threadIdx.x / 32;
+  if (b >= a.B) return;
+  // the warp walks (node, chunk) items: nodes b, b + step, ..., each in
+  // chunks of 32 kPackedWords words
+  int c = 0;
+  unsigned long long cur[kPackedWords], next[kPackedWords];
+  packed_load(rec + b * words, lane, words, cur);
+  double d0 = 0.0, d1 = 0.0;
+  long long n = 0;
+  for (;;) {
+    long long bn = b;
+    int cn = c + 1;
+    if (cn == chunks) {
+      cn = 0;
+      bn = b + step;
+    }
+    const bool more = bn < a.B;
+    if (more) packed_load(rec + bn * words, cn * chunk + lane, words, next);
+#pragma unroll
+    for (int j = 0; j < kPackedWords; ++j)
+      add_word(cur[j], c * chunk + lane + 32 * j, wf, wfi, j & 1 ? d1 : d0, n);
+    if (c == chunks - 1) {
+      const double d = warp_sum(d0 + d1);
+      const long long t = warp_sum(n);
+      if (lane == 0) a.out[b] = d + (double)t;
+      d0 = d1 = 0.0;
+      n = 0;
+    }
+    if (!more) break;
+#pragma unroll
+    for (int j = 0; j < kPackedWords; ++j) cur[j] = next[j];
+    b = bn;
+    c = cn;
+  }
+}
+
+// kWide: one block a node, 16-byte loads
+__global__ void __launch_bounds__(kThreads) wide_kernel(SumArgs a) {
   __shared__ double sd[kWarps];
   __shared__ long long sn[kWarps];
   const long long b = blockIdx.x;
   const unsigned char* rec = static_cast<const unsigned char*>(a.p[0]) + b * a.g.stride();
   double d = 0.0;
   long long n = 0;
-  sum_record<kBytes>(rec, a.g, threadIdx.x, kThreads, d, n);
+  sum_record<16>(rec, a.g, threadIdx.x, kThreads, d, n);
   const double total = block_sum(d, n, sd, sn);
   if (threadIdx.x == 0) a.out[b] = total;
 }
@@ -284,28 +556,51 @@ __global__ void __launch_bounds__(kThreads) multi_kernel(SumArgs a) {
   if (lane == 0) a.out[b] = d + (double)n;
 }
 
+// kMinor, a batch: words k, k + 1, ..., k + kMinorLoads - 1 (< hi) of the
+// lane's node, word k at x[k B]
+__device__ __forceinline__ void minor_load(const unsigned long long* x, long long B, int k,
+                                           int hi, unsigned long long (&v)[kMinorLoads]) {
+#pragma unroll
+  for (int j = 0; j < kMinorLoads; ++j) v[j] = k + j < hi ? x[(long long)(k + j) * B] : 0ull;
+}
+
 // node-minor: word k of node b at x[k B + b], 8 bytes
-__global__ void __launch_bounds__(kMinorThreads) minor_kernel(SumArgs a) {
-  const long long B = a.B, b = (long long)blockIdx.x * kMinorThreads + threadIdx.x;
-  if (b >= B) return;
-  const int wf = a.g.f64 / 8, wi = a.g.i32 / 8, wb = a.g.u8 / 8;
-  const double* xd = static_cast<const double*>(a.p[0]) + b;
-  const int2* xi = static_cast<const int2*>(a.p[0]) + (long long)wf * B + b;
-  const uint2* xb = static_cast<const uint2*>(a.p[0]) + (long long)(wf + wi) * B + b;
-  double d = 0.0;
+__global__ void __launch_bounds__(kMinorWarps * 32, 8) minor_kernel(SumArgs a) {
+  __shared__ double sd[kMinorWarps][32];
+  __shared__ long long sn[kMinorWarps][32];
+  const int lane = threadIdx.x % 32, s = threadIdx.x / 32;
+  const long long B = a.B, b = (long long)blockIdx.x * 32 + lane;
+  const int words = a.g.stride() / 8, wf = a.g.f64 / 8, wfi = (a.g.f64 + a.g.i32) / 8;
+  const int lo = (int)((long long)words * s / kMinorWarps);
+  const int hi = b < B ? (int)((long long)words * (s + 1) / kMinorWarps) : lo;
+  const unsigned long long* x = static_cast<const unsigned long long*>(a.p[0]) + b;
+  double d0 = 0.0, d1 = 0.0;
   long long n = 0;
-#pragma unroll 8
-  for (int k = 0; k < wf; ++k) d += xd[k * B];
-#pragma unroll 8
-  for (int k = 0; k < wi; ++k) {
-    const int2 v = xi[k * B];
-    n += (long long)v.x + v.y;
+  unsigned long long u[kMinorLoads], v[kMinorLoads];
+  // two batches in flight: the next issued before this one is summed
+  minor_load(x, B, lo, hi, u);
+  for (int k = lo; k < hi; k += 2 * kMinorLoads) {
+    minor_load(x, B, k + kMinorLoads, hi, v);
+#pragma unroll
+    for (int j = 0; j < kMinorLoads; ++j) add_word(u[j], k + j, wf, wfi, j & 1 ? d1 : d0, n);
+    minor_load(x, B, k + 2 * kMinorLoads, hi, u);
+#pragma unroll
+    for (int j = 0; j < kMinorLoads; ++j)
+      add_word(v[j], k + kMinorLoads + j, wf, wfi, j & 1 ? d1 : d0, n);
   }
-  for (int k = 0; k < wb; ++k) {
-    const uint2 v = xb[k * B];
-    n += byte_sum(v.x) + byte_sum(v.y);
+  sd[s][lane] = d0 + d1;
+  sn[s][lane] = n;
+  __syncthreads();
+  if (s == 0 && b < B) {
+    double d = 0.0;
+    long long t = 0;
+#pragma unroll
+    for (int q = 0; q < kMinorWarps; ++q) {
+      d += sd[q][lane];
+      t += sn[q][lane];
+    }
+    a.out[b] = d + (double)t;
   }
-  a.out[b] = d + (double)n;
 }
 
 // ---- overlap_probe
@@ -427,14 +722,45 @@ typedef void (*OverlapKernel)(OverlapArgs);
 
 SumKernel sum_instance(int layout) {
   switch (layout) {
-    case kNatural: return natural_kernel;
-    case kPacked: return packed_kernel<8>;
-    case kWide: return packed_kernel<16>;
+    case kNatural: return natural_kernel<false>;
+    case kPacked: return packed_kernel;
+    case kWide: return wide_kernel;
     case kBulk: return bulk_kernel;
     case kMulti: return multi_kernel;
     case kMinor: return minor_kernel;
+    case kPrologue: return prologue_kernel;
     default: return nullptr;
   }
+}
+
+bool persistent(int layout) { return layout == kNatural || layout == kPacked; }
+
+// kNatural's spans at (E, F), lb and nm only with Neumann rows: bytes a
+// node; a buffer holds each covering span (its bytes rounded up to 16, and
+// 16 more), or with ``aligned`` the spans back to back
+Spans natural_spans(int E, int F, int wneu, bool aligned) {
+  const int len[kSpans] = {24 * E, 24 * F, 24 * F, 24 * F, 24 * F, wneu ? 24 * F : 0,
+                           wneu ? 8 * F : 0, 8 * F, 4 * E};
+  Spans sp;
+  sp.buf = sp.f64 = sp.i32 = 0;
+  int at = 0;
+  for (int k = 0; k < kSpans; ++k) {
+    sp.len[k] = len[k];
+    (k < kSpansF64 ? sp.f64 : sp.i32) += len[k];
+    sp.off[k] = aligned ? at : sp.buf;
+    at += len[k];
+    if (len[k]) sp.buf += (len[k] + 15) / 16 * 16 + 16;
+  }
+  return sp;
+}
+
+// Whether every present span of kNatural is whole 16-byte words at 16-byte
+// boundaries (the tensors at 16-byte boundaries, every span's bytes a
+// multiple of 16), so its kAligned instance applies
+bool natural_aligned(const void* const* p, const Spans& sp) {
+  for (int k = 0; k < kSpans; ++k)
+    if (sp.len[k] && (sp.len[k] % 16 || reinterpret_cast<uintptr_t>(p[k]) % 16)) return false;
+  return true;
 }
 
 template <int kBody>
@@ -465,19 +791,36 @@ OverlapKernel overlap_instance(int body, int schedule, int E) {
 
 // A launch's kernel, threads and the dynamic shared memory it needs:
 // ``what`` kWhatSum (variant: the layout) or kWhatOverlap (variant:
-// body * 2 + schedule) on records of ``stride`` bytes, E rows of dummy work.
+// body * 2 + schedule) on records of ``stride`` bytes, E rows of dummy work
+// (kNatural: its spans at (E, F, wneu), two buffers a warp, as many warps
+// as fit, at most kWarps).
 struct Plan {
   const void* kernel = nullptr;
   int threads = kThreads;
   long long need = 0;
 };
 
-Plan plan(int what, int variant, int stride, int E) {
+Plan plan(int what, int variant, int stride, int E, int F, int wneu) {
   Plan p;
   if (what == kWhatSum) {
     p.kernel = (const void*)sum_instance(variant);
-    if (variant == kMinor) p.threads = kMinorThreads;
+    if (variant == kMinor) p.threads = kMinorWarps * 32;
     if (variant == kBulk) p.need = stride;
+    if (variant == kNatural) {
+      int dev = 0, optin = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      const long long pair = 2LL * natural_spans(E, F, wneu, false).buf;
+      const long long warps = optin / pair < kWarps ? optin / pair : kWarps;
+      p.threads = 32 * (int)(warps > 0 ? warps : 1);
+      p.need = (p.threads / 32) * pair;
+      // the kAligned instance where the class's spans are whole 16-byte
+      // words (the launch checks the tensors' addresses too)
+      const Spans sp = natural_spans(E, F, wneu, false);
+      bool whole = true;
+      for (int k = 0; k < kSpans; ++k) whole = whole && sp.len[k] % 16 == 0;
+      if (whole) p.kernel = (const void*)natural_kernel<true>;
+    }
   } else if (what == kWhatOverlap) {
     const int body = variant / 2, schedule = variant % 2;
     p.kernel = (const void*)overlap_instance(body, schedule, E);
@@ -498,6 +841,26 @@ cudaError_t prepare(const Plan& p, long long request, size_t* bytes) {
   return cudaFuncSetAttribute(p.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
 }
 
+// A persistent launch's grid: ``blocks``, or with 0 the SMs times the
+// blocks an SM holds, at most the blocks that have work (``units`` of
+// ``per_block``)
+cudaError_t persistent_grid(const Plan& p, size_t bytes, int blocks, long long units,
+                            int per_block, long long* grid) {
+  long long g = blocks;
+  if (g == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p.kernel, p.threads, bytes);
+    if (err != cudaSuccess) return err;
+    g = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long most = (units + per_block - 1) / per_block;
+  *grid = g < most ? g : most;
+  return cudaSuccess;
+}
+
 bool regions_ok(int f64, int i32, int u8) {
   return f64 >= 0 && i32 >= 0 && u8 >= 0 && f64 % 16 == 0 && i32 % 16 == 0 && u8 % 16 == 0 &&
          f64 + i32 + u8 > 0;
@@ -508,14 +871,15 @@ bool regions_ok(int f64, int i32, int u8) {
 // A launch's dynamic shared memory, threads, the blocks an SM holds, and
 // its registers and local memory bytes (spills) a thread: ``what`` 0
 // input_sum (variant: layout 0 natural, 1 packed, 2 wide, 3 bulk, 4 multi,
-// 5 minor), 1 overlap_probe (variant: body 0 trivial, 1 indep, 2 dep, 3
-// compute, times 2, plus schedule 0 block, 1 pipelined) on records of
-// ``stride`` bytes with E rows of dummy work, at a dynamic shared memory
-// request of ``request`` bytes; returns the cudaError_t.
-extern "C" int input_probes_occupancy(int what, int variant, int stride, int E,
+// 5 minor, 6 prologue; natural at (E, F, wneu)), 1 overlap_probe
+// (variant: body 0 trivial, 1 indep, 2 dep, 3 compute, times 2, plus
+// schedule 0 block, 1 pipelined) on records of ``stride`` bytes with E
+// rows of dummy work, at a dynamic shared memory request of ``request``
+// bytes; returns the cudaError_t.
+extern "C" int input_probes_occupancy(int what, int variant, int stride, int E, int F, int wneu,
                                       long long request, long long* smem_bytes, int* threads,
                                       int* blocks_per_sm, int* regs, long long* local_bytes) {
-  const Plan p = plan(what, variant, stride, E);
+  const Plan p = plan(what, variant, stride, E, F, wneu);
   size_t bytes = 0;
   cudaError_t err = prepare(p, request, &bytes);
   if (err != cudaSuccess) return (int)err;
@@ -530,17 +894,21 @@ extern "C" int input_probes_occupancy(int what, int variant, int stride, int E,
                                                             bytes);
 }
 
-// out[b] = the sum of node b's record, b < B: ``layout`` kNatural reads
-// p[0..12] (dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv, isneu, valid;
-// lb and nm null without Neumann rows, wneu 0) at (E, F); the others p[0],
-// the packed record (B, f64 + i32 + u8 bytes), node-minor for kMinor
-// ((f64 + i32 + u8) / 8, B words of 8 bytes).
+// out[b] = the sum of node b's record, b < B: ``layout`` kNatural and
+// kPrologue read p[0..12] (dk, l1, l2, t1m, tt, lb, nm, pair, ks, cv, fv,
+// isneu, valid; lb and nm null without Neumann rows, wneu 0) at (E, F);
+// the others p[0], the packed record (B, f64 + i32 + u8 bytes), node-minor
+// for kMinor ((f64 + i32 + u8) / 8, B words of 8 bytes).  The persistent
+// layouts (kNatural, kPacked) run ``blocks`` blocks, or with 0 the SMs
+// times the blocks an SM holds; the others take 0.
 extern "C" int input_sum_launch(int layout, const void* const* p, long long B, int E, int F,
-                                int wneu, int f64, int i32, int u8, long long request,
+                                int wneu, int f64, int i32, int u8, long long request, int blocks,
                                 double* out, void* stream) {
-  if (B <= 0 || p == nullptr || out == nullptr) return (int)cudaErrorInvalidValue;
-  if (layout == kNatural ? (E <= 0 || F <= 0) : !regions_ok(f64, i32, u8))
+  const bool natural = layout == kNatural || layout == kPrologue;
+  if (B <= 0 || p == nullptr || out == nullptr || blocks < 0 ||
+      (blocks > 0 && !persistent(layout)))
     return (int)cudaErrorInvalidValue;
+  if (natural ? (E <= 0 || F <= 0) : !regions_ok(f64, i32, u8)) return (int)cudaErrorInvalidValue;
   SumArgs a;
   for (int q = 0; q < kFields; ++q) a.p[q] = p[q];
   a.B = B;
@@ -548,16 +916,27 @@ extern "C" int input_sum_launch(int layout, const void* const* p, long long B, i
   a.F = F;
   a.wneu = wneu;
   a.g = Regions{f64, i32, u8};
+  a.sp = natural_spans(E, F, wneu, false);
+  const bool aligned = layout == kNatural && natural_aligned(p, a.sp);
+  if (aligned) a.sp = natural_spans(E, F, wneu, true);
   a.out = out;
-  const Plan pl = plan(kWhatSum, layout, a.g.stride(), 0);
+  Plan pl = plan(kWhatSum, layout, a.g.stride(), E, F, wneu);
+  if (layout == kNatural)
+    pl.kernel = aligned ? (const void*)natural_kernel<true> : (const void*)natural_kernel<false>;
   size_t bytes = 0;
   cudaError_t err = prepare(pl, request, &bytes);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = layout == kMulti   ? (B + kMultiNodes - 1) / kMultiNodes
-                           : layout == kMinor ? (B + kMinorThreads - 1) / kMinorThreads
-                                              : B;
-  const SumKernel k = sum_instance(layout);
-  k<<<blocks, pl.threads, bytes, (cudaStream_t)stream>>>(a);
+  long long grid = B;
+  if (persistent(layout)) {
+    err = persistent_grid(pl, bytes, blocks, B, pl.threads / 32, &grid);
+    if (err != cudaSuccess) return (int)err;
+  } else if (layout == kMulti) {
+    grid = (B + kMultiNodes - 1) / kMultiNodes;
+  } else if (layout == kMinor) {
+    grid = (B + 31) / 32;
+  }
+  const SumKernel k = aligned ? natural_kernel<true> : sum_instance(layout);
+  k<<<grid, pl.threads, bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -575,22 +954,14 @@ extern "C" int overlap_probe_launch(int body, int schedule, const unsigned char*
       r == nullptr || (rec == nullptr && body != kCompute))
     return (int)cudaErrorInvalidValue;
   const Regions g{f64, i32, u8};
-  const Plan pl = plan(kWhatOverlap, body * 2 + schedule, g.stride(), E);
+  const Plan pl = plan(kWhatOverlap, body * 2 + schedule, g.stride(), E, 0, 0);
   size_t bytes = 0;
   cudaError_t err = prepare(pl, request, &bytes);
   if (err != cudaSuccess) return (int)err;
   long long grid = B;
   if (schedule == kPipelined) {
-    grid = blocks;
-    if (grid == 0) {
-      int dev = 0, sms = 0, per_sm = 0;
-      cudaGetDevice(&dev);
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pl.kernel, kThreads, bytes);
-      if (err != cudaSuccess) return (int)err;
-      grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
-    }
-    if (grid > B) grid = B;
+    err = persistent_grid(pl, bytes, blocks, B, 1, &grid);
+    if (err != cudaSuccess) return (int)err;
   }
   const OverlapArgs a{rec, B, g, E, iters, seed, w, r};
   const OverlapKernel k = overlap_instance(body, schedule, E);

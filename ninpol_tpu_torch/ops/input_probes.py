@@ -4,12 +4,16 @@ PyTorch versions.  The counterparts of the TPU probes
 tools/r5_layout_probe.py and tools/r5_overlap_probe.py; no route runs
 them (``tools/input_probes.py`` times them on the route's inputs):
 
-  input_sum(x, layout, smem_bytes)
+  input_sum(x, layout, smem_bytes, blocks)
         (B,) float64: each node's record summed, every byte read, with the
-        record in one of LAYOUTS: "natural" (x the thirteen inputs of
-        ops/gls_solve.py::gls_solve, a dict; r5_layout_probe.py:60),
-        "packed" (:72), "wide" and "bulk" (:85), "multi" and "minor"
-        (:105), x a ``Record``
+        record in one of LAYOUTS: "natural" and "prologue" (x the thirteen
+        inputs of ops/gls_solve.py::gls_solve, a dict;
+        r5_layout_probe.py:60: "natural" persistent blocks that bring each
+        node's spans in by bulk copies a node ahead, "prologue" kernel 1's
+        prologue as written), "packed" (:72), "wide" and "bulk" (:85),
+        "multi" and "minor" (:105), x a ``Record``; the PERSISTENT layouts
+        run ``blocks`` blocks (default the card's SMs times the blocks an
+        SM holds)
   overlap_probe(rec, body, schedule, E, iters, seed, smem_bytes, blocks)
         (w (B, E) float32, r (B,) float64) by one of BODIES under one of
         SCHEDULES (r5_overlap_probe.py:100)
@@ -53,7 +57,10 @@ import torch
 from . import cuda_lib
 from .cuda_lib import CudaLibrary, check_launch, check_tensor, on_card, stream
 
-LAYOUTS = ("natural", "packed", "wide", "bulk", "multi", "minor")
+LAYOUTS = ("natural", "packed", "wide", "bulk", "multi", "minor",
+           "prologue")
+NATURAL = ("natural", "prologue")     # the layouts of the thirteen tensors
+PERSISTENT = ("natural", "packed")    # the layouts that take ``blocks``
 BODIES = ("trivial", "indep", "dep", "compute")
 SCHEDULES = ("block", "pipelined")
 FIELDS = ("dk", "l1", "l2", "t1m", "tt", "lb", "nm", "pair", "ks", "cv",
@@ -195,13 +202,13 @@ def overlap_probe_reference(rec, body, E, iters=60, seed=1.0):
 def _bind(lib):
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.input_sum_launch.argtypes = [ci, ctypes.POINTER(vp), ll, ci, ci, ci,
-                                     ci, ci, ci, ll, vp, vp]
+                                     ci, ci, ci, ll, ci, vp, vp]
     lib.input_sum_launch.restype = ci
     lib.overlap_probe_launch.argtypes = [ci, ci, vp, ll, ci, ci, ci, ci, ci,
                                          ctypes.c_float, ll, ci, vp, vp, vp]
     lib.overlap_probe_launch.restype = ci
     lib.input_probes_occupancy.argtypes = [
-        ci, ci, ci, ci, ll, ctypes.POINTER(ll), ctypes.POINTER(ci),
+        ci, ci, ci, ci, ci, ci, ll, ctypes.POINTER(ll), ctypes.POINTER(ci),
         ctypes.POINTER(ci), ctypes.POINTER(ci), ctypes.POINTER(ll)]
     lib.input_probes_occupancy.restype = ci
 
@@ -222,15 +229,18 @@ def _variant(kernel, layout=None, body=None, schedule=None):
     return 1, 2 * BODIES.index(body) + SCHEDULES.index(schedule)
 
 
-def occupancy(kernel, stride, E=0, smem_bytes=0, **variant):
+def occupancy(kernel, stride, E=0, smem_bytes=0, F=0, with_neumann=False,
+              **variant):
     """The launch of ``kernel``'s instance (``layout=``, or ``body=`` and
-    ``schedule=``) on records of ``stride`` bytes, E rows of dummy work, at
-    a shared memory request of ``smem_bytes`` (``cuda_lib.occupancy``)."""
+    ``schedule=``) on records of ``stride`` bytes, E rows of dummy work
+    (the natural layout: its inputs at (E, F), ``with_neumann``), at a
+    shared memory request of ``smem_bytes`` (``cuda_lib.occupancy``)."""
     what, v = _variant(kernel, **variant)
     return cuda_lib.occupancy(
         library.get().input_probes_occupancy,
         f"{instance(kernel, **variant)} occupancy query (stride={stride}, "
-        f"E={E}, smem={smem_bytes})", what, v, stride, E, smem_bytes)
+        f"E={E}, F={F}, smem={smem_bytes})", what, v, stride, E, F,
+        int(with_neumann), smem_bytes)
 
 
 def _check_choice(name, value, allowed):
@@ -279,17 +289,20 @@ def _launch(wrapper, name, what, fn, device, *args):
     wrapper.launches_by[name] += 1
 
 
-def input_sum(x, layout, smem_bytes=0):
+def input_sum(x, layout, smem_bytes=0, blocks=None):
     """Each node's record sum, (B,) float64: ``x`` the thirteen inputs of
-    gls_solve (a dict) for "natural", else a ``Record`` (node-minor for
-    "minor")."""
+    gls_solve (a dict) for "natural" and "prologue", else a ``Record``
+    (node-minor for "minor"); ``blocks`` the persistent layouts' grid."""
     _check_choice("layout", layout, LAYOUTS)
     if smem_bytes < 0:
         raise ValueError(f"smem_bytes must be >= 0, got {smem_bytes}")
-    if layout == "natural":
+    if blocks is not None and (layout not in PERSISTENT or blocks < 1):
+        raise ValueError(f"blocks (>= 1) is for the layouts {PERSISTENT}, "
+                         f"got {blocks} for {layout!r}")
+    if layout in NATURAL:
         if not isinstance(x, dict):
-            raise ValueError("the natural layout takes the thirteen inputs, "
-                             "a dict")
+            raise ValueError(f"the {layout} layout takes the thirteen "
+                             f"inputs, a dict")
         B, E, F, wneu = _check_natural(x)
         lead = x["dk"]
     else:
@@ -299,7 +312,7 @@ def input_sum(x, layout, smem_bytes=0):
         return input_sum_reference(x)
     out = torch.empty(B, dtype=torch.float64, device=lead.device)
     if B:
-        if layout == "natural":
+        if layout in NATURAL:
             ptrs = [None if x[k] is None else x[k].data_ptr() for k in FIELDS]
             regions = (0, 0, 0)
         else:
@@ -309,7 +322,7 @@ def input_sum(x, layout, smem_bytes=0):
                 f"input_sum ({layout}, B={B})", "input_sum_launch",
                 lead.device, LAYOUTS.index(layout),
                 (ctypes.c_void_p * len(FIELDS))(*ptrs), B, E, F, int(wneu),
-                *regions, int(smem_bytes), out)
+                *regions, int(smem_bytes), int(blocks or 0), out)
     return out
 
 

@@ -17,19 +17,23 @@ node-minor.  Per class it prints:
   GB/s and their share of 3.35 TB/s, the library call (``library_call``),
   its plain version's ms, its registers, spills, shared memory and blocks
   an SM, its error against its plain version;
+  input_sum's instances also after FLUSH_BYTES are read instead
+  (``ms_read_flush``): the written buffer leaves L2 full of dirty lines,
+  whose write-back to device memory falls in the timed window;
   kernel 1's floor cut on the same chunk, timed the same way;
   the TPU probes' verdicts on these times (``verdicts``).
 
-input_sum runs in each layout at its own shared memory, and "natural"
-also at kernel 1's: a request of the largest dynamic shared memory of
-kernel 1's launches on the chunks (ops/gls_solve.py::occupancy; the (24,
-36) class's on the route), which holds kernel 1's blocks an SM, 2 in
-either class (at (12, 24) kernel 1 is held to 2 by its registers, not by
-its own, smaller, shared memory).  overlap_probe runs every body under both
-schedules, at its own shared memory and at kernel 1's, at the TPU
-probe's TPU_ITERS rounds of dummy work and at a count calibrated on the
-card (``calibrate``) so that "compute" alone takes about as long as
-"trivial".
+input_sum runs in each layout at its own shared memory, and the
+redesigned bodies ("natural", "packed", "minor") and kernel 1's prologue
+as written ("prologue") also at kernel 1's (K1_LAYOUTS): a request of the
+largest dynamic shared memory of kernel 1's launches on the chunks
+(ops/gls_solve.py::occupancy; the (24, 36) class's on the route), which
+holds kernel 1's blocks an SM, 2 in either class (at (12, 24) kernel 1 is
+held to 2 by its registers, not by its own, smaller, shared memory).
+overlap_probe runs every body under both schedules, at its own shared
+memory and at kernel 1's, at the TPU probe's TPU_ITERS rounds of dummy
+work and at a count calibrated on the card (``calibrate``) so that
+"compute" alone takes about as long as "trivial".
 
 Run on the card (the kernels are built from csrc/ on first use):
 
@@ -78,13 +82,19 @@ FOLD_MARGIN = 0.03
 SMEM = ("own", "k1")
 ITERS = (TPU_ITERS, "cal")
 
-_LAYOUTS = ("natural", "packed", "wide", "bulk", "multi", "minor")
+_LAYOUTS = ("natural", "packed", "wide", "bulk", "multi", "minor",
+            "prologue")
+_NATURAL = ("natural", "prologue")    # the layouts of the thirteen tensors
+# the layouts also timed at kernel 1's shared memory: the redesigned
+# bodies and the prologue as kernel 1 runs it
+K1_LAYOUTS = ("natural", "packed", "minor", "prologue")
 _BODIES = ("trivial", "indep", "dep", "compute")
 _SCHEDULES = ("block", "pipelined")
 # (kernel, the instance's arguments) of every instance timed on a chunk
 CONFIGS = (*(("input_sum", {"layout": lay, "smem": "own"})
              for lay in _LAYOUTS),
-           ("input_sum", {"layout": "natural", "smem": "k1"}),
+           *(("input_sum", {"layout": lay, "smem": "k1"})
+             for lay in K1_LAYOUTS),
            *(("overlap_probe", {"body": b, "schedule": s, "smem": m,
                                 "iters": it})
              for it in ITERS for s in _SCHEDULES for m in SMEM
@@ -93,7 +103,32 @@ CONFIGS = (*(("input_sum", {"layout": lay, "smem": "own"})
 _ANSWERS = {"natural": "input_sum (natural)", "packed": "input_sum (packed)",
             "wide": "input_sum (wide, bulk)", "bulk": "input_sum (wide, bulk)",
             "multi": "input_sum (multi, minor)",
-            "minor": "input_sum (multi, minor)"}
+            "minor": "input_sum (multi, minor)",
+            "prologue": "input_sum (natural)"}
+# the sites (tools.SITES' "by") whose bodies were redesigned for Hopper,
+# and the design; the kernels line marks them
+REDESIGNED = {
+    "input_sum (natural)": "natural: persistent blocks, a warp a node; the "
+                           "node's nine float64 and int32 spans by one "
+                           "cp.async.bulk each, issued by the span's lane, "
+                           "into one of the warp's two buffers on its "
+                           "mbarrier while the warp sums the node before "
+                           "(spans of whole 16-byte words back to back, "
+                           "summed by two flat loops; else 16-byte covering "
+                           "spans clipped to their tensors); the byte masks "
+                           "by plain loads a node ahead; no block barrier "
+                           "(prologue: kernel 1's prologue as written, "
+                           "kept)",
+    "input_sum (packed)": "persistent blocks, a warp a node, 8-byte words: "
+                          "a lane's 18 loads of a node issued together, the "
+                          "next node's before this node's shuffle "
+                          "reduction",
+    "input_sum (multi, minor)": "minor: a block of 4 warps 32 nodes, each "
+                                "warp a quarter of the words, a lane a "
+                                "node (each load one 256-byte span), two "
+                                "batches of 8 loads a lane in flight, the "
+                                "partials combined in shared memory (multi "
+                                "unchanged)"}
 
 
 def label(kernel, kw):
@@ -109,15 +144,18 @@ def answer(kernel, kw):
     return _ANSWERS[kw["layout"]] if kernel == "input_sum" else kernel
 
 
-def flushed_ms(fn, flush):
+def flushed_ms(fn, flush, read=False):
     """The least device ms of one ``fn()`` over REPS runs, each between two
-    CUDA events after ``flush`` is written and SPIN_CYCLES spun, after a
-    warm-up run."""
+    CUDA events after ``flush`` is written (with ``read``: summed, so L2
+    holds clean lines) and SPIN_CYCLES spun, after a warm-up run."""
     fn()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(ks.REPS)]
     for start, stop in events:
-        flush.zero_()
+        if read:
+            torch.sum(flush.view(torch.int64))
+        else:
+            flush.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
@@ -172,7 +210,7 @@ def run(kernel, kw, head, t, plain=False):
 
     if kernel == "input_sum":
         lay = kw["layout"]
-        x = (t["inp"] if lay == "natural" else
+        x = (t["inp"] if lay in _NATURAL else
              t["minor"] if lay == "minor" else t["rec"])
         if plain:
             return ip.input_sum_reference(x)
@@ -200,7 +238,7 @@ def library_call(kernel, kw, t):
     per-tensor sums; overlap_probe has none."""
     if kernel != "input_sum":
         return None
-    if kw["layout"] == "natural":
+    if kw["layout"] in _NATURAL:
         return lambda: natural_library(t["inp"])
     x = t["rec"].data.view(torch.float64)
     return lambda: torch.sum(x.view(x.shape[0], -1), 1)
@@ -215,7 +253,7 @@ def work(kernel, kw, head):
     a thousandth of the bytes' time."""
     B, E = head["chunk"], head["E"]
     if kernel == "input_sum":
-        nbytes = (head["natural_bytes"] if kw["layout"] == "natural"
+        nbytes = (head["natural_bytes"] if kw["layout"] in _NATURAL
                   else head["record_bytes"])
         return 0.0, nbytes + 8 * B
     body = kw["body"]
@@ -276,6 +314,9 @@ def time_probes(prepared, flush):
             wrapper = getattr(ip, kernel)
             before = wrapper.launches
             ms = flushed_ms(lambda: run(kernel, kw, head, t), flush)
+            read_ms = (flushed_ms(lambda: run(kernel, kw, head, t), flush,
+                                  read=True)
+                       if kernel == "input_sum" else None)
             launches[name] += wrapper.launches - before
             lib = library_call(kernel, kw, t)
             flops, nbytes = work(kernel, kw, head)
@@ -290,10 +331,16 @@ def time_probes(prepared, flush):
                 "plain_ms": ks.once_ms(lambda: run(kernel, kw, head, t,
                                                    plain=True)),
                 "library_ms": None if lib is None else flushed_ms(lib, flush),
-                "occupancy": ip.occupancy(kernel, head["stride"], head["E"],
-                                          _smem(head, kw), **variant)}
+                "occupancy": ip.occupancy(
+                    kernel, head["stride"], head["E"], _smem(head, kw),
+                    head["F"], head["with_neumann"], **variant)}
             if kernel == "overlap_probe":
                 row["kernels"][name]["iters_run"] = _iters(head, kw)
+            else:
+                row["kernels"][name].update(
+                    ms_read_flush=read_ms,
+                    hbm_share_read_flush=nbytes / read_ms / 1e6
+                    / (PEAK_BYTES / 1e9))
         table.append(row)
     return table, launches
 
@@ -346,11 +393,19 @@ def probe_errors(prepared):
 
 def verdicts(row):
     """The TPU probes' verdicts, in their own terms, on the row's times:
-      layout   (r5_layout_probe.py:1-9) the fastest layout; "natural" over
+      layout   (r5_layout_probe.py:1-9) the fastest layout at its own shared
+               memory, each K1_LAYOUTS body at kernel 1's; "natural" over
                "packed" and over the faster of "wide" and "bulk"; the share
-               of the floor cut that the natural loads take, at their own
-               shared memory and at kernel 1's, and the rest (the incidence
-               search and kernel 1's blocks);
+               of the floor cut that kernel 1's prologue loads take
+               ("prologue"), at their own shared memory and at kernel 1's,
+               and the rest (the incidence search and kernel 1's blocks);
+      floor    whether kernel 1's floor needs the pack step: "natural" at
+               kernel 1's shared memory against the prologue there and
+               against the packed record's fastest body ("bulk" and
+               "multi" at their own shared memory, "packed" at kernel
+               1's); the pack step pays only if what the record saves
+               exceeds its own pass (the thirteen tensors read and the
+               record written, at its byte bound);
       overlap  (r5_overlap_probe.py:1-13) per schedule, shared memory and
                rounds: ``excess`` and its verdict (MARGIN), the ms the
                inputs add to the work (indep - compute), dep over indep,
@@ -362,17 +417,30 @@ def verdicts(row):
     k = row["kernels"]
     lay = {lay: k[label("input_sum", {"layout": lay, "smem": "own"})]["ms"]
            for lay in _LAYOUTS}
-    nat_k1 = k[label("input_sum", {"layout": "natural", "smem": "k1"})]["ms"]
+    at_k1 = {lay: k[label("input_sum", {"layout": lay, "smem": "k1"})]["ms"]
+             for lay in K1_LAYOUTS}
     floor = row["floor_ms"]
-    layout = {"fastest": min(lay, key=lay.get), "ms": lay,
-              "natural_k1_ms": nat_k1,
+    layout = {"fastest": min(lay, key=lay.get), "ms": lay, "k1_ms": at_k1,
               "natural_over_packed": lay["natural"] / lay["packed"],
               "natural_over_wide_bulk": lay["natural"] / min(lay["wide"],
                                                              lay["bulk"]),
               "floor_ms": floor,
-              "natural_share_of_floor": lay["natural"] / floor,
-              "natural_k1_share_of_floor": nat_k1 / floor,
-              "rest_ms": floor - nat_k1}
+              "prologue_share_of_floor": lay["prologue"] / floor,
+              "prologue_k1_share_of_floor": at_k1["prologue"] / floor,
+              "rest_ms": floor - at_k1["prologue"]}
+    packed = {"bulk": lay["bulk"], "multi": lay["multi"],
+              "packed,k1": at_k1["packed"]}
+    best = min(packed, key=packed.get)
+    pack_bound = bound(0.0, row["natural_bytes"] + row["record_bytes"])[0]
+    saves = at_k1["natural"] - packed[best]
+    floor_answer = {
+        "natural_k1_ms": at_k1["natural"], "prologue_k1_ms": at_k1["prologue"],
+        "natural_k1_over_prologue_k1": at_k1["natural"] / at_k1["prologue"],
+        "packed_best": best, "packed_best_ms": packed[best],
+        "natural_k1_over_packed_best": at_k1["natural"] / packed[best],
+        "record_saves_ms": saves, "pack_pass_bound_ms": pack_bound,
+        "pack_step_pays": saves > pack_bound,
+        "natural_k1_share_of_floor": at_k1["natural"] / floor}
     overlap = {}
     for it in ITERS:
         for s in _SCHEDULES:
@@ -397,7 +465,7 @@ def verdicts(row):
                        for m in SMEM} for it in ITERS}
     held = {r["occupancy"]["blocks_per_sm"] for r in k.values()
             if r["smem"] == "k1"} == {row["k1_blocks_per_sm"]}
-    return {"layout": layout, "overlap": overlap,
+    return {"layout": layout, "floor": floor_answer, "overlap": overlap,
             "pipelined_overlaps_where_block_k1_does_not": where,
             "k1_blocks_held": held}
 
@@ -418,8 +486,11 @@ def report(table):
             lib = ("none" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
             err = ""
+            if r.get("ms_read_flush") is not None:
+                err = (f"after a read flush {r['ms_read_flush']:.4f} ms "
+                       f"({100 * r['hbm_share_read_flush']:.1f}% of HBM); ")
             if "max_err" in r:
-                err = f"error {r['max_err']:.2e} (tol {r['tol']:.0e})"
+                err += f"error {r['max_err']:.2e} (tol {r['tol']:.0e})"
                 if "r_err" in r:
                     err += f", r {r['r_err']:.2e} (tol {r['r_tol']:.0e})"
             print(f"#   {name:>40}: {r['ms']:8.4f} ms, bound "
@@ -434,12 +505,26 @@ def report(table):
         print(f"#   verdict layout: {lv['fastest']} streams fastest; natural "
               f"{lv['natural_over_packed']:.2f}x packed, "
               f"{lv['natural_over_wide_bulk']:.2f}x the faster of wide and "
-              f"bulk; the natural loads take "
-              f"{100 * lv['natural_share_of_floor']:.0f}% of the floor cut "
+              f"bulk; at kernel 1's shared memory "
+              + ", ".join(f"{n} {ms:.4f}" for n, ms in lv["k1_ms"].items())
+              + f" ms; kernel 1's prologue loads take "
+              f"{100 * lv['prologue_share_of_floor']:.0f}% of the floor cut "
               f"({lv['floor_ms']:.4f} ms), "
-              f"{100 * lv['natural_k1_share_of_floor']:.0f}% at kernel 1's "
+              f"{100 * lv['prologue_k1_share_of_floor']:.0f}% at kernel 1's "
               f"shared memory; the rest, {lv['rest_ms']:.4f} ms, is the "
               f"incidence search and kernel 1's blocks", flush=True)
+        fv = v["floor"]
+        print(f"#   verdict floor: natural at kernel 1's shared memory "
+              f"{fv['natural_k1_ms']:.4f} ms, "
+              f"{fv['natural_k1_over_prologue_k1']:.2f}x the prologue's "
+              f"{fv['prologue_k1_ms']:.4f} and "
+              f"{fv['natural_k1_over_packed_best']:.2f}x the packed "
+              f"record's fastest ({fv['packed_best']}, "
+              f"{fv['packed_best_ms']:.4f}); the record saves "
+              f"{fv['record_saves_ms']:.4f} ms against its pack pass's "
+              f"{fv['pack_pass_bound_ms']:.4f} at least: the pack step "
+              f"{'pays' if fv['pack_step_pays'] else 'does not pay'}",
+              flush=True)
         for key, o in v["overlap"].items():
             t = o["ms"]
             print(f"#   verdict overlap {key:>20}: trivial {t['trivial']:.4f}"

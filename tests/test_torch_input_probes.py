@@ -296,8 +296,9 @@ def test_wrappers_run_plain_versions_on_cpu(route_chunks):
     inp = route_chunks[True]
     rec = ip.pack(inp)
     before = [w.launches for w in ip.KERNELS]
-    assert torch.equal(ip.input_sum(inp, "natural"),
-                       ip.input_sum_reference(inp))
+    for lay in ip.NATURAL:
+        assert torch.equal(ip.input_sum(inp, lay),
+                           ip.input_sum_reference(inp))
     for lay in ("packed", "wide", "bulk", "multi"):
         assert torch.equal(ip.input_sum(rec, lay, smem_bytes=4096),
                            ip.input_sum_reference(rec))
@@ -314,6 +315,10 @@ def test_wrappers_run_plain_versions_on_cpu(route_chunks):
                        (rec.regions[0], rec.regions[1], rec.regions[2] - 8))
     for bad in (lambda: ip.input_sum(rec, "diagonal"),
                 lambda: ip.input_sum(rec, "natural"),
+                lambda: ip.input_sum(rec, "prologue"),
+                lambda: ip.input_sum(rec, "wide", blocks=2),
+                lambda: ip.input_sum(rec, "packed", blocks=0),
+                lambda: ip.input_sum(inp, "prologue", blocks=2),
                 lambda: ip.input_sum(inp, "packed"),
                 lambda: ip.input_sum(rec, "minor"),
                 lambda: ip.input_sum(rec.to_minor(), "wide"),
@@ -462,7 +467,7 @@ def test_input_sum_kernel_matches_plain(emu, layout, B, E_, F_, wneu):
     memory request past what it needs changes nothing."""
     inp = _chunk(B, E_, F_, wneu)
     rec = ip.pack(inp)
-    x = (inp if layout == "natural" else
+    x = (inp if layout in ip.NATURAL else
          rec.to_minor() if layout == "minor" else rec)
     name = ip.instance("input_sum", layout=layout)
     before = ip.input_sum.launches_by[name]
@@ -470,6 +475,82 @@ def test_input_sum_kernel_matches_plain(emu, layout, B, E_, F_, wneu):
     assert ip.input_sum.launches_by[name] == before + 1
     scale = ip.input_sum_reference(inp, absolute=True)
     assert _node_err(got, ip.input_sum_reference(inp), scale) <= TOL_SUM
+
+
+def _shifted(inp):
+    """The same inputs, each tensor 8 bytes past a 16-byte boundary (a
+    view into a larger buffer), so the natural body's covering spans are
+    clipped at every tensor's start."""
+    out = {}
+    for k, v in inp.items():
+        if v is None:
+            out[k] = None
+            continue
+        raw = (v.to(torch.uint8) if v.dtype == torch.bool
+               else v.contiguous().view(torch.uint8)).reshape(-1)
+        buf = torch.zeros(raw.numel() + 32, dtype=torch.uint8)
+        at = (8 - buf.data_ptr()) % 16 + 16
+        view = buf[at:at + raw.numel()]
+        view.copy_(raw)
+        out[k] = (view.bool() if v.dtype == torch.bool
+                  else view.view(v.dtype)).view(v.shape)
+    return out
+
+
+# the redesigned bodies' edges: more nodes than persistent warps (2
+# blocks: each warp walks 2-3 nodes, so its buffers' phases flip), also
+# where every natural span is whole 16-byte words (its aligned instance,
+# as at the tet classes); odd E
+# and F (spans not 16-byte aligned a node), with and without Neumann rows,
+# whose last node ends inside a 16-byte word (the span clipped, its tail
+# by plain loads); tensors 8 bytes off a 16-byte boundary; a record of two
+# 576-word chunks a node (packed); (B, E, F, Neumann rows, shifted)
+EDGES = {"walk": (40, 3, 5, True, False), "walk-whole": (40, 4, 6, True, False),
+         "odd": (37, 5, 7, False, False),
+         "odd-neumann": (21, 3, 5, True, False),
+         "shifted": (13, 5, 7, True, True),
+         "two-chunks": (5, 30, 40, True, False)}
+
+
+@pytest.mark.parametrize("edge", list(EDGES))
+@pytest.mark.parametrize("layout", ["natural", "packed", "minor"])
+def test_redesigned_bodies_edge_cases(emu, layout, edge):
+    """Each redesigned input_sum body against its plain version within
+    TOL_SUM at its edges (EDGES), on 2 persistent blocks where it is
+    persistent; one launch counted."""
+    B, E_, F_, wneu, shifted = EDGES[edge]
+    inp = _chunk(B, E_, F_, wneu, seed=5)
+    if shifted:
+        inp = _shifted(inp)
+        assert inp["dk"].data_ptr() % 16 == 8
+    rec = ip.pack(inp)
+    x = (inp if layout == "natural" else
+         rec.to_minor() if layout == "minor" else rec)
+    name = ip.instance("input_sum", layout=layout)
+    before = ip.input_sum.launches_by[name]
+    got = ip.input_sum(x, layout,
+                       blocks=2 if layout in ip.PERSISTENT else None)
+    assert ip.input_sum.launches_by[name] == before + 1
+    scale = ip.input_sum_reference(inp, absolute=True)
+    assert _node_err(got, ip.input_sum_reference(inp), scale) <= TOL_SUM
+
+
+@pytest.mark.parametrize("layout", ["natural", "packed", "minor"])
+def test_redesigned_bodies_past_their_shared_memory(emu, layout):
+    """A shared memory request past what a redesigned body needs (kernel
+    1's, then the most a block may have) holds fewer blocks an SM, so the
+    persistent bodies run another grid: no bit of the sums changes."""
+    inp = _chunk(45, 5, 7, True, seed=6)
+    rec = ip.pack(inp)
+    x = (inp if layout == "natural" else
+         rec.to_minor() if layout == "minor" else rec)
+    own = ip.input_sum(x, layout)
+    for request in (105824, 200000):
+        assert torch.equal(ip.input_sum(x, layout, smem_bytes=request), own)
+    occ = [ip.occupancy("input_sum", rec.stride, 5, request, 7, True,
+                        layout=layout)["blocks_per_sm"]
+           for request in (0, 200000)]
+    assert occ[1] == 1 and occ[0] >= 2
 
 
 # block: 9 nodes; pipelined: 3 nodes over 2 persistent blocks (the first
@@ -530,7 +611,8 @@ def test_tool_errors_on_route_chunks(emu_lib, monkeypatch, route_chunks):
     _emulate(monkeypatch, emu_lib)
     tool.reset_counts()
     errors = tool.probe_errors(prepared)
-    assert ip.input_sum.launches == 2 * 7
+    assert ip.input_sum.launches == 2 * (len(ip.LAYOUTS)
+                                         + len(tool.K1_LAYOUTS))
     assert ip.overlap_probe.launches == 2 * 32
     for errs in errors:
         assert set(errs) == {tool.label(k, w) for k, w in tool.CONFIGS}
@@ -543,18 +625,22 @@ def test_tool_errors_on_route_chunks(emu_lib, monkeypatch, route_chunks):
 # ---------------------------------------------------------------------------
 # verdicts, bounds, the kernels line, the sites
 # ---------------------------------------------------------------------------
-LAYOUT_MS = {"natural": 0.108, "packed": 0.091, "wide": 0.088,
-             "bulk": 0.069, "multi": 0.067, "minor": 0.093}
+LAYOUT_MS = {"natural": 0.060, "packed": 0.058, "wide": 0.088,
+             "bulk": 0.069, "multi": 0.067, "minor": 0.056,
+             "prologue": 0.108}
+# at kernel 1's shared memory
+K1_MS = {"natural": 0.075, "packed": 0.062, "minor": 0.064,
+         "prologue": 0.343}
 
 
-def _row(overlap_ms, k1_blocks=2):
-    """A table row of made-up times: the layouts' LAYOUT_MS, "natural" at
-    kernel 1's shared memory 0.343 ms; ``overlap_ms[(schedule, smem)]`` the
-    (trivial, indep, dep, compute) ms at both round counts."""
+def _row(overlap_ms, k1_blocks=2, k1_ms=K1_MS):
+    """A table row of made-up times: the layouts' LAYOUT_MS, K1_LAYOUTS at
+    kernel 1's shared memory ``k1_ms``; ``overlap_ms[(schedule, smem)]``
+    the (trivial, indep, dep, compute) ms at both round counts."""
     kernels = {}
     for kernel, kw in tool.CONFIGS:
         if kernel == "input_sum":
-            ms = 0.343 if kw["smem"] == "k1" else LAYOUT_MS[kw["layout"]]
+            ms = (k1_ms if kw["smem"] == "k1" else LAYOUT_MS)[kw["layout"]]
         else:
             ms = dict(zip(("trivial", "indep", "dep", "compute"),
                           overlap_ms[kw["schedule"], kw["smem"]]))[kw["body"]]
@@ -565,6 +651,7 @@ def _row(overlap_ms, k1_blocks=2):
             "max_abs_err": 1e-9, "max_err": 1e-16, "tol": 1e-12,
             "occupancy": {"blocks_per_sm": 2 if kw["smem"] == "k1" else 8}}
     return {"E": 24, "F": 36, "with_neumann": False, "chunk": 32768,
+            "natural_bytes": 4478 * 32768, "record_bytes": 4528 * 32768,
             "floor_ms": 0.618, "k1_blocks_per_sm": k1_blocks,
             "kernels": kernels}
 
@@ -577,19 +664,35 @@ OVERLAP_MS = {("block", "own"): (0.10, 0.27, 0.27, 0.26),      # excess 0.1
 
 def test_verdicts_follow_the_tpu_rules():
     """r5_layout_probe.py's and r5_overlap_probe.py's questions on made-up
-    times: the fastest layout, natural's ratios and share of the floor cut;
-    per schedule and shared memory the excess over max(trivial, compute)
-    in units of the smaller, its verdict by MARGIN, dep against indep, and
-    the pipelined schedule against the block one at kernel 1's shared
-    memory; kernel 1's blocks held."""
+    times: the fastest layout, natural's ratios, the prologue's share of
+    the floor cut; the floor verdict (the redesigned natural at kernel 1's
+    shared memory against the prologue and the packed record's fastest
+    body, and whether the pack step's pass pays for itself); per schedule
+    and shared memory the excess over max(trivial, compute) in units of
+    the smaller, its verdict by MARGIN, dep against indep, and the
+    pipelined schedule against the block one at kernel 1's shared memory;
+    kernel 1's blocks held."""
     v = tool.verdicts(_row(OVERLAP_MS))
     lay = v["layout"]
-    assert lay["fastest"] == "multi"
-    assert lay["natural_over_packed"] == pytest.approx(0.108 / 0.091)
-    assert lay["natural_over_wide_bulk"] == pytest.approx(0.108 / 0.069)
-    assert lay["natural_share_of_floor"] == pytest.approx(0.108 / 0.618)
-    assert lay["natural_k1_share_of_floor"] == pytest.approx(0.343 / 0.618)
+    assert lay["fastest"] == "minor"
+    assert lay["k1_ms"] == K1_MS
+    assert lay["natural_over_packed"] == pytest.approx(0.060 / 0.058)
+    assert lay["natural_over_wide_bulk"] == pytest.approx(0.060 / 0.069)
+    assert lay["prologue_share_of_floor"] == pytest.approx(0.108 / 0.618)
+    assert lay["prologue_k1_share_of_floor"] == pytest.approx(0.343 / 0.618)
     assert lay["rest_ms"] == pytest.approx(0.618 - 0.343)
+    fl = v["floor"]
+    assert fl["natural_k1_over_prologue_k1"] == pytest.approx(0.075 / 0.343)
+    assert fl["packed_best"] == "packed,k1"
+    assert fl["natural_k1_over_packed_best"] == pytest.approx(0.075 / 0.062)
+    assert fl["record_saves_ms"] == pytest.approx(0.075 - 0.062)
+    # the pack pass reads the thirteen tensors and writes the record
+    assert fl["pack_pass_bound_ms"] == pytest.approx(
+        (4478 + 4528) * 32768 / 3.35e9)
+    assert not fl["pack_step_pays"]
+    slow = tool.verdicts(_row(OVERLAP_MS, k1_ms=dict(K1_MS, natural=0.3)))
+    assert slow["floor"]["pack_step_pays"]
+    assert slow["floor"]["record_saves_ms"] == pytest.approx(0.3 - 0.062)
     o = v["overlap"]
     assert o["block,own,60"]["excess"] == pytest.approx(0.1)
     assert o["block,own,60"]["verdict"] == "overlapped"
@@ -652,7 +755,8 @@ def test_work_counts_what_the_functions_need():
 def test_kernels_line_names_each_site():
     """chip_smoke.py's kernels-line entries of phase 13: one a ported
     tools/ site (five), each with its instances' launches and its fastest
-    instance's numbers on the largest class, every key of the contract."""
+    instance's numbers on the largest class, every key of the contract;
+    the three redesigned sites with "status" and "design"."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
@@ -663,8 +767,7 @@ def test_kernels_line_names_each_site():
     small.update(E=12, F=24, with_neumann=True, chunk=9579)
     labels = [tool.label(k, kw) for k, kw in tool.CONFIGS]
     launches = {label: i + 1 for i, label in enumerate(labels)}
-    entries = smoke.probe_entries(tool, "input_probes.cu", [small, big],
-                                  launches)
+    entries = smoke.input_entries([small, big], launches)
     by_site = {e["replaces"]: e for e in entries}
     assert set(by_site) == {f"tools/r5_layout_probe.py:{n}"
                             for n in (60, 72, 85, 105)} | {
@@ -674,8 +777,15 @@ def test_kernels_line_names_each_site():
     assert c["launches"] == launches["input_sum[wide,own]"] + launches[
         "input_sum[bulk,own]"]
     a = by_site["tools/r5_layout_probe.py:60"]
-    assert a["launches"] == launches["input_sum[natural,own]"] + launches[
-        "input_sum[natural,k1]"]
+    assert a["launches"] == sum(launches[f"input_sum[{lay},{m}]"]
+                                for lay in ("natural", "prologue")
+                                for m in ("own", "k1"))
+    assert a["instance"] == "input_sum[natural,own]" and a["ms"] == 0.060
+    redesigned = {n: e["design"] for n, e in by_site.items()
+                  if e.get("status") == "redesigned"}
+    assert set(redesigned) == {f"tools/r5_layout_probe.py:{n}"
+                               for n in (60, 72, 105)}
+    assert all(redesigned.values())
     o = by_site["tools/r5_overlap_probe.py:100"]
     assert o["library_ms"] is None and len(o["classes"]) == 2 * 32
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -140,6 +140,11 @@ inline unsigned __float_as_uint(float f) {
   std::memcpy(&u, &f, sizeof u);
   return u;
 }
+inline double __longlong_as_double(long long v) {
+  double d;
+  std::memcpy(&d, &v, sizeof d);
+  return d;
+}
 
 // cvt.rna.tf32.f32: to nearest with ties away from zero, keeping 10
 // fraction bits (the magnitude plus half the 13 dropped bits' unit, then
