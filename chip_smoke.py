@@ -93,6 +93,20 @@ hexahedral one, and checks them all:
      the route's two sweeps, and at the first of 3, 4, 8, 16 sweeps that
      converges every node, weights within 1e-10 scaled of the fused
      kernel's;
+     5e. the tracing hooks on the fused route's warmed interpolator and the
+     full main path: NINPOL_TPU_PHASES=1 on three device_out runs and three
+     host-delivered runs of the fused route and three device_out runs of
+     the unfused route, each phase line parsed (names in the port's order,
+     times not decreasing, n_bad 0 and equal to last_n_bad) and printed
+     beside the run's wall time to device completion, each result equal to
+     the hooks-off one (phase 5's, 5b's) bit for bit; one fused run with
+     NINPOL_TPU_PROFILE set to a fresh temporary directory: exactly one
+     *.pt.trace.json, as many gls_solve_kernel events as phase 5 counts
+     chunks, each gather, solve and epilogue range once a chunk, the
+     result equal bit for bit; prints each range's summed host and device
+     ms, the kernels' and copies' busy ms and each CUDA runtime call's
+     count and host ms from the trace; then IDW with the profile hook
+     (its trace written, its result equal to a hooks-off run's);
   6. the delivered weights of the four routes against the scipy dgels
      oracle on 256 sampled nodes (128 interior, 128 Neumann; cond < 1e7):
      max scaled error <= 1e-10, interior rows sum to 1; and the other
@@ -204,12 +218,18 @@ Run: python3 chip_smoke.py     (options: --n N, the tet mesh size;
 --hexa N, phase 8's hexa mesh; --n-round1 N, phase 7's tet mesh)
 """
 import argparse
+import contextlib
+import glob
+import io
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
@@ -250,6 +270,10 @@ ROUND1_CHECK_SWEEPS = (10, 20, 40, 80, 160, 320, 640)
 REFINED_CHECK_SWEEPS = (3, 4, 8, 16)
 SOLVE_KERNELS = ("gram_f32", "chol_linv_f32", "round2_gram_f32",
                  "prec_apply_f32")
+# the port's profiler ranges (the mesh's and the GLS chunk steps'): their
+# device-side spans cover kernels already counted, so no busy time sums
+# them
+RANGE_PREFIX = "ninpol_tpu_torch."
 # kernel launches per solve chunk of each route
 PER_CHUNK = {"fused": {"gls_solve": 1},
              "shard_geometry": {"gram_f32": 1, "chol_linv_f32": 2,
@@ -1050,11 +1074,13 @@ def profile_main_path(interp, tp, label, method="gls"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only: a CPU op's self device time repeats the
-    # time of the kernels it launched
+    # time of the kernels it launched, and a range's device-side span the
+    # time of the kernels inside it
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               and not e.key.startswith(RANGE_PREFIX)]
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
     stats = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
@@ -1063,6 +1089,157 @@ def profile_main_path(interp, tp, label, method="gls"):
                      for k in kernels[:16]]}
     print(f"# profile {label} " + json.dumps(stats), flush=True)
     return stats
+
+
+def phase_run(interp, tp, device_out, label):
+    """Phase 5e: one GLS prepare_interpolator with NINPOL_TPU_PHASES=1.
+    Returns its result, its phase line as [(name, seconds)] and the wall
+    seconds from a synchronized start to device completion."""
+    prefix = "# gls phases: "
+    err = io.StringIO()
+    sync_all()
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, {"NINPOL_TPU_PHASES": "1"}), \
+            contextlib.redirect_stderr(err):
+        out = interp.prepare_interpolator("gls", "u", tp,
+                                          device_out=device_out)
+    sync_all()
+    wall = time.perf_counter() - t0
+    lines = err.getvalue().splitlines()
+    rest = [ln for ln in lines if not ln.startswith(prefix)]
+    if rest:
+        print("\n".join(rest), file=sys.stderr, flush=True)
+    lines = [ln for ln in lines if ln.startswith(prefix)]
+    check(len(lines) == 1, f"5e {label}: {len(lines)} phase lines")
+    phases = []
+    for token in lines[0][len(prefix):].split(" "):
+        name, t = token.rsplit("=", 1)
+        check(re.fullmatch(r"\d+\.\d{3}s", t) is not None,
+              f"5e {label}: phase token {token!r}")
+        phases.append((name, float(t[:-1])))
+    print(f"{lines[0]}  # {label}, wall to device completion "
+          f"{wall:.4f}s", flush=True)
+    return out, phases, wall
+
+
+def trace_summary(events, chunks):
+    """Phase 5e: the GLS trace the profile hook wrote (its events): the
+    solve-kernel events, the ranges of solve_class (count, summed host
+    ms, summed ms of their device-side spans), the kernels' and copies'
+    busy ms, and the CUDA runtime calls' count and host ms by name."""
+    from ninpol_tpu_torch._methods.gls import (
+        EPILOGUE_RANGE, EXACT_RANGE, GATHER_RANGE, SOLVE_RANGE)
+
+    ranges = {name: {"count": 0, "host_ms": 0.0, "device_ms": 0.0}
+              for name in (GATHER_RANGE, SOLVE_RANGE, EPILOGUE_RANGE,
+                           EXACT_RANGE)}
+    busy = copy_ms = 0.0
+    solve_kernels = n_kernels = n_copies = 0
+    runtime = {}
+    for e in events:
+        cat, name, dur = e.get("cat"), e.get("name", ""), e.get("dur", 0)
+        if cat == "user_annotation" and name in ranges:
+            ranges[name]["count"] += 1
+            ranges[name]["host_ms"] += dur / 1e3
+        elif cat == "gpu_user_annotation" and name in ranges:
+            ranges[name]["device_ms"] += dur / 1e3
+        elif cat == "kernel":
+            n_kernels += 1
+            busy += dur / 1e3
+            solve_kernels += "gls_solve_kernel" in name
+        elif cat in ("gpu_memcpy", "gpu_memset"):
+            n_copies += 1
+            copy_ms += dur / 1e3
+        elif cat == "cuda_runtime":
+            r = runtime.setdefault(name, {"calls": 0, "host_ms": 0.0})
+            r["calls"] += 1
+            r["host_ms"] += dur / 1e3
+    check(solve_kernels == chunks,
+          f"5e: {solve_kernels} gls_solve_kernel events in the trace, "
+          f"{chunks} chunks")
+    for name in (GATHER_RANGE, SOLVE_RANGE, EPILOGUE_RANGE):
+        check(ranges[name]["count"] == chunks,
+              f"5e: range {name} {ranges[name]['count']} times in the "
+              f"trace, {chunks} chunks")
+    check(ranges[EXACT_RANGE]["count"] == 0, "5e: an exact range at n_bad 0")
+    return {"gls_solve_kernel_events": solve_kernels,
+            "kernel_events": n_kernels, "kernel_busy_ms": busy,
+            "copy_events": n_copies, "copy_busy_ms": copy_ms,
+            "ranges": ranges, "cuda_runtime": runtime}
+
+
+def profiled_run(interp, tp, method, label):
+    """Phase 5e: one device_out run with NINPOL_TPU_PROFILE set to a fresh
+    temporary directory, which must then hold exactly one trace.  Returns
+    the run's result, its wall seconds (to device completion) and the
+    trace's events."""
+    with tempfile.TemporaryDirectory() as d, \
+            mock.patch.dict(os.environ, {"NINPOL_TPU_PROFILE": d}):
+        sync_all()
+        t0 = time.perf_counter()
+        out = interp.prepare_interpolator(method, "u", tp, device_out=True)
+        sync_all()
+        wall = time.perf_counter() - t0
+        files = glob.glob(os.path.join(d, "*.pt.trace.json"))
+        check(len(files) == 1, f"5e {label}: {len(files)} trace files")
+        size = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    print(f"# 5e {label}: one trace, {size} bytes, {len(events)} events, "
+          f"wall to device completion {wall:.4f}s", flush=True)
+    return out, wall, events
+
+
+def tracing_phase(interp, unfused, tp, fused_w, unfused_w, chunks):
+    """Phase 5e: the port's two tracing hooks on the full main path (the
+    module docstring).  ``fused_w`` and ``unfused_w`` are phases 5's and
+    5b's hooks-off (W, NW); ``chunks`` the route's chunks a run."""
+    ref = interp.prepare_interpolator("gls", "u", tp, device_out=True)
+    host = ref.cpu().numpy()
+    check(np.array_equal(host[:, :-1], fused_w[0])
+          and np.array_equal(host[:, -1], fused_w[1]),
+          "5e: the hooks-off device_out run differs from phase 5's")
+    base = ["face_cache", "bucket_plan", "dispatch", "n_bad_sync(n_bad=0)"]
+    stats = {}
+    for label, ip, device_out, want_w in (
+            ("fused device_out", interp, True, fused_w),
+            ("fused host", interp, False, fused_w),
+            ("unfused device_out", unfused, True, unfused_w)):
+        runs = []
+        for _ in range(3):
+            out, phases, wall = phase_run(ip, tp, device_out, label)
+            names = [n for n, _ in phases]
+            times = [t for _, t in phases]
+            want = base + ([] if device_out else ["host_write"])
+            check(names == want, f"5e {label}: phases {names}, not {want}")
+            check(times == sorted(times), f"5e {label}: times fall {phases}")
+            check(ip.gls.last_n_bad == 0,
+                  f"5e {label}: last_n_bad {ip.gls.last_n_bad}")
+            if device_out:
+                if ip is interp:
+                    check(torch.equal(out, ref),
+                          f"5e {label}: differs from the hooks-off run")
+                out = out.cpu().numpy()
+                out = out[:, :-1], out[:, -1]
+            check(np.array_equal(out[0], want_w[0])
+                  and np.array_equal(out[1], want_w[1]),
+                  f"5e {label}: differs from the hooks-off result")
+            runs.append({"wall_s": wall, **dict(phases)})
+        stats[label] = runs
+    print("# tracing phases " + json.dumps(stats), flush=True)
+
+    out, wall, events = profiled_run(interp, tp, "gls", "gls profile")
+    check(torch.equal(out, ref),
+          "5e gls profile: differs from the hooks-off run")
+    summary = trace_summary(events, chunks)
+    summary["wall_ms"] = wall * 1e3
+    print("# tracing profile " + json.dumps(summary), flush=True)
+
+    ref_idw = interp.prepare_interpolator("idw", "u", tp, device_out=True)
+    out, _, _ = profiled_run(interp, tp, "idw", "idw profile")
+    # the bits: NaN equals no float
+    check(torch.equal(out.view(torch.int64), ref_idw.view(torch.int64)),
+          "5e idw profile: differs from the hooks-off run")
 
 
 def oracle_check(interp, routes):
@@ -1290,8 +1467,8 @@ def mesh_profile(interp, tp, label):
     ranges = {GATHER_RANGE: [0, 0.0, 0.0], MERGE_RANGE: [0, 0.0, 0.0]}
     spans = {}
     for e in prof.events():
-        if e.name in ranges:
-            if e.device_type != cuda:
+        if e.name.startswith(RANGE_PREFIX):
+            if e.name in ranges and e.device_type != cuda:
                 r = ranges[e.name]
                 r[0] += 1
                 r[1] += e.time_range.elapsed_us() / 1e3
@@ -1795,6 +1972,9 @@ def main():
                   "shard_geometry": stats_u["n_bad"],
                   "pallas": stats_c["n_bad"],
                   "refined": stats_r["n_bad"]}}), flush=True)
+    tracing_phase(interp, unfused, tp, (W, NW), (Wu, NWu),
+                  stats["chunks_per_run"])
+    phase_done("5e tracing")
 
     # ---- 6. oracle, and the routes against each other
     oracle_check(interp, {"fused": (W, NW), "shard_geometry": (Wu, NWu),

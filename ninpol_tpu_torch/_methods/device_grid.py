@@ -38,7 +38,9 @@ class DeviceGrid:
     """Padded mirrors of the Grid structures the methods read, on
     ``device``: the CUDA card unless the caller names another device
     (``"cpu"`` for the CPU).  Raises when the device is CUDA and there is
-    no card; it never falls back to the CPU.
+    no card; it never falls back to the CPU.  ``(grid, mesh,
+    shard_geometry)`` are ninpol_tpu's parameters, in its order; ``device``
+    follows them.
 
     With ``mesh`` (a ``parallel.Mesh``) the arrays are placed over the
     mesh's shards, ``device`` is the mesh's primary device, and the
@@ -50,7 +52,7 @@ class DeviceGrid:
     picks GLS's unfused route, ``Interpolator``).  The host planning
     (``assembling``, ``buckets``) runs once, on the host, either way."""
 
-    def __init__(self, grid, device=None, mesh=None, shard_geometry=False):
+    def __init__(self, grid, mesh=None, shard_geometry=False, device=None):
         if mesh is not None:
             if device is not None and torch.device(device).type != \
                     mesh.primary.type:

@@ -42,8 +42,13 @@ Reference quirks reproduced (neumann_compat=True, default):
 """
 from __future__ import annotations
 
+import os
+import sys
+import time
+
 import numpy as np
 import torch
+from torch.autograd.profiler import record_function
 
 from ..ops import qr
 from ..ops.cholqr import KERNELS
@@ -59,6 +64,14 @@ CHUNK_ELEMS = int(4.6e8)
 # Exact-path chunk: its float64 Householder working set is
 # B * (m + 3E) * (n + E + 1) elements.
 EXACT_CHUNK = 2048
+
+# profiler ranges of solve_class, one each per chunk (the counterparts of
+# the jitted gather, solve and epilogue programs a ninpol_tpu trace names;
+# a trace reader looks for these names)
+GATHER_RANGE = "ninpol_tpu_torch.gls_gather"
+SOLVE_RANGE = "ninpol_tpu_torch.gls_solve"
+EPILOGUE_RANGE = "ninpol_tpu_torch.gls_epilogue"
+EXACT_RANGE = "ninpol_tpu_torch.gls_exact"
 
 
 def precompute_face_data(grid, perm, diff_mag):
@@ -320,25 +333,28 @@ def solve_class(dgrid, face_table, nflag, c, sel, chunk, route, exact, *,
     for k, a, b in schedule(len(nodes_all), len(dgrid.shards), chunk):
         view = dgrid.on(k)
         nodes = torch.as_tensor(nodes_all[a:b], device=view.device)
-        inp, n_elem = gls_gather(
-            view, local(face_table, view.device), local(nflag, view.device),
-            nodes, c["E"], c["F"], c["with_neumann"],
-            tau_guard="squared" if fused else "norm")
-        if exact:
-            w, wn = gls_exact(inp, n_elem)
-            rn = torch.zeros_like(wn)
-        elif route == "csne":
-            w, wn, rn = gls_solve_csne(**inp)
-        elif route == "refined":
-            w, wn, rn = gls_solve_refined(**inp, n_refine=n_refine)
-        elif fused:
-            # one round runs two more sweeps (ninpol_tpu gls.py:277)
-            w, wn, rn = gls_solve(
-                **inp, rounds=rounds,
-                sweeps=sweeps + (2 if rounds == 1 else 0))
-        else:
-            w, wn, rn = gls_solve_unfused(**inp, sweeps=sweeps)
-        out = gls_epilogue(w, wn, rn, inp, n_elem, neumann_compat)
+        with record_function(GATHER_RANGE):
+            inp, n_elem = gls_gather(
+                view, local(face_table, view.device),
+                local(nflag, view.device), nodes, c["E"], c["F"],
+                c["with_neumann"], tau_guard="squared" if fused else "norm")
+        with record_function(EXACT_RANGE if exact else SOLVE_RANGE):
+            if exact:
+                w, wn = gls_exact(inp, n_elem)
+                rn = torch.zeros_like(wn)
+            elif route == "csne":
+                w, wn, rn = gls_solve_csne(**inp)
+            elif route == "refined":
+                w, wn, rn = gls_solve_refined(**inp, n_refine=n_refine)
+            elif fused:
+                # one round runs two more sweeps (ninpol_tpu gls.py:277)
+                w, wn, rn = gls_solve(
+                    **inp, rounds=rounds,
+                    sweeps=sweeps + (2 if rounds == 1 else 0))
+            else:
+                w, wn, rn = gls_solve_unfused(**inp, sweeps=sweeps)
+        with record_function(EPILOGUE_RANGE):
+            out = gls_epilogue(w, wn, rn, inp, n_elem, neumann_compat)
         if view.device != dgrid.device:
             out = to_device(dgrid.device, *out)
         yield a, b, out
@@ -448,22 +464,26 @@ class GLSInterpolation:
         return self._face_cache
 
     def plan(self, dgrid, cells_data, points_data, variable_to_index,
-             variable, target_points):
+             variable, target_points, mark=lambda name: None):
         """The work of one prepare(): the stencil classes of the target
         nodes that get a solve (each with its solve-kernel chunk size),
-        the variable's face table and the device Neumann flags."""
+        the variable's face table and the device Neumann flags.
+        ``mark(name)`` is called after the face table ("face_cache") and
+        after the classes ("bucket_plan"): prepare()'s phase timer."""
         grid = dgrid.grid
         nf_idx = variable_to_index["points"]["neumann_flag_" + variable]
         neumann_flag = points_data[nf_idx].astype(np.int32)
+        face_table, nflag_dev = self._face_table(
+            dgrid, cells_data, points_data, variable_to_index, variable,
+            neumann_flag)
+        mark("face_cache")
+
         tp = np.asarray(target_points)
         # skip Dirichlet boundary nodes (gls.pyx:165-166) and nodes that
         # assemble no system (their rows stay zero)
         active = (~(grid.boundary_points[tp].astype(bool)
                     & (neumann_flag[tp] == 0))
                   & dgrid.assembling(tp))
-        face_table, nflag_dev = self._face_table(
-            dgrid, cells_data, points_data, variable_to_index, variable,
-            neumann_flag)
 
         # Interior nodes skip the Neumann row block (F fewer rows), so
         # Neumann-boundary nodes form their own classes.
@@ -475,6 +495,7 @@ class GLSInterpolation:
                 c["with_neumann"] = wneu
                 c["chunk"] = class_chunk(c["E"], c["F"], self.chunk_nodes)
                 classes.append(c)
+        mark("bucket_plan")
         return classes, face_table, nflag_dev
 
     def route(self):
@@ -488,11 +509,27 @@ class GLSInterpolation:
     def prepare(self, dgrid, cells_data, points_data, faces_data,
                 variable_to_index, variable, target_points,
                 weights, neumann_ws, device_out=False):
+        # NINPOL_TPU_PHASES=1 (ninpol_tpu's hook, read on each call): the
+        # host wall time since the start of prepare() at each step, one
+        # line to stderr.  No sync is added: the steps overlap device work,
+        # so the times are the dispatch side's, not the device's.  The
+        # names are ninpol_tpu's for the steps the port has, in the port's
+        # order: its rows are scattered into one device array chunk by
+        # chunk (no "consolidate"), and the host copy follows the exact
+        # fallback (ninpol_tpu writes the host rows first and patches the
+        # fallback's).
+        phases = [] if os.environ.get("NINPOL_TPU_PHASES") == "1" else None
+        t_start = time.perf_counter()
+
+        def mark(name):
+            if phases is not None:
+                phases.append((name, time.perf_counter() - t_start))
+
         route = self.route()
         sweeps = max(self.n_refine + 1, 2)
         classes, face_table, nflag_dev = self.plan(
             dgrid, cells_data, points_data, variable_to_index, variable,
-            target_points)
+            target_points, mark)
         dev = dgrid.device
         tp = np.asarray(target_points)
         n_target = len(tp)
@@ -526,11 +563,13 @@ class GLSInterpolation:
                 for pos, rn in solve(c, slice(None), c["chunk"],
                                      exact=False):
                     rndev[pos] = rn
+            mark("dispatch")
             bad, n_bad = None, 0
             if self.fallback_tol is not None:
                 # NaN-safe: anything not provably converged falls back
                 notconv = ~(rndev <= self.fallback_tol)
                 n_bad = int(notconv.sum())
+                mark(f"n_bad_sync(n_bad={n_bad})")
                 if n_bad:
                     bad_all = notconv.cpu().numpy()
                     bad = [bad_all[c["pos"]] for c in classes]
@@ -538,14 +577,22 @@ class GLSInterpolation:
             for c, sel in zip(classes, bad):
                 if sel.any():
                     solve(c, sel, EXACT_CHUNK, exact=True)
+            mark("exact_fallback")
         self.last_n_bad = n_bad
 
         if device_out:
             # (n_target, ncols + 1) float64 [weights | neumann_w] on the
             # device, for on-device consumers
-            return wdev
-        # cast on the device: half the bytes to the host
-        host = (wdev.float() if self.delivery_f32 else wdev).cpu().numpy()
-        weights[:] = host[:, :ncols]
-        neumann_ws[:] = host[:, ncols]
-        return weights, neumann_ws
+            out = wdev
+        else:
+            # cast on the device: half the bytes to the host
+            host = (wdev.float() if self.delivery_f32
+                    else wdev).cpu().numpy()
+            weights[:] = host[:, :ncols]
+            neumann_ws[:] = host[:, ncols]
+            mark("host_write")
+            out = weights, neumann_ws
+        if phases is not None:
+            print("# gls phases: " + " ".join(
+                f"{n}={t:.3f}s" for n, t in phases), file=sys.stderr)
+        return out

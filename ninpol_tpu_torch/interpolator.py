@@ -36,6 +36,7 @@ import time
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
 from ._grid.geometry import compute_diffusion_magnitude
 from ._grid.grid import Grid
@@ -54,10 +55,10 @@ from .utils.logger import Logger
 class Interpolator:
 
     def __init__(self, name="interpolator", logging=False, build_edges=False,
-                 device=None, shard_geometry=False, mesh=None):
-        """``device``: the torch device the methods run on.  The default is
-        the CUDA card; without one the first interpolation raises.  Pass
-        ``device="cpu"`` to run on the CPU.
+                 mesh=None, shard_geometry=False, device=None):
+        """The parameters up to ``shard_geometry`` are ninpol_tpu's, in its
+        order, so ``Interpolator("x", False, False, 2)`` is a two-device
+        mesh in both packages; ``device`` follows them.
 
         ``mesh``: run every interpolation over several devices, as
         ``ninpol_tpu.Interpolator(mesh=...)`` does: an int (the first
@@ -88,6 +89,11 @@ class Interpolator:
         one device, the counterpart of ninpol_tpu's backend test
         (gls.py:1223), which sends every backend but the TPU down it.  The
         weights agree to the same 1e-10 bar.
+
+        ``device``: the torch device the methods run on.  The default is
+        the CUDA card; without one the first interpolation raises.  Pass
+        ``device="cpu"`` to run on the CPU.  With a mesh it names only the
+        mesh's device type.
 
         ``interp.delivery_f32 = True`` (ninpol_tpu's setting of that name,
         off by default) casts the delivered weights and Neumann vector to
@@ -431,8 +437,8 @@ class Interpolator:
     def device_grid(self):
         if self._device_grid is None:
             self._device_grid = DeviceGrid(
-                self.grid, device=self.device, mesh=self.mesh,
-                shard_geometry=self.shard_geometry)
+                self.grid, mesh=self.mesh,
+                shard_geometry=self.shard_geometry, device=self.device)
         return self._device_grid
 
     def interpolate(self, variable, method, target_points=None):
@@ -537,11 +543,31 @@ class Interpolator:
         self.gls._data_token = self._data_version
         for m in (self.gls, self.idw, self.ls):
             m.delivery_f32 = self.delivery_f32
-        out = self.supported_methods[method](
-            self.device_grid,
-            self.cells_data, self.points_data, self.faces_data,
-            self.variable_to_index, variable, target_points,
-            weights, neumann_ws, device_out=device_out)
+
+        def run():
+            return self.supported_methods[method](
+                self.device_grid,
+                self.cells_data, self.points_data, self.faces_data,
+                self.variable_to_index, variable, target_points,
+                weights, neumann_ws, device_out=device_out)
+
+        trace_dir = os.environ.get("NINPOL_TPU_PROFILE", "")
+        if trace_dir:
+            # ninpol_tpu's device trace (jax.profiler.trace there): one
+            # torch.profiler trace of this call, written into trace_dir as
+            # a *.pt.trace.json that TensorBoard and Perfetto read; a
+            # failure to write it raises
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if torch.device("cuda" if self.device is None
+                            else self.device).type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            with torch.profiler.profile(
+                    activities=activities,
+                    on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                        trace_dir)):
+                out = run()
+        else:
+            out = run()
         self.logger.log(
             f"Interpolation done in {time.perf_counter() - t0:.2f} seconds",
             "INFO")
