@@ -14,6 +14,7 @@ import torch
 
 from .._grid.topology import csr_to_padded
 from ..parallel.sharding import PartitionedRows, Replicated, local
+from ..utils.tracing import upload
 
 
 def _round_up(x, m):
@@ -107,7 +108,7 @@ class DeviceGrid:
         device, a ``Replicated`` or a ``PartitionedRows``."""
         a = np.ascontiguousarray(a)
         if self.mesh is None:
-            return torch.as_tensor(a).to(self.device)
+            return upload(a, self.device)
         if self.shard_geometry:
             return PartitionedRows(a, self.mesh)
         return Replicated(a, self.mesh)

@@ -42,13 +42,10 @@ Reference quirks reproduced (neumann_compat=True, default):
 """
 from __future__ import annotations
 
-import os
 import sys
-import time
 
 import numpy as np
 import torch
-from torch.autograd.profiler import record_function
 
 from ..ops import qr
 from ..ops.cholqr import KERNELS
@@ -56,6 +53,7 @@ from ..ops.gls_solve import (assemble, cholqr2_solve, gls_solve, incidence,
                              mul_G, node_active, solve_outputs)
 from ..ops.solve import householder_lastrow, solve_normal_refined
 from ..parallel.sharding import as_mesh, local, schedule, to_device
+from ..utils.tracing import PREFIX, children, count, span, to_host, upload
 
 # Solve-kernel chunks hold at most this many system-matrix elements
 # (B * m * n): it bounds the gathered inputs and the plain version's dense
@@ -65,13 +63,28 @@ CHUNK_ELEMS = int(4.6e8)
 # B * (m + 3E) * (n + E + 1) elements.
 EXACT_CHUNK = 2048
 
-# profiler ranges of solve_class, one each per chunk (the counterparts of
-# the jitted gather, solve and epilogue programs a ninpol_tpu trace names;
-# a trace reader looks for these names)
-GATHER_RANGE = "ninpol_tpu_torch.gls_gather"
-SOLVE_RANGE = "ninpol_tpu_torch.gls_solve"
-EPILOGUE_RANGE = "ninpol_tpu_torch.gls_epilogue"
-EXACT_RANGE = "ninpol_tpu_torch.gls_exact"
+# spans of solve_class, one each per chunk (the counterparts of the
+# jitted gather, solve and epilogue programs a ninpol_tpu trace names; a
+# trace reader looks for these names)
+GATHER_RANGE = PREFIX + "gls_gather"
+SOLVE_RANGE = PREFIX + "gls_solve"
+EPILOGUE_RANGE = PREFIX + "gls_epilogue"
+EXACT_RANGE = PREFIX + "gls_exact"
+# the face table's two parts: its numpy build and its copy to the device
+FACE_BUILD = PREFIX + "face_build"
+FACE_UPLOAD = PREFIX + "face_upload"
+# prepare()'s span and its phases, each with its name on the
+# NINPOL_TPU_PHASES line (ninpol_tpu's names, marks at each phase's end)
+PREPARE = PREFIX + "prepare"
+FACE_TABLE = PREFIX + "face_table"
+CLASS_PLAN = PREFIX + "class_plan"
+DISPATCH = PREFIX + "dispatch"
+N_BAD_SYNC = PREFIX + "n_bad_sync"
+EXACT_FALLBACK = PREFIX + "exact_fallback"
+HOST_WRITE = PREFIX + "host_write"
+PHASE_MARKS = {FACE_TABLE: "face_cache", CLASS_PLAN: "bucket_plan",
+               DISPATCH: "dispatch", N_BAD_SYNC: "n_bad_sync(n_bad={n_bad})",
+               EXACT_FALLBACK: "exact_fallback", HOST_WRITE: "host_write"}
 
 
 def precompute_face_data(grid, perm, diff_mag):
@@ -109,15 +122,19 @@ def build_flux_block(grid, perm, diff_mag, neumann_val):
                           axis=1).astype(np.float64)
 
 
-def build_face_table(dgrid, perm, diff_mag, neumann_val):
-    """(n_faces, 14) float64, one row per face: [0:3] normal, [3:6]
-    center, [6:14] the flux block; placed as the grid's arrays are
-    (``DeviceGrid.place``)."""
+def build_face_table(dgrid, perm, diff_mag, neumann_val, neumann_flag):
+    """The face table, (n_faces, 14) float64, one row per face: [0:3]
+    normal, [3:6] center, [6:14] the flux block; and the points' Neumann
+    flags: both placed as the grid's arrays are (``DeviceGrid.place``)."""
     grid = dgrid.grid
-    return dgrid.place(np.concatenate(
-        [np.asarray(grid.normal_faces, np.float64),
-         np.asarray(grid.faces_centers, np.float64),
-         build_flux_block(grid, perm, diff_mag, neumann_val)], axis=1))
+    with span(FACE_BUILD):
+        rows = np.concatenate(
+            [np.asarray(grid.normal_faces, np.float64),
+             np.asarray(grid.faces_centers, np.float64),
+             build_flux_block(grid, perm, diff_mag, neumann_val)], axis=1)
+        flags = np.asarray(neumann_flag) != 0
+    with span(FACE_UPLOAD):
+        return dgrid.place(rows), dgrid.place(flags)
 
 
 def gls_gather(dgrid, face_table, neumann_flag, nodes, E, F, with_neumann,
@@ -332,13 +349,13 @@ def solve_class(dgrid, face_table, nflag, c, sel, chunk, route, exact, *,
     nodes_all = c["nodes"][sel]
     for k, a, b in schedule(len(nodes_all), len(dgrid.shards), chunk):
         view = dgrid.on(k)
-        nodes = torch.as_tensor(nodes_all[a:b], device=view.device)
-        with record_function(GATHER_RANGE):
+        nodes = upload(nodes_all[a:b], view.device)
+        with span(GATHER_RANGE):
             inp, n_elem = gls_gather(
                 view, local(face_table, view.device),
                 local(nflag, view.device), nodes, c["E"], c["F"],
                 c["with_neumann"], tau_guard="squared" if fused else "norm")
-        with record_function(EXACT_RANGE if exact else SOLVE_RANGE):
+        with span(EXACT_RANGE if exact else SOLVE_RANGE):
             if exact:
                 w, wn = gls_exact(inp, n_elem)
                 rn = torch.zeros_like(wn)
@@ -353,7 +370,7 @@ def solve_class(dgrid, face_table, nflag, c, sel, chunk, route, exact, *,
                     sweeps=sweeps + (2 if rounds == 1 else 0))
             else:
                 w, wn, rn = gls_solve_unfused(**inp, sweeps=sweeps)
-        with record_function(EPILOGUE_RANGE):
+        with span(EPILOGUE_RANGE):
             out = gls_epilogue(w, wn, rn, inp, n_elem, neumann_compat)
         if view.device != dgrid.device:
             out = to_device(dgrid.device, *out)
@@ -382,8 +399,8 @@ def sharded_gls(dgrid, mesh, shard_geometry=False):
 
     def run(bucket, perm, diff_mag, neumann_flag, neumann_val, n_refine=2,
             exact=False, neumann_compat=True, with_neumann=True):
-        face_table = build_face_table(dgrid, perm, diff_mag, neumann_val)
-        nflag = dgrid.place(np.asarray(neumann_flag) != 0)
+        face_table, nflag = build_face_table(dgrid, perm, diff_mag,
+                                             neumann_val, neumann_flag)
         c = dict(bucket, with_neumann=with_neumann)
         B, E = len(c["nodes"]), c["E"]
         f64, dev = torch.float64, dgrid.device
@@ -457,45 +474,43 @@ class GLSInterpolation:
             diff_mag = cells_data[variable_to_index["cells"]["diff_mag"]]
             nval = points_data[
                 variable_to_index["points"]["neumann_" + variable]]
-            self._face_cache = (
-                build_face_table(dgrid, perm, diff_mag, nval),
-                dgrid.place(neumann_flag != 0))
+            self._face_cache = build_face_table(dgrid, perm, diff_mag, nval,
+                                                neumann_flag)
             self._face_cache_key = ckey
         return self._face_cache
 
     def plan(self, dgrid, cells_data, points_data, variable_to_index,
-             variable, target_points, mark=lambda name: None):
+             variable, target_points):
         """The work of one prepare(): the stencil classes of the target
         nodes that get a solve (each with its solve-kernel chunk size),
-        the variable's face table and the device Neumann flags.
-        ``mark(name)`` is called after the face table ("face_cache") and
-        after the classes ("bucket_plan"): prepare()'s phase timer."""
+        the variable's face table and the device Neumann flags (the
+        phase spans ``face_table`` and ``class_plan``)."""
         grid = dgrid.grid
         nf_idx = variable_to_index["points"]["neumann_flag_" + variable]
         neumann_flag = points_data[nf_idx].astype(np.int32)
-        face_table, nflag_dev = self._face_table(
-            dgrid, cells_data, points_data, variable_to_index, variable,
-            neumann_flag)
-        mark("face_cache")
+        with span(FACE_TABLE):
+            face_table, nflag_dev = self._face_table(
+                dgrid, cells_data, points_data, variable_to_index, variable,
+                neumann_flag)
+        with span(CLASS_PLAN):
+            tp = np.asarray(target_points)
+            # skip Dirichlet boundary nodes (gls.pyx:165-166) and nodes
+            # that assemble no system (their rows stay zero)
+            active = (~(grid.boundary_points[tp].astype(bool)
+                        & (neumann_flag[tp] == 0))
+                      & dgrid.assembling(tp))
 
-        tp = np.asarray(target_points)
-        # skip Dirichlet boundary nodes (gls.pyx:165-166) and nodes that
-        # assemble no system (their rows stay zero)
-        active = (~(grid.boundary_points[tp].astype(bool)
-                    & (neumann_flag[tp] == 0))
-                  & dgrid.assembling(tp))
-
-        # Interior nodes skip the Neumann row block (F fewer rows), so
-        # Neumann-boundary nodes form their own classes.
-        is_neu_t = neumann_flag[tp] != 0
-        classes = []
-        for mask, wneu in ((active & ~is_neu_t, False),
-                           (active & is_neu_t, True)):
-            for c in dgrid.buckets(tp, mask):
-                c["with_neumann"] = wneu
-                c["chunk"] = class_chunk(c["E"], c["F"], self.chunk_nodes)
-                classes.append(c)
-        mark("bucket_plan")
+            # Interior nodes skip the Neumann row block (F fewer rows), so
+            # Neumann-boundary nodes form their own classes.
+            is_neu_t = neumann_flag[tp] != 0
+            classes = []
+            for mask, wneu in ((active & ~is_neu_t, False),
+                               (active & is_neu_t, True)):
+                for c in dgrid.buckets(tp, mask):
+                    c["with_neumann"] = wneu
+                    c["chunk"] = class_chunk(c["E"], c["F"],
+                                             self.chunk_nodes)
+                    classes.append(c)
         return classes, face_table, nflag_dev
 
     def route(self):
@@ -509,27 +524,35 @@ class GLSInterpolation:
     def prepare(self, dgrid, cells_data, points_data, faces_data,
                 variable_to_index, variable, target_points,
                 weights, neumann_ws, device_out=False):
-        # NINPOL_TPU_PHASES=1 (ninpol_tpu's hook, read on each call): the
-        # host wall time since the start of prepare() at each step, one
-        # line to stderr.  No sync is added: the steps overlap device work,
-        # so the times are the dispatch side's, not the device's.  The
-        # names are ninpol_tpu's for the steps the port has, in the port's
-        # order: its rows are scattered into one device array chunk by
-        # chunk (no "consolidate"), and the host copy follows the exact
-        # fallback (ninpol_tpu writes the host rows first and patches the
+        # With the recorder on (NINPOL_TPU_PHASES=1, ninpol_tpu's hook;
+        # utils/tracing.py) one line to stderr: the host wall time from the
+        # start of the prepare span to the end of each phase span.  No
+        # sync is added: the steps overlap device work, so the times are
+        # the dispatch side's, not the device's.  The names are
+        # ninpol_tpu's for the steps the port has, in the port's order:
+        # its rows are scattered into one device array chunk by chunk (no
+        # "consolidate"), and the host copy follows the exact fallback
+        # (ninpol_tpu writes the host rows first and patches the
         # fallback's).
-        phases = [] if os.environ.get("NINPOL_TPU_PHASES") == "1" else None
-        t_start = time.perf_counter()
+        with span(PREPARE) as top:
+            out = self._prepare(dgrid, cells_data, points_data,
+                                variable_to_index, variable, target_points,
+                                weights, neumann_ws, device_out)
+        phases = children(top)
+        if phases is not None:
+            print("# gls phases: " + " ".join(
+                f"{PHASE_MARKS[s.name].format(n_bad=self.last_n_bad)}="
+                f"{(s.end_ns - top.start_ns) / 1e9:.3f}s" for s in phases
+                if s.name in PHASE_MARKS), file=sys.stderr)
+        return out
 
-        def mark(name):
-            if phases is not None:
-                phases.append((name, time.perf_counter() - t_start))
-
+    def _prepare(self, dgrid, cells_data, points_data, variable_to_index,
+                 variable, target_points, weights, neumann_ws, device_out):
         route = self.route()
         sweeps = max(self.n_refine + 1, 2)
         classes, face_table, nflag_dev = self.plan(
             dgrid, cells_data, points_data, variable_to_index, variable,
-            target_points, mark)
+            target_points)
         dev = dgrid.device
         tp = np.asarray(target_points)
         n_target = len(tp)
@@ -547,7 +570,7 @@ class GLSInterpolation:
                     exact, sweeps=sweeps, rounds=self.precond_rounds,
                     n_refine=self.n_refine,
                     neumann_compat=self.neumann_compat):
-                pos = torch.as_tensor(pos_all[a:b], device=dev)
+                pos = upload(pos_all[a:b], dev)
                 k = min(c["E"], ncols)
                 wdev[pos, :k] = w[:, :k]
                 wdev[pos, ncols] = wn
@@ -559,40 +582,36 @@ class GLSInterpolation:
             n_bad = int(sum(b.sum() for b in bad))
         else:
             rndev = torch.zeros(n_target, dtype=torch.float64, device=dev)
-            for c in classes:
-                for pos, rn in solve(c, slice(None), c["chunk"],
-                                     exact=False):
-                    rndev[pos] = rn
-            mark("dispatch")
+            with span(DISPATCH):
+                for c in classes:
+                    for pos, rn in solve(c, slice(None), c["chunk"],
+                                         exact=False):
+                        rndev[pos] = rn
             bad, n_bad = None, 0
             if self.fallback_tol is not None:
-                # NaN-safe: anything not provably converged falls back
-                notconv = ~(rndev <= self.fallback_tol)
-                n_bad = int(notconv.sum())
-                mark(f"n_bad_sync(n_bad={n_bad})")
-                if n_bad:
-                    bad_all = notconv.cpu().numpy()
-                    bad = [bad_all[c["pos"]] for c in classes]
+                with span(N_BAD_SYNC):
+                    # NaN-safe: anything not provably converged falls back
+                    notconv = ~(rndev <= self.fallback_tol)
+                    n_bad = int(to_host(notconv.sum()))
         if n_bad:
-            for c, sel in zip(classes, bad):
-                if sel.any():
-                    solve(c, sel, EXACT_CHUNK, exact=True)
-            mark("exact_fallback")
+            with span(EXACT_FALLBACK):
+                if bad is None:
+                    bad_all = to_host(notconv).numpy()
+                    bad = [bad_all[c["pos"]] for c in classes]
+                for c, sel in zip(classes, bad):
+                    if sel.any():
+                        solve(c, sel, EXACT_CHUNK, exact=True)
+        count("n_bad", n_bad)
         self.last_n_bad = n_bad
 
         if device_out:
             # (n_target, ncols + 1) float64 [weights | neumann_w] on the
             # device, for on-device consumers
-            out = wdev
-        else:
+            return wdev
+        with span(HOST_WRITE):
             # cast on the device: half the bytes to the host
-            host = (wdev.float() if self.delivery_f32
-                    else wdev).cpu().numpy()
+            host = to_host(wdev.float() if self.delivery_f32
+                           else wdev).numpy()
             weights[:] = host[:, :ncols]
             neumann_ws[:] = host[:, ncols]
-            mark("host_write")
-            out = weights, neumann_ws
-        if phases is not None:
-            print("# gls phases: " + " ".join(
-                f"{n}={t:.3f}s" for n, t in phases), file=sys.stderr)
-        return out
+        return weights, neumann_ws

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..parallel.sharding import schedule, to_device
+from ..utils.tracing import to_host, upload
 
 EXACT_EPS = float(np.float32(1e-15))  # idw.pyx:53 (C float of 1e-15)
 
@@ -86,8 +87,8 @@ def simple_prepare(math, chunk_nodes, dgrid, points_data, variable_to_index,
         for s, lo, hi in schedule(len(c["nodes"]), len(dgrid.shards),
                                   chunk_nodes):
             view = dgrid.on(s)
-            nodes = torch.as_tensor(c["nodes"][lo:hi], device=view.device)
-            pos = torch.as_tensor(c["pos"][lo:hi], device=dev)
+            nodes = upload(c["nodes"][lo:hi], view.device)
+            pos = upload(c["pos"][lo:hi], dev)
             w = math(*simple_gather(view, nodes, E))
             if view.device != dev:
                 w, = to_device(dev, w)
@@ -95,7 +96,7 @@ def simple_prepare(math, chunk_nodes, dgrid, points_data, variable_to_index,
     if device_out:
         return wdev
     rows = wdev[:, :ncols]
-    weights[:] = (rows.float() if delivery_f32 else rows).cpu().numpy()
+    weights[:] = to_host(rows.float() if delivery_f32 else rows).numpy()
     return weights, neumann_ws
 
 

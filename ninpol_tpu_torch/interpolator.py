@@ -50,6 +50,7 @@ from .defines import (DTYPE_F, DTYPE_I, MAX_POINTS_PER_ELEMENT,
                       build_type_tables)
 from .parallel.sharding import as_mesh
 from .utils.logger import Logger
+from .utils.tracing import PREFIX, public, span
 
 
 class Interpolator:
@@ -307,7 +308,12 @@ class Interpolator:
     # ------------------------------------------------------------------
     # Data loading (reference: interpolator.pyx:372-509)
     # ------------------------------------------------------------------
+    @public
     def load_data(self, data_dict, data_type):
+        with span(PREFIX + "load_data"):
+            self._load_data(data_dict, data_type)
+
+    def _load_data(self, data_dict, data_type):
         n_variables = len(data_dict)
         n_elements = (self.grid.n_elems if data_type == "cells"
                       else self.grid.n_points)
@@ -403,8 +409,10 @@ class Interpolator:
             # scatter: user row i describes grid face face_to_grid[i]
             self.faces_data[i, face_to_grid] = arr
 
+    @public
     def compute_diffusion_magnitude(self, permeability):
-        return compute_diffusion_magnitude(permeability)
+        with span(PREFIX + "diff_mag"):
+            return compute_diffusion_magnitude(permeability)
 
     # ------------------------------------------------------------------
     # Introspection (reference: interpolator.pyx:511-547)
@@ -441,6 +449,7 @@ class Interpolator:
                 shard_geometry=self.shard_geometry, device=self.device)
         return self._device_grid
 
+    @public
     def interpolate(self, variable, method, target_points=None):
         if not self.is_grid_initialized:
             raise ValueError("Grid not initialized. Please load a mesh "
@@ -483,7 +492,10 @@ class Interpolator:
             if len(self._prep_cache) >= 8:     # bounded: evict oldest
                 self._prep_cache.pop(next(iter(self._prep_cache)))
             self._prep_cache[tp_key] = (weights, neumann_ws)
+        with span(PREFIX + "csr_assembly"):
+            return self._csr(weights, neumann_ws, target_points, full_target)
 
+    def _csr(self, weights, neumann_ws, target_points, full_target):
         # CSR assembly (interpolator.pyx:594-629): per target node the
         # weight columns map to its esup entries; the node's Neumann weight
         # is ADDED to every entry of the row (interpolator.pyx:618).
@@ -517,6 +529,7 @@ class Interpolator:
         weights_sparse.eliminate_zeros()
         return weights_sparse, np.asarray(neumann_ws)
 
+    @public
     def prepare_interpolator(self, method, variable, target_points,
                              device_out=False):
         """Compute per-node weights.

@@ -37,12 +37,13 @@ import logging
 
 import numpy as np
 import torch
-from torch.autograd.profiler import record_function
 
-# profiler ranges around the cross-part gathers and the device-to-device
-# merges (their names are what a trace reader looks for)
-GATHER_RANGE = "ninpol_tpu_torch.mesh_gather"
-MERGE_RANGE = "ninpol_tpu_torch.mesh_merge"
+from ..utils.tracing import PREFIX, span, upload
+
+# spans around the cross-part gathers and the device-to-device merges
+# (their names are what a trace reader looks for)
+GATHER_RANGE = PREFIX + "mesh_gather"
+MERGE_RANGE = PREFIX + "mesh_merge"
 
 _log = logging.getLogger(__name__)
 
@@ -171,7 +172,7 @@ def schedule(n, mesh, chunk):
 def to_device(device, *tensors):
     """The tensors copied onto ``device`` (asynchronous device to device:
     torch orders the copy after the source device's work)."""
-    with record_function(MERGE_RANGE):
+    with span(MERGE_RANGE):
         return tuple(t.to(device, non_blocking=True) for t in tensors)
 
 
@@ -180,7 +181,7 @@ class Replicated:
 
     def __init__(self, host, mesh):
         t = torch.as_tensor(np.ascontiguousarray(host))
-        self.copies = {d: t.to(d) for d in mesh.distinct}
+        self.copies = {d: upload(t, d) for d in mesh.distinct}
 
     def on(self, device):
         return self.copies[device]
@@ -209,12 +210,12 @@ class PartitionedRows:
         t = torch.as_tensor(a)
         self.shape = tuple(t.shape)
         self.parts = tuple(
-            t[k * self.rows:(k + 1) * self.rows].to(d)
+            upload(t[k * self.rows:(k + 1) * self.rows], d)
             for k, d in enumerate(mesh.devices))
 
     def __getitem__(self, key):
         idx, cols = key if isinstance(key, tuple) else (key, slice(None))
-        with record_function(GATHER_RANGE):
+        with span(GATHER_RANGE):
             idx = idx.long()
             owner = idx // self.rows
             out = None
