@@ -16,8 +16,8 @@ hexahedral one, and checks them all:
      csrc/gls_solve.cu (the fused solve, and apart from it its stage
      cuts), csrc/cholqr.cu (gram, chol_linv, round2_gram, prec_apply),
      csrc/qr.cu (qr_r, sne_solve), csrc/factor_probes.cu (phase 11's
-     kernels), csrc/mxu_probes.cu (phase 12's) and csrc/input_probes.cu
-     (phase 13's);
+     kernels), csrc/mxu_probes.cu (phase 12's), csrc/input_probes.cu
+     (phase 13's) and csrc/face_table.cu (the GLS face table);
   3. builds bench.py's problem with the port's own meshgen
      (tools/problem.py): tetra_mesh(68), an ALH-style full-tensor K,
      u = x^2 + y^2 + z^2, a seeded (rng 0) Dirichlet/Neumann boundary
@@ -73,12 +73,19 @@ hexahedral one, and checks them all:
      which the kernel converges every node of the chunk (five leave
      them all above 1e-11 on this mesh), where the plain version must
      converge them all too;
+     4g. the face-table kernel (tools/face_table.py) vs its plain version
+     on the same card tensors of tetra_mesh(68), to the bit, a seeded
+     non-symmetric K; both times, its bound (each input byte read once)
+     and occupancy; again on phase 8's hexa mesh;
   5. the main path: a warm-up prepare_interpolator, 3 timed device_out
-     runs (torch.cuda.synchronize), interpolate() -> CSR; prints seconds,
-     Mnodes/s, n_bad (which must be 0) and the kernel launch count, which
-     must equal one launch per chunk per run (so every class went through
-     the kernel), with no plain-version call; then one more run under
-     torch.profiler (device busy share, top kernels);
+     runs (torch.cuda.synchronize), interpolate() -> CSR, each after the
+     point data is loaded again, unchanged, so that each rebuilds the
+     face table; prints seconds, Mnodes/s, n_bad (which must be 0) and
+     the kernel launch count, which must equal one launch per chunk per
+     run (so every class went through the kernel) and one face-table
+     launch per run (one a card or part on a mesh: phase 9), with no
+     plain-version call; then one more run under torch.profiler (device
+     busy share, top kernels);
      5b. the same for the unfused route ("shard_geometry"): per chunk per run
      exactly 1 gram, 2 chol_linv, 1 round2_gram and 4 prec_apply launches,
      no plain-version call and no solve-kernel launch; device-complete
@@ -211,7 +218,8 @@ exit).  The last four lines are the mesh JSON line (phase 9), the card,
 the kernels JSON line (kernel 1's entry also holds its single-round
 instance's rows and times; phase 11's kernels have an entry for each
 tools/ site they replace, six in all, phase 12's eight and phase 13's
-five) and
+five; the face-table kernel's, phase 4g's rows with phase 5's launches)
+and
 {"ok": true, "device": {...}}.
 
 Run: python3 chip_smoke.py     (options: --n N, the tet mesh size;
@@ -237,6 +245,7 @@ import torch
 # bench.py's problem through the port, the card's bound (H100 peaks),
 # kernel 1's stage probe, its factorization probes, its tensor-core Gram
 # and Q probes and its input-stream probes
+from ninpol_tpu_torch.tools import face_table as face_table_tool
 from ninpol_tpu_torch.tools import (factor_probes, input_probes,
                                     kernel_stages, mxu_probes, site_of)
 from ninpol_tpu_torch.tools.problem import PEAK_FP64, bound, build_problem
@@ -275,6 +284,9 @@ SOLVE_KERNELS = ("gram_f32", "chol_linv_f32", "round2_gram_f32",
 # them
 RANGE_PREFIX = "ninpol_tpu_torch."
 # kernel launches per solve chunk of each route
+# ninpol_tpu's host build of the face data the port's kernel writes
+# (precompute_face_data)
+FACE_TABLE_LINE = 1009
 PER_CHUNK = {"fused": {"gls_solve": 1},
              "shard_geometry": {"gram_f32": 1, "chol_linv_f32": 2,
                                 "round2_gram_f32": 1, "prec_apply_f32": 4},
@@ -975,24 +987,49 @@ def refined_vs_fused(interp, tp):
     return rows
 
 
+def reload_points(interp):
+    """Loads the interpolator's point data again, unchanged: a new data
+    version, so that the next GLS call rebuilds its face table, as a
+    caller's new K does, and gives the same weights."""
+    p = interp.grid.n_points
+    dims = interp.points_data_dimensions
+    interp.load_data({name: interp.points_data[i, :p * dims[i]]
+                      .reshape(p, dims[i]).copy()
+                      for name, i in interp.variable_to_index["points"]
+                      .items()}, "points")
+
+
+def face_tables(interp):
+    """Face-table launches a GLS rebuild makes: one on one device, one a
+    distinct card on a mesh, one a part under shard_geometry."""
+    dg = interp.device_grid
+    if dg.mesh is None:
+        return 1
+    return len(dg.shards) if dg.shard_geometry else len(dg.mesh.distinct)
+
+
 def main_path(interp, tp, classes, label, max_bad=MAX_BAD, with_csr=True,
               route=None):
     """Phase 5 (5b, 5c, 5d; 9 on a mesh): the public entry points of one
     route (``route``, default ``label``: a key of PER_CHUNK), counting
     every kernel's launches and every plain version's calls: a warm-up, 3
-    timed device_out runs and, ``with_csr``, interpolate().  More than
-    ``max_bad`` nodes sent to the exact fallback fail it (None: any
-    number)."""
+    timed device_out runs and, ``with_csr``, interpolate(), each after
+    ``reload_points``, so that each rebuilds the face table by its kernel
+    (``face_tables`` launches a run).  More than ``max_bad`` nodes sent to
+    the exact fallback fail it (None: any number)."""
     from ninpol_tpu_torch.ops import cholqr as cq
+    from ninpol_tpu_torch.ops import face_table as ft
     from ninpol_tpu_torch.ops import gls_solve as gs
     from ninpol_tpu_torch.ops import qr
 
     wrappers = {"gls_solve": gs.gls_solve,
                 **{k: getattr(cq, k) for k in SOLVE_KERNELS},
-                "qr_r": qr.qr_r, "sne_solve": qr.sne_solve}
+                "qr_r": qr.qr_r, "sne_solve": qr.sne_solve,
+                "face_table": ft.face_table}
     plain = ([(gs, "gls_solve_reference")]
              + [(cq, f"{k}_reference") for k in SOLVE_KERNELS]
-             + [(qr, "qr_r_reference"), (qr, "sne_solve_reference")])
+             + [(qr, "qr_r_reference"), (qr, "sne_solve_reference"),
+                (ft, "face_table_reference")])
     plain_calls = []
     saved = [(mod, name, getattr(mod, name)) for mod, name in plain]
 
@@ -1008,11 +1045,13 @@ def main_path(interp, tp, classes, label, max_bad=MAX_BAD, with_csr=True,
     for w in wrappers.values():
         w.launches = 0
     try:
+        reload_points(interp)
         t0 = time.perf_counter()
         W, NW = interp.prepare_interpolator("gls", "u", tp)
         warm_s = time.perf_counter() - t0
         times = []
         for _ in range(3):
+            reload_points(interp)
             sync_all()
             t0 = time.perf_counter()
             wdev = interp.prepare_interpolator("gls", "u", tp,
@@ -1021,6 +1060,7 @@ def main_path(interp, tp, classes, label, max_bad=MAX_BAD, with_csr=True,
             times.append(time.perf_counter() - t0)
         n_bad = interp.gls.last_n_bad
         if with_csr:
+            reload_points(interp)
             t0 = time.perf_counter()
             csr, _ = interp.interpolate("u", "gls")
             csr_s = time.perf_counter() - t0
@@ -1031,9 +1071,11 @@ def main_path(interp, tp, classes, label, max_bad=MAX_BAD, with_csr=True,
     runs = 5 if with_csr else 4     # warm-up, 3 timed[, interpolate]
     per_chunk = PER_CHUNK[route or label]
     want = {k: runs * chunks * per_chunk.get(k, 0) for k in wrappers}
+    want["face_table"] = runs * face_tables(interp)
     check(launches == want,
           f"{label}: kernel launches {launches} != {want} ({runs} runs x "
-          f"{chunks} chunks): some class did not go through the kernels")
+          f"{chunks} chunks, {face_tables(interp)} face tables a run): "
+          f"some class or table did not go through the kernels")
     check(not plain_calls, f"{label}: plain versions called on the main "
                            f"path: {sorted(set(plain_calls))}")
     # a wrong preconditioner only stops nodes converging, and the exact
@@ -1713,6 +1755,24 @@ def entry(name, source, replaces, launches, rows, top,
             "classes": rows}
 
 
+def face_table_entry(rows, launches):
+    """The face-table kernel's entry of the kernels JSON line: phase 4g's
+    rows (tools/face_table.py, one a mesh, the kernel equal to its plain
+    version to the bit), the numbers the first mesh's; ``launches`` the
+    fused route's main path's (phase 5).  It ports no TPU kernel:
+    ninpol_tpu builds the table with numpy on the host."""
+    top = rows[0]
+    return {"name": "face_table", "route": "cuda",
+            "source": "ninpol_tpu_torch/csrc/face_table.cu",
+            "replaces": "ninpol_tpu/_methods/gls.py:"
+                        f"{FACE_TABLE_LINE} (numpy, on the host)",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "bound_by")},
+            "library_ms": None, "meshes": rows}
+
+
 def probe_entries(tool, source, table, launches):
     """The entries of a probe phase (``tool``: tools/factor_probes.py,
     tools/mxu_probes.py or tools/input_probes.py), one for each tools/ site
@@ -1863,6 +1923,7 @@ def input_entries(table, launches):
 def build_kernels():
     """Phase 2: one nvcc per kernel source, all started together."""
     from ninpol_tpu_torch.ops import cholqr as cq
+    from ninpol_tpu_torch.ops import face_table as ft
     from ninpol_tpu_torch.ops import factor_probes as fp
     from ninpol_tpu_torch.ops import gls_solve as gs
     from ninpol_tpu_torch.ops import input_probes as ip
@@ -1870,7 +1931,7 @@ def build_kernels():
     from ninpol_tpu_torch.ops import qr
 
     libs = (gs.library, gs.stage_library, cq.library, qr.library,
-            fp.library, mp.library, ip.library)
+            fp.library, mp.library, ip.library, ft.library)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
         for f in [ex.submit(lib.get) for lib in libs]:
@@ -1942,6 +2003,8 @@ def main():
               for c, inp, n_elem in chunks]
     n_refine = interp.gls.n_refine
     phase_done("4f gls_solve rounds=1")
+    face_rows = [face_table_tool.check(interp, f"tetra_mesh({args.n})")]
+    phase_done("4g face table")
 
     # ---- 5. main path, the three routes, and "refined"
     W, NW, stats = main_path(interp, tp, classes, "fused")
@@ -2005,6 +2068,7 @@ def main():
           f"points; grid build {hexa_s:.2f} s, problem "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     simple_methods(hexa, f"hexa_mesh({args.hexa})")
+    face_rows.append(face_table_tool.check(hexa, f"hexa_mesh({args.hexa})"))
     del hexa
     phase_done("8 idw/ls hexa")
 
@@ -2055,6 +2119,8 @@ def main():
     kernels += factor_entries(probe_table, probe_launches)
     kernels += mxu_entries(mxu_table, mxu_sweep, mxu_launches)
     kernels += input_entries(input_table, input_launches)
+    kernels.append(face_table_entry(face_rows,
+                                    stats["launches"]["face_table"]))
     print("# mesh " + json.dumps(mesh_stats), flush=True)
     print(card, flush=True)            # nvidia-smi name, power.limit
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -102,6 +102,13 @@ class DeviceGrid:
         self.esuf_pair = place(self.esuf2d_h[:, :2])
         self.point_coords = place(np.asarray(grid.point_coords, np.float64))
         self.centroids = place(np.asarray(grid.centroids, np.float64))
+        # what GLS builds its face table from on every rebuild
+        # (ops/face_table.py): each face's normal and centre, and its
+        # points (-1 padded)
+        self.face_geo = place(np.concatenate(
+            [np.asarray(grid.normal_faces, np.float64),
+             np.asarray(grid.faces_centers, np.float64)], axis=1))
+        self.inpofa = place(np.asarray(grid.inpofa, np.int32))
 
     def place(self, a):
         """A host array placed as this grid's arrays are: a tensor on the
@@ -112,6 +119,28 @@ class DeviceGrid:
         if self.shard_geometry:
             return PartitionedRows(a, self.mesh)
         return Replicated(a, self.mesh)
+
+    def map_rows(self, fn, *rows):
+        """``fn(device, *pieces)``, a tensor of the pieces' rows, made from
+        each device's rows of the arrays ``rows`` (placed by ``place``,
+        with one row count) and placed as they are: one tensor without a
+        mesh, one copy per distinct device, or each shard's part, padded
+        with zero rows as ``place`` pads it."""
+        if self.mesh is None:
+            return fn(self.device, *rows)
+        if not self.shard_geometry:
+            return Replicated.of({d: fn(d, *(r.on(d) for r in rows))
+                                  for d in self.mesh.distinct})
+        lead = rows[0]
+        parts = []
+        for k, d in enumerate(self.shards):
+            n = lead.valid_rows(k)
+            t = fn(d, *(r.parts[k][:n] for r in rows))
+            if n < lead.rows:
+                t = torch.cat([t, t.new_zeros((lead.rows - n,)
+                                              + tuple(t.shape[1:]))])
+            parts.append(t)
+        return PartitionedRows.of(parts, lead.n_rows)
 
     def on(self, shard):
         """The arrays shard ``shard`` gathers from, on its device."""
@@ -196,7 +225,7 @@ class GridView:
     copies on the shard's device, or the partitioned arrays themselves."""
 
     ARRAYS = ("esup2d", "esup_cnt", "fsup2d", "fsup_cnt", "esuf_pair",
-              "point_coords", "centroids")
+              "point_coords", "centroids", "face_geo", "inpofa")
 
     def __init__(self, dgrid, shard):
         self.shard = shard

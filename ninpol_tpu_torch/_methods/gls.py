@@ -47,12 +47,14 @@ import sys
 import numpy as np
 import torch
 
+from ..ops import face_table as face_ops
 from ..ops import qr
 from ..ops.cholqr import KERNELS
 from ..ops.gls_solve import (assemble, cholqr2_solve, gls_solve, incidence,
                              mul_G, node_active, solve_outputs)
 from ..ops.solve import householder_lastrow, solve_normal_refined
-from ..parallel.sharding import as_mesh, local, schedule, to_device
+from ..parallel.sharding import (Replicated, as_mesh, local, schedule,
+                                 to_device)
 from ..utils.tracing import PREFIX, children, count, span, to_host, upload
 
 # Solve-kernel chunks hold at most this many system-matrix elements
@@ -70,9 +72,10 @@ GATHER_RANGE = PREFIX + "gls_gather"
 SOLVE_RANGE = PREFIX + "gls_solve"
 EPILOGUE_RANGE = PREFIX + "gls_epilogue"
 EXACT_RANGE = PREFIX + "gls_exact"
-# the face table's two parts: its numpy build and its copy to the device
-FACE_BUILD = PREFIX + "face_build"
+# the face table's two parts: the copies of its per-cell and per-point
+# inputs to the device, then its build there
 FACE_UPLOAD = PREFIX + "face_upload"
+FACE_BUILD = PREFIX + "face_build"
 # prepare()'s span and its phases, each with its name on the
 # NINPOL_TPU_PHASES line (ninpol_tpu's names, marks at each phase's end)
 PREPARE = PREFIX + "prepare"
@@ -87,54 +90,30 @@ PHASE_MARKS = {FACE_TABLE: "face_cache", CLASS_PLAN: "bucket_plan",
                EXACT_FALLBACK: "exact_fallback", HOST_WRITE: "host_write"}
 
 
-def precompute_face_data(grid, perm, diff_mag):
-    """Per-face flux vectors K N for both sides + eta = max diff_mag of
-    the pair — pure face data the reference recomputes per node
-    (gls.pyx:301-321: dgemv("T") on a ROW-major 3x3 buffer, which BLAS
-    reads column-major as K^T and transposes back, i.e. K @ N).  The
-    Neumann rows use the owner (first) cell's vector (gls.pyx:396-397),
-    which is nL1g."""
-    perm = np.reshape(np.asarray(perm), (grid.n_elems, 3, 3))
-    diff_mag = np.asarray(diff_mag).reshape(-1)[:grid.n_elems]
-    fptr = grid.esuf_ptr
-    first = grid.esuf[fptr[:-1]]
-    has2 = np.diff(fptr) >= 2
-    second = np.where(has2, grid.esuf[np.minimum(
-        fptr[:-1] + 1, len(grid.esuf) - 1)], first)
-    Nrm = grid.normal_faces
-    nL1g = np.einsum("fij,fj->fi", perm[first], Nrm)
-    nL2g = np.einsum("fij,fj->fi", perm[second], Nrm)
-    etag = np.maximum(diff_mag[first], diff_mag[second])
-    return nL1g, nL2g, etag
-
-
-def build_flux_block(grid, perm, diff_mag, neumann_val):
-    """The per-variable float64 face columns: [0:3] K@N side 1, [3:6]
-    K@N side 2, [6] eta, [7] the per-face Neumann mean (mean over the
-    face's points, the oracle's / gls.pyx:374-416 semantics)."""
-    nL1g, nL2g, etag = precompute_face_data(grid, perm, diff_mag)
-    nvraw = np.asarray(neumann_val, np.float64)
-    ipofa = grid.inpofa
-    ipv = ipofa >= 0
-    nsum = np.where(ipv, nvraw[np.where(ipv, ipofa, 0)], 0.0)
-    nmean_face = nsum.sum(axis=1) / np.maximum(ipv.sum(axis=1), 1)
-    return np.concatenate([nL1g, nL2g, etag[:, None], nmean_face[:, None]],
-                          axis=1).astype(np.float64)
-
-
 def build_face_table(dgrid, perm, diff_mag, neumann_val, neumann_flag):
     """The face table, (n_faces, 14) float64, one row per face: [0:3]
-    normal, [3:6] center, [6:14] the flux block; and the points' Neumann
-    flags: both placed as the grid's arrays are (``DeviceGrid.place``)."""
-    grid = dgrid.grid
-    with span(FACE_BUILD):
-        rows = np.concatenate(
-            [np.asarray(grid.normal_faces, np.float64),
-             np.asarray(grid.faces_centers, np.float64),
-             build_flux_block(grid, perm, diff_mag, neumann_val)], axis=1)
-        flags = np.asarray(neumann_flag) != 0
+    normal, [3:6] center, [6:9] K N of the first cell, [9:12] of the
+    second, [12] eta, [13] the face's mean Neumann value
+    (ops/face_table.py), built on each device from the face geometry
+    the grid holds there and the per-cell K and diff_mag and per-point
+    Neumann values copied to it; and the points' Neumann flags.  Both
+    are placed as the grid's arrays are (``DeviceGrid.map_rows``,
+    ``DeviceGrid.place``)."""
+    n, p = dgrid.n_elems, dgrid.n_points
+    host = [np.asarray(perm, np.float64).reshape(-1)[:9 * n],
+            np.asarray(diff_mag, np.float64).reshape(-1)[:n],
+            np.asarray(neumann_val, np.float64).reshape(-1)[:p]]
     with span(FACE_UPLOAD):
-        return dgrid.place(rows), dgrid.place(flags)
+        # every device gathers any cell's K, so each holds all of them
+        inputs = [upload(a, dgrid.device) if dgrid.mesh is None
+                  else Replicated(a, dgrid.mesh) for a in host]
+        flags = dgrid.place(np.asarray(neumann_flag)[:p] != 0)
+    with span(FACE_BUILD):
+        table = dgrid.map_rows(
+            lambda dev, geo, pair, inpofa: face_ops.face_table(
+                geo, pair, inpofa, *(local(x, dev) for x in inputs)),
+            dgrid.face_geo, dgrid.esuf_pair, dgrid.inpofa)
+    return table, flags
 
 
 def gls_gather(dgrid, face_table, neumann_flag, nodes, E, F, with_neumann,
@@ -467,10 +446,9 @@ class GLSInterpolation:
             ckey = (id(dgrid.grid), id(cells_data), id(points_data),
                     variable)
         if self._face_cache_key != ckey:
-            grid = dgrid.grid
-            perm = np.reshape(
-                cells_data[variable_to_index["cells"]["permeability"]],
-                (grid.n_elems, 3, 3))
+            # the stale table goes before the new one is built beside it
+            self._face_cache = self._face_cache_key = None
+            perm = cells_data[variable_to_index["cells"]["permeability"]]
             diff_mag = cells_data[variable_to_index["cells"]["diff_mag"]]
             nval = points_data[
                 variable_to_index["points"]["neumann_" + variable]]

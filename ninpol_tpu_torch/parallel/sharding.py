@@ -183,6 +183,13 @@ class Replicated:
         t = torch.as_tensor(np.ascontiguousarray(host))
         self.copies = {d: upload(t, d) for d in mesh.distinct}
 
+    @classmethod
+    def of(cls, copies):
+        """The copies {device: tensor}, made on their devices."""
+        self = cls.__new__(cls)
+        self.copies = dict(copies)
+        return self
+
     def on(self, device):
         return self.copies[device]
 
@@ -212,6 +219,22 @@ class PartitionedRows:
         self.parts = tuple(
             upload(t[k * self.rows:(k + 1) * self.rows], d)
             for k, d in enumerate(mesh.devices))
+
+    @classmethod
+    def of(cls, parts, n_rows):
+        """The parts, made on their shards' devices: equal row ranges of an
+        n_rows-long array, zero past n_rows."""
+        self = cls.__new__(cls)
+        self.parts = tuple(parts)
+        self.n_rows = n_rows
+        self.rows = self.parts[0].shape[0]
+        self.shape = (self.rows * len(self.parts),) + tuple(
+            self.parts[0].shape[1:])
+        return self
+
+    def valid_rows(self, k):
+        """The rows of part k that hold the array (the rest pad it)."""
+        return min(max(self.n_rows - k * self.rows, 0), self.rows)
 
     def __getitem__(self, key):
         idx, cols = key if isinstance(key, tuple) else (key, slice(None))

@@ -28,8 +28,9 @@ Spans (``ninpol_tpu_torch.`` + name) and counters, where they are taken:
                              ``compute_diffusion_magnitude``
   prepare                    GLS: prepare(), whose phases follow
   face_table                 GLS: the face table and Neumann flags, with
-    face_build               its numpy build and
-    face_upload              their copies to the device
+    face_upload              the copies of K, diff_mag, the Neumann values
+                             and flags to the device, then
+    face_build               the table's build there (ops/face_table.py)
   class_plan, dispatch,      GLS: the stencil classes, the chunk loop,
   n_bad_sync,                the count of nodes not converged,
   exact_fallback, host_write the exact path and the copy to the host
@@ -41,6 +42,7 @@ Spans (``ninpol_tpu_torch.`` + name) and counters, where they are taken:
 
   h2d_bytes, d2h_bytes       bytes copied host to card and card to host
   host_syncs                 waits of the host for the card
+  face_rows                  face-table rows built by the kernel on a card
   n_bad                      nodes sent to the GLS exact fallback
 """
 from __future__ import annotations

@@ -426,3 +426,63 @@ def test_one_round_preconditioner_matches_oracle(setups, fam, n):
     scale = max(np.abs(Wo[ok]).max(), 1.0)
     assert np.abs(W[ok] - Wo[ok]).max() / scale < TOL
     assert np.abs(NW[ok] - NWo[ok]).max() / scale < TOL
+
+
+@pytest.mark.parametrize("fam", ["tetra", "hexa", "prism", "misc",
+                                 "triangle", "mixed"])
+def test_face_table_matches_numpy_build(fam):
+    """The face table's plain version (ops/face_table.py, what a CPU grid
+    runs) against ninpol_tpu's host build of the same face data
+    (``precompute_face_data``: K N of both cells and eta in float64), on
+    tets, hexes, wedges, pyramids with tets, a 2D mesh and hexes with
+    tets (triangle and quad faces, -1 padded): a non-symmetric K, so that
+    K^T N fails; Neumann values on some points only.  Geometry and eta
+    bit for bit, K N and the Neumann mean within 4 ulp of |K| |N| and of
+    the mean |value|.  ninpol_tpu packs the Neumann mean into float32
+    halves (``build_flux_block``), so its float64 mean is computed here
+    as that function computes it."""
+    from ninpol_tpu._methods.gls import precompute_face_data
+    from ninpol_tpu_torch._methods.gls import build_face_table
+
+    port = ninpol_tpu_torch.Interpolator(device="cpu")
+    port.load_mesh(mesh_obj=meshgen.FAMILIES[fam](3))
+    g = port.grid
+    rng = np.random.default_rng(7)
+    K = rng.normal(size=(g.n_elems, 9))
+    dm = rng.random(g.n_elems) * 3.0
+    flag = (rng.random(g.n_points) < 0.4).astype(np.float64)
+    nval = rng.normal(size=g.n_points) * 1e3 * flag
+    table, nflag = build_face_table(port.device_grid, K, dm, nval, flag)
+    got = table.numpy()
+    nL1, nL2, eta, _ = precompute_face_data(g, K, dm)
+    ipv = g.inpofa >= 0
+    nsum = np.where(ipv, nval[np.where(ipv, g.inpofa, 0)], 0.0)
+    nmean = nsum.sum(axis=1) / np.maximum(ipv.sum(axis=1), 1)
+    want = np.concatenate([g.normal_faces, g.faces_centers, nL1, nL2,
+                           eta[:, None], nmean[:, None]], axis=1)
+    assert got.shape == want.shape == (g.n_faces, 14)
+    np.testing.assert_array_equal(nflag.numpy(), flag != 0)
+    np.testing.assert_array_equal(got[:, :6], want[:, :6])
+    assert (got[:, 12].view(np.int64) == want[:, 12].view(np.int64)).all()
+
+    eps = np.finfo(np.float64).eps
+    pair = port.device_grid.esuf2d_h[:, :2]
+    boundary = pair[:, 1] < 0
+    assert boundary.any() and (~boundary).any()
+    c2 = np.where(boundary, pair[:, 0], pair[:, 1])
+    absN = np.abs(g.normal_faces)
+    absK = np.abs(K).reshape(-1, 3, 3)
+    for cols, cells in ((slice(6, 9), pair[:, 0]), (slice(9, 12), c2)):
+        tol = 4 * eps * np.einsum("fij,fj->fi", absK[cells], absN)
+        assert (np.abs(got[:, cols] - want[:, cols]) <= tol).all()
+        # the transposed product is told apart
+        KT = np.einsum("fji,fj->fi", K.reshape(-1, 3, 3)[cells],
+                       g.normal_faces)
+        assert (np.abs(got[:, cols] - KT) > tol).any()
+    np.testing.assert_array_equal(got[boundary, 9:12], got[boundary, 6:9])
+    assert (~ipv).any() == (fam in ("tetra", "prism", "misc", "triangle",
+                                    "mixed"))
+    absv = np.where(ipv, np.abs(nval)[np.where(ipv, g.inpofa, 0)], 0.0)
+    scale = absv.sum(axis=1) / np.maximum(ipv.sum(axis=1), 1)
+    assert (np.abs(got[:, 13] - want[:, 13]) <= 4 * eps * scale).all()
+    assert (got[:, 13] != 0).any() and (got[:, 13] == 0).any()

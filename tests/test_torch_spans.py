@@ -135,8 +135,8 @@ def test_a_rebuild_records_the_span_tree(problem, on, capsys):
                       gls.N_BAD_SYNC] + (
         [gls.EXACT_FALLBACK] if n_bad else []) + [gls.HOST_WRITE]
     (table,) = by_name(spans, gls.FACE_TABLE)
-    assert [s.name for s in kids(spans, table)] == [gls.FACE_BUILD,
-                                                     gls.FACE_UPLOAD]
+    assert [s.name for s in kids(spans, table)] == [gls.FACE_UPLOAD,
+                                                     gls.FACE_BUILD]
     (dispatch,) = by_name(spans, gls.DISPATCH)
     chunk = [s.name for s in kids(spans, dispatch)]
     assert chunk and chunk == [gls.GATHER_RANGE, gls.SOLVE_RANGE,
@@ -308,12 +308,35 @@ def test_counters_where_a_card_is_stood_in(problem, on, method):
     syncs = 2 * n_chunks + 1
     if method == "gls":
         assert interp.gls.last_n_bad == 0
-        h2d += g.n_faces * 14 * 8 + g.n_points    # face table, flags
+        # the face table's inputs: K, diff_mag, Neumann values and flags
+        h2d += 9 * 8 * g.n_elems + 8 * g.n_elems + 8 * g.n_points \
+            + g.n_points
         d2h += 8 * len(tp) + 8                    # the Neumann column, n_bad
-        syncs += 3
+        syncs += 5
     assert counters["h2d_bytes"] == h2d
     assert counters["d2h_bytes"] == d2h
     assert counters["host_syncs"] == syncs
+
+
+def test_face_table_spans_and_rows(problem, on):
+    """A rebuild copies the face table's inputs, then builds it, inside
+    ``face_table``; on the CPU no row is built by the kernel.  A prepare
+    with unchanged data reads the cached table: no copy, no build."""
+    snap = rebuild(problem)
+    spans = snap["spans"]
+    (table,) = by_name(spans, gls.FACE_TABLE)
+    assert [s.name for s in kids(spans, table)] == [gls.FACE_UPLOAD,
+                                                     gls.FACE_BUILD]
+    assert snap["counters"].get("face_rows", 0) == 0
+    tracing.reset()
+    problem.interp.prepare_interpolator(
+        "gls", "u", np.arange(problem.interp.grid.n_points))
+    snap = tracing.snapshot()
+    (table,) = by_name(snap["spans"], gls.FACE_TABLE)
+    assert kids(snap["spans"], table) == []
+    assert gls.FACE_UPLOAD not in snap["totals"]
+    assert gls.FACE_BUILD not in snap["totals"]
+    assert snap["counters"].get("face_rows", 0) == 0
 
 
 def test_mesh_gathers_are_spans_of_their_chunks(on):

@@ -108,6 +108,14 @@ inline bool __any_sync(unsigned, bool pred) {
 
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 
+// the read-only load path, and float64 operations rounded once (an x86-64
+// build without -mfma has no FMA to contract them into)
+template <typename T>
+inline T __ldg(const T* p) { return *p; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
+
 // mma.sync.aligned.m8n8k4.row.col.f64 (D = A B + D on the FP64 tensor
 // cores), with the card's fragments: lane 4 g + t holds a = A[g][t],
 // b = B[t][g], c0 = D[g][2t] and c1 = D[g][2t + 1].  The four products
